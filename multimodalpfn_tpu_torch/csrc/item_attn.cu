@@ -1,0 +1,450 @@
+// K2a: item attention with its QKV projection, over x3 (G, S, e) whose first
+// `sep` rows are train rows:
+//   qkv = x3 · W^T                                  (W = w_qkv as (3·h·d, e))
+//   train rows:  o_h = softmax(q_h k_h^T / sqrt(d)) v_h   over train keys, head h
+//   test rows:   o_h = softmax(q_h k_0^T / sqrt(d)) v_0   over train keys, KV head 0
+// returning o (G, S, h·d) and lse (G, h, S) in float32.
+//
+// Replaces multimodalpfn_tpu/ops/pallas_item_fused.py:_fwd_kernel (pallas_call
+// in _fwd_region, :200/:222, called for both regions from _fwd_call :246).
+//
+// What bounds it on the H100: the attention FMAs. At the flagship shape
+// (G = 124, S = 2350, sep = 1838, h = 6, d = 32) the scores and P·V cost
+// 205 G FMAs per call against 64 G FLOP of projection and ~0.3 GB of traffic.
+// float32 operands run on the CUDA cores (the parity mode needs full float32
+// products); bf16 operands run on the tensor cores with mma.sync
+// (proj_nt_tc_kernel, item_attn_mma_kernel). wgmma/TMA pipelines are later
+// work.
+//
+// Design:
+//  * proj_nt_kernel: a classic shared-memory tiled product, 64×64 outputs per
+//    block, 4×4 per thread, k-slabs of 16; outputs rounded to T as the Pallas
+//    kernel casts its projections. It is a kernel of this file, not a library
+//    call. Test rows' k/v columns are computed and unused (13% of the
+//    projection at the flagship shape) to keep one plain product.
+//    proj_nt_tc_kernel is its bf16 tensor-core twin.
+//  * item_attn_kernel: one block per (group, head, 64-query tile); a thread
+//    owns one query row: its q and its float32 output accumulator live in
+//    registers, K/V tiles of 64 train rows are staged in shared memory and
+//    read as broadcasts. Online softmax over sub-tiles of 16 keys with the
+//    Pallas kernel's rounding (the unnormalized weights are rounded to T
+//    before P·V; their sum stays float32). The query tiles of the two regions
+//    are enumerated in one grid, so a tile never straddles `sep`; a test tile
+//    reads KV head 0. K/V rows past `sep` are zero-filled on load and masked
+//    with -1e30, so no out-of-range value reaches a sum. K/V stream from
+//    device memory, so `sep` has no shared-memory ceiling (the Pallas kernel
+//    kept K/V resident in VMEM and was capped at 4096 rows).
+//    item_attn_mma_kernel is its bf16 tensor-core twin (d a multiple of 16):
+//    a warp owns 16 query rows and runs the same online softmax on mma
+//    fragments.
+#include "common.cuh"
+
+#include <type_traits>
+
+namespace {
+
+// ---- projection: C[M, N] = A[M, K] · B[N, K]^T -----------------------------
+constexpr int PM = 64, PN = 64, PK = 16, PTHREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(PTHREADS)
+proj_nt_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
+               long long M, int N, int K) {
+  __shared__ __align__(16) float As[PK][PM + 4];
+  __shared__ __align__(16) float Bs[PK][PN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long m0 = (long long)blockIdx.y * PM;
+  const int n0 = blockIdx.x * PN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += PK) {
+    for (int i = tid; i < PM * PK; i += PTHREADS) {
+      const int r = i / PK, kk = i - r * PK;
+      const long long gm = m0 + r;
+      const int gk = k0 + kk;
+      As[kk][r] = (gm < M && gk < K) ? to_f<T>(A[gm * K + gk]) : 0.f;
+      const int gn = n0 + r;
+      Bs[kk][r] = (gn < N && gk < K) ? to_f<T>(B[(long long)gn * K + gk]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long gm = m0 + ty * 4 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx * 4 + j;
+      if (gn < N) C[gm * N + gn] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+// The same product for bf16 operands with K a multiple of 8 and N even, on the
+// tensor cores: 64×64 outputs per block, a warp owns 16 rows, k-slabs of 32
+// staged in shared memory with 16-byte loads (zero past M, N and K), mma.sync
+// m16n8k16 with float32 accumulation, outputs rounded to bf16. B's rows are
+// the contraction-major b fragments as they lie, so no transpose is needed.
+constexpr int TM = 64, TN = 64, TK = 32, TTHREADS = 128;
+
+__global__ void __launch_bounds__(TTHREADS)
+proj_nt_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
+                  __nv_bfloat16* __restrict__ C, long long M, int N, int K) {
+  constexpr int LD = TK + 8;  // padded rows: fragment reads hit distinct banks
+  __shared__ __align__(16) __nv_bfloat16 As[TM * LD];
+  __shared__ __align__(16) __nv_bfloat16 Bs[TN * LD];
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int wr = 16 * (tid >> 5);
+  const long long m0 = (long long)blockIdx.y * TM;
+  const int n0 = blockIdx.x * TN;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  float acc[TN / 8][4];
+#pragma unroll
+  for (int n = 0; n < TN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += TK) {
+    for (int i = tid; i < TM * TK / 8; i += TTHREADS) {
+      const int r = i / (TK / 8), c = (i - r * (TK / 8)) * 8;
+      const long long gm = m0 + r;
+      const int gn = n0 + r, gk = k0 + c;
+      *reinterpret_cast<uint4*>(As + r * LD + c) =
+          gm < M && gk < K ? *reinterpret_cast<const uint4*>(A + gm * K + gk) : zero;
+      *reinterpret_cast<uint4*>(Bs + r * LD + c) =
+          gn < N && gk < K ? *reinterpret_cast<const uint4*>(B + (long long)gn * K + gk) : zero;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < TK / 16; ++ks) {
+      uint32_t a[4];
+      lds_a(a, As + wr * LD + ks * 16, LD);
+#pragma unroll
+      for (int n = 0; n < TN / 8; ++n) {
+        const __nv_bfloat16* br = Bs + (n * 8 + g) * LD + ks * 16 + 2 * q4;
+        mma_bf16_16816(acc[n], a, *reinterpret_cast<const uint32_t*>(br),
+                       *reinterpret_cast<const uint32_t*>(br + 8));
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long gm = m0 + wr + g + 8 * r;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int n = 0; n < TN / 8; ++n) {
+      const int gn = n0 + n * 8 + 2 * q4;  // even, and N is even: gn + 1 < N too
+      if (gn < N)
+        *reinterpret_cast<uint32_t*>(C + gm * N + gn) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// ---- two-block online-softmax attention ------------------------------------
+constexpr int BQ = 64;   // query rows per block (one per thread)
+constexpr int BKV = 64;  // K/V rows per shared-memory tile
+constexpr int SUB = 16;  // keys per online-softmax update
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BQ)
+item_attn_kernel(const T* __restrict__ qkv, T* __restrict__ o, float* __restrict__ lse, int S,
+                 int sep, int h, float scale) {
+  __shared__ __align__(16) float Ks[BKV][D];
+  __shared__ __align__(16) float Vs[BKV][D];
+  const int g = blockIdx.z, hh = blockIdx.y, tid = threadIdx.x;
+  const int n_qb_tr = (sep + BQ - 1) / BQ;
+  const bool cross = (int)blockIdx.x >= n_qb_tr;
+  const int q0 = cross ? sep + ((int)blockIdx.x - n_qb_tr) * BQ : (int)blockIdx.x * BQ;
+  const int q_end = cross ? S : sep;
+  const int kvh = cross ? 0 : hh;  // test rows share KV head 0
+  const int hd = h * D, ld = 3 * hd;
+  const T* grp = qkv + (long long)g * S * ld;
+  const int qi = q0 + tid;
+  const bool valid = qi < q_end;
+
+  float q[D], acc[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    q[c] = valid ? to_f<T>(grp[(long long)qi * ld + hh * D + c]) : 0.f;
+    acc[c] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+
+  for (int k0 = 0; k0 < sep; k0 += BKV) {
+    for (int i = tid; i < BKV * D; i += BQ) {
+      const int r = i / D, c = i - r * D;
+      const int kr = k0 + r;
+      const bool ok = kr < sep;
+      const T* row = grp + (long long)kr * ld + kvh * D + c;
+      Ks[r][c] = ok ? to_f<T>(row[hd]) : 0.f;
+      Vs[r][c] = ok ? to_f<T>(row[2 * hd]) : 0.f;
+    }
+    __syncthreads();
+    const int nk = min(BKV, sep - k0);
+    for (int j0 = 0; j0 < nk; j0 += SUB) {
+      float sc[SUB];
+      float mt = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < SUB; ++jj) {
+        const float* kr = Ks[j0 + jj];
+        float a = 0.f;
+#pragma unroll
+        for (int c = 0; c < D; c += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+          a = fmaf(q[c], kv.x, fmaf(q[c + 1], kv.y, fmaf(q[c + 2], kv.z, fmaf(q[c + 3], kv.w, a))));
+        }
+        sc[jj] = j0 + jj < nk ? a * scale : -1e30f;
+        mt = fmaxf(mt, sc[jj]);
+      }
+      const float m_new = fmaxf(m, mt);
+      const float alpha = expf(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int c = 0; c < D; ++c) acc[c] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < SUB; ++jj) {
+        const float p = expf(sc[jj] - m_new);
+        l += p;
+        const float pr = round_t<T>(p);
+        const float* vr = Vs[j0 + jj];
+#pragma unroll
+        for (int c = 0; c < D; c += 4) {
+          const float4 vv = *reinterpret_cast<const float4*>(vr + c);
+          acc[c] = fmaf(pr, vv.x, acc[c]);
+          acc[c + 1] = fmaf(pr, vv.y, acc[c + 1]);
+          acc[c + 2] = fmaf(pr, vv.z, acc[c + 2]);
+          acc[c + 3] = fmaf(pr, vv.w, acc[c + 3]);
+        }
+      }
+      m = m_new;
+    }
+    __syncthreads();
+  }
+  if (valid) {
+    T* orow = o + ((long long)g * S + qi) * hd + hh * D;
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int c = 0; c < D; ++c) orow[c] = from_f<T>(acc[c] * inv);
+    lse[((long long)g * h + hh) * S + qi] = m + logf(l);
+  }
+}
+
+// ---- bf16 attention on the tensor cores ------------------------------------
+// The same function for bf16 operands: a warp owns 16 query rows, scores and
+// P·V are mma.sync m16n8k16 products (bf16 in, float32 accumulated), and the
+// online softmax runs on the score fragments: each row lives in the 4 lanes
+// of a quad, which combine their maxima with shuffles and keep partial sums
+// that are added once at the end. P is rounded to bf16 to enter the P·V
+// product, as the Pallas kernel rounds it. K and V tiles are staged
+// row-major with 16-byte loads (ldmatrix.trans reads V as b fragments), rows
+// padded so fragment reads hit distinct banks; 128 query rows per block share
+// each staged tile.
+constexpr int MQ = 128;       // query rows per block: 8 warps x 16
+constexpr int MKV = 64;       // keys per shared-memory tile
+constexpr int MTHREADS = 2 * MQ;
+
+template <int D>
+__global__ void __launch_bounds__(MTHREADS)
+item_attn_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int S, int sep, int h, float scale) {
+  constexpr int KP = D + 8;     // padded row of the K and V tiles (bf16 elements)
+  constexpr int NB = MKV / 8;   // score tiles of 8 keys
+  constexpr int ND = D / 8;     // output tiles of 8 columns
+  __shared__ __align__(16) __nv_bfloat16 Ks[MKV * KP];
+  __shared__ __align__(16) __nv_bfloat16 Vs[MKV * KP];
+  const int g_i = blockIdx.z, hh = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int n_qb_tr = (sep + MQ - 1) / MQ;
+  const bool cross = (int)blockIdx.x >= n_qb_tr;
+  const int q0 = (cross ? sep + ((int)blockIdx.x - n_qb_tr) * MQ : (int)blockIdx.x * MQ) + 16 * warp;
+  const int q_end = cross ? S : sep;
+  const int kvh = cross ? 0 : hh;  // test rows share KV head 0
+  const int hd = h * D, ld = 3 * hd;
+  const __nv_bfloat16* grp = qkv + (long long)g_i * S * ld;
+
+  // this warp's 16 query rows as A fragments, one per 16-wide slice of d
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + g + 8 * (i & 1), col = ks * 16 + 2 * q4 + 8 * (i >> 1);
+      qa[ks][i] = row < q_end
+                      ? *reinterpret_cast<const uint32_t*>(grp + (long long)row * ld + hh * D + col)
+                      : 0u;
+    }
+  float oacc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) oacc[nd][0] = oacc[nd][1] = oacc[nd][2] = oacc[nd][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g+8
+
+  for (int k0 = 0; k0 < sep; k0 += MKV) {
+    for (int i = tid; i < MKV * D / 8; i += MTHREADS) {
+      const int r = i / (D / 8), c = 8 * (i - r * (D / 8));
+      const int kr = k0 + r;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
+      if (kr < sep) {
+        const __nv_bfloat16* row = grp + (long long)kr * ld + kvh * D + c;
+        kv = *reinterpret_cast<const uint4*>(row + hd);
+        vv = *reinterpret_cast<const uint4*>(row + 2 * hd);
+      }
+      *reinterpret_cast<uint4*>(Ks + r * KP + c) = kv;
+      *reinterpret_cast<uint4*>(Vs + r * KP + c) = vv;
+    }
+    __syncthreads();
+
+    float sc[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const __nv_bfloat16* kr = Ks + (nb * 8 + g) * KP + ks * 16 + 2 * q4;
+        mma_bf16_16816(sc[nb], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
+                       *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
+    }
+    const int nk = min(MKV, sep - k0);
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = nb * 8 + 2 * q4 + (i & 1);
+        sc[nb][i] = key < nk ? sc[nb][i] * scale : -1e30f;
+        mt[i >> 1] = fmaxf(mt[i >> 1], sc[nb][i]);
+      }
+    uint32_t pa[MKV / 16][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m[r], mt[r]);
+      const float alpha = expf(m[r] - m_new);
+      l[r] *= alpha;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        oacc[nd][2 * r] *= alpha;
+        oacc[nd][2 * r + 1] *= alpha;
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const float p0 = expf(sc[nb][2 * r] - m_new), p1 = expf(sc[nb][2 * r + 1] - m_new);
+        l[r] += p0 + p1;
+        // score tiles 2j and 2j+1 are the A fragment of keys 16j..16j+15
+        pa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(p0, p1);
+      }
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int j = 0; j < MKV / 16; ++j) {
+        uint32_t b0, b1;
+        ldsm_x2_trans(b0, b1, Vs + (j * 16 + (lane & 15)) * KP + nd * 8);
+        mma_bf16_16816(oacc[nd], pa[j], b0, b1);
+      }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + g + 8 * r;
+    if (row < q_end) {
+      const float inv = 1.f / l[r];
+      __nv_bfloat16* orow = o + ((long long)g_i * S + row) * hd + hh * D;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * q4) =
+            pack_bf16(oacc[nd][2 * r] * inv, oacc[nd][2 * r + 1] * inv);
+      if (q4 == 0) lse[((long long)g_i * h + hh) * S + row] = m[r] + logf(l[r]);
+    }
+  }
+}
+
+template <typename T>
+int launch_proj(const void* a, const void* b, void* c, long long M, int N, int K,
+                cudaStream_t stream) {
+  const long long mblocks = (M + PM - 1) / PM;
+  if (mblocks > 2147483647LL) return MMPFN_BAD_ARGS;
+  dim3 grid((N + PN - 1) / PN, (unsigned)mblocks);
+  static_assert(PM == TM && PN == TN, "both projection kernels tile the outputs alike");
+  if (std::is_same_v<T, __nv_bfloat16> && K % 8 == 0 && N % 2 == 0) {
+    proj_nt_tc_kernel<<<grid, TTHREADS, 0, stream>>>((const __nv_bfloat16*)a,
+                                                     (const __nv_bfloat16*)b, (__nv_bfloat16*)c,
+                                                     M, N, K);
+  } else {
+    proj_nt_kernel<T><<<grid, PTHREADS, 0, stream>>>((const T*)a, (const T*)b, (T*)c, M, N, K);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_attn(const void* qkv, void* o, float* lse, int G, int S, int sep, int h,
+                cudaStream_t stream) {
+  // query tiles of both regions in one grid: a tile never straddles sep
+  const float scale = 1.f / sqrtf((float)D);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && D % 16 == 0) {
+    const int nq = (sep + MQ - 1) / MQ + (S - sep + MQ - 1) / MQ;
+    item_attn_mma_kernel<D><<<dim3(nq, h, G), MTHREADS, 0, stream>>>((const T*)qkv, (T*)o, lse,
+                                                                      S, sep, h, scale);
+  } else {
+    const int nq = (sep + BQ - 1) / BQ + (S - sep + BQ - 1) / BQ;
+    item_attn_kernel<T, D><<<dim3(nq, h, G), BQ, 0, stream>>>((const T*)qkv, (T*)o, lse, S, sep,
+                                                              h, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_attn(const void* qkv, void* o, float* lse, int G, int S, int sep, int h, int d,
+                  cudaStream_t stream) {
+  switch (d) {
+    case 8: return launch_attn<T, 8>(qkv, o, lse, G, S, sep, h, stream);
+    case 16: return launch_attn<T, 16>(qkv, o, lse, G, S, sep, h, stream);
+    case 32: return launch_attn<T, 32>(qkv, o, lse, G, S, sep, h, stream);
+    case 64: return launch_attn<T, 64>(qkv, o, lse, G, S, sep, h, stream);
+    default: return MMPFN_BAD_ARGS;
+  }
+}
+
+}  // namespace
+
+extern "C" int mmpfn_proj_nt(const void* a, const void* b, void* c, long long M, int N, int K,
+                             int dtype, int device, void* stream) {
+  if (cudaError_t err = cudaSetDevice(device)) return (int)err;
+  if (M <= 0 || N <= 0) return 0;
+  if (K < 1) return MMPFN_BAD_ARGS;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == MMPFN_F32) return launch_proj<float>(a, b, c, M, N, K, s);
+  if (dtype == MMPFN_BF16) return launch_proj<__nv_bfloat16>(a, b, c, M, N, K, s);
+  return MMPFN_BAD_ARGS;
+}
+
+extern "C" int mmpfn_item_attn(const void* qkv, void* o, void* lse, int G, int S, int sep, int h,
+                               int d, int dtype, int device, void* stream) {
+  if (cudaError_t err = cudaSetDevice(device)) return (int)err;
+  if (G <= 0 || S <= 0) return 0;
+  if (sep < 1 || sep > S || h < 1 || h > 65535 || G > 65535) return MMPFN_BAD_ARGS;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == MMPFN_F32) return dispatch_attn<float>(qkv, o, (float*)lse, G, S, sep, h, d, s);
+  if (dtype == MMPFN_BF16)
+    return dispatch_attn<__nv_bfloat16>(qkv, o, (float*)lse, G, S, sep, h, d, s);
+  return MMPFN_BAD_ARGS;
+}

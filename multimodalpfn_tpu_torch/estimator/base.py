@@ -1,0 +1,85 @@
+"""Model initialization + precision policy for the estimators.
+
+Reference semantics: `mmpfn/models/mmpfn/base.py:59-257` and `utils.py:98-190`.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Literal
+
+import numpy as np
+import torch
+
+from multimodalpfn_tpu_torch.models.loading import LoadedModel, load_model
+
+_DEFAULT_CLF_CKPT = "tabpfn-v2-classifier.ckpt"
+
+
+def _cache_dir() -> Path:
+    env = os.environ.get("TABPFN_MODEL_CACHE_DIR")
+    if env:
+        return Path(env)
+    return Path.home() / ".cache" / "multimodalpfn_tpu"
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``"auto"`` is the first CUDA device when there is one, else the CPU."""
+    if device == "auto":
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(device)
+
+
+def initialize_model(
+    *,
+    model_path: str | Path | Literal["auto"],
+    static_seed: int,
+    mixer_type: str,
+    mgm_heads: int,
+    cap_heads: int,
+    features_per_group: int | None,
+    device: torch.device,
+) -> LoadedModel:
+    """Load (or synthesize) the model onto ``device``.
+
+    - ``"auto"``: the published checkpoint from the model cache dir
+      (``$TABPFN_MODEL_CACHE_DIR``); there is no download path.
+    - an existing path: a reference-format torch checkpoint, or an ``.npz``
+      written by `models.loading.save_npz`.
+    - ``"random"`` / ``"random:<seed>"``: fresh random initialization with the
+      published architecture — for benchmarking/testing without weights.
+    """
+    if model_path == "auto":
+        model_path = _cache_dir() / _DEFAULT_CLF_CKPT
+        if not model_path.exists():
+            raise FileNotFoundError(
+                f"No checkpoint {model_path}. Place the published {_DEFAULT_CLF_CKPT} in "
+                "$TABPFN_MODEL_CACHE_DIR, pass model_path=..., or use "
+                "model_path='random:<seed>' for an untrained model."
+            )
+    return load_model(
+        model_path,
+        model_seed=static_seed,
+        mixer_type=mixer_type,
+        mgm_heads=mgm_heads,
+        cap_heads=cap_heads,
+        features_per_group=features_per_group,
+        device=device,
+    )
+
+
+def determine_precision(inference_precision, device: torch.device) -> tuple[bool, str | None]:
+    """Map the user precision knob to (autocast, forced_dtype)
+    (reference `base.py:126-165`, `utils.py:150-190`): "auto" computes in
+    bfloat16 on a CUDA device and in float32 on the CPU; an explicit dtype
+    forces it."""
+    if inference_precision == "autocast":
+        return True, None
+    if inference_precision == "auto":
+        return device.type == "cuda", None
+    if inference_precision in ("float32", np.float32, torch.float32, "f32"):
+        return False, "float32"
+    if inference_precision in ("bfloat16", torch.bfloat16, "bf16"):
+        return True, "bfloat16"
+    raise ValueError(f"Invalid inference_precision: {inference_precision}")

@@ -1,0 +1,222 @@
+"""PerFeatureTransformer forward (inference) as a function of (params, inputs).
+
+Reference semantics: `mmpfn/models/mmpfn/model/transformer.py:182-1039` and
+`layer.py:95-466`; the structure follows the JAX package
+(`multimodalpfn_tpu/models/transformer.py`):
+
+  * ensemble members ride the leading batch axis;
+  * feature positional embeddings come from the torch-CPU noise table
+    (`models.params.get_subspace_noise`) drawn once per (seed, token count);
+  * with ``cfg.fused_ops`` the stack runs item-major ``(b, t, s, e)`` through
+    `encoder_layer_im`, whose three sublayers are the hand-written kernels K1,
+    K2a+K2b and K3; otherwise, or for more feature tokens than K1 takes,
+    through the sample-major `encoder_layer`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from multimodalpfn_tpu_torch.models.config import ModelConfig
+from multimodalpfn_tpu_torch.models.encoders import encode_x, encode_y
+from multimodalpfn_tpu_torch.models.mixers import apply_mixer
+from multimodalpfn_tpu_torch.models.params import get_subspace_noise
+from multimodalpfn_tpu_torch.ops.attention import can_use_fused_item, item_attention, mha
+from multimodalpfn_tpu_torch.ops.fused import (
+    MAX_FUSED_ATTN_TOKENS,
+    fused_feature_attention_ln_im,
+    fused_mlp_ln,
+    ln_rows,
+)
+from multimodalpfn_tpu_torch.ops.item_fused import fused_item_sublayer
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def residual_ln(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``LN(x + h)``: the sum is formed in x's dtype, the LN in float32, the
+    result is returned in x's dtype (reference post-norm, `layer.py:437-455`)."""
+    return ln_rows((x + h.to(x.dtype)).float()).to(x.dtype)
+
+
+def _mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """Bias-free 2-layer exact-erf GELU MLP (reference `mlp.py:59-104`), in
+    the compute dtype."""
+    return F.gelu(x.to(cd) @ w1.to(cd), approximate="none") @ w2.to(cd)
+
+
+def _layer(params: dict, l: int) -> dict:
+    return {k: {n: w[l] for n, w in v.items()} for k, v in params["layers"].items()}
+
+
+def _item_sublayer(
+    state: torch.Tensor, lp: dict, *, single_eval_pos: int, cfg: ModelConfig
+) -> torch.Tensor:
+    """Item-attention sublayer ``LN(x + attn(x))`` over the items axis of
+    item-major state ``(b, t, s, e)``, in the compute dtype. With
+    ``cfg.use_flash`` it runs the kernels K2a + K2b where the gate admits the
+    configuration; with ``use_flash`` off, the plain path. A flash
+    configuration the gate refuses (no multiquery test block, a ring axis, or
+    ``fused_item`` off) runs the flash kernel K4 in the JAX package
+    (`multimodalpfn_tpu/ops/pallas_attention.py:198`), which is not ported:
+    its plain version serves it on the CPU, and on a CUDA device this raises."""
+    cd = DTYPES[cfg.compute_dtype]
+    sep, S = single_eval_pos, state.shape[-2]
+    multiquery = cfg.multiquery_item_attention_for_test_set
+    if can_use_fused_item(
+        sep,
+        S - sep,
+        fused_item=cfg.use_flash and cfg.fused_item,
+        multiquery_test=multiquery,
+        ring_axis=cfg.seq_shard_axis,
+    ):
+        return fused_item_sublayer(
+            state,
+            lp["attn_item"]["w_qkv"],
+            lp["attn_item"]["w_out"],
+            single_eval_pos=sep,
+            compute_dtype=cd,
+        )
+    if cfg.use_flash and state.device.type == "cuda":
+        raise NotImplementedError(
+            "item attention with use_flash for this configuration "
+            f"(multiquery_item_attention_for_test_set={multiquery}, "
+            f"seq_shard_axis={cfg.seq_shard_axis!r}, fused_item={cfg.fused_item}) needs the "
+            "flash kernel K4, which is not ported yet; set use_flash=False for the plain path"
+        )
+    h = item_attention(
+        state,
+        lp["attn_item"]["w_qkv"],
+        lp["attn_item"]["w_out"],
+        single_eval_pos=sep,
+        multiquery_test=multiquery,
+        compute_dtype=cd,
+    )
+    return residual_ln(state, h)
+
+
+def encoder_layer_im(
+    state: torch.Tensor, lp: dict, *, single_eval_pos: int, cfg: ModelConfig
+) -> torch.Tensor:
+    """Item-major PerFeatureEncoderLayer on state ``(b, t, s, e)`` (contiguous):
+    feature attention (K1), item attention (`_item_sublayer`: K2a + K2b), MLP
+    (K3), each with residual and post-norm."""
+    cd = DTYPES[cfg.compute_dtype]
+    state = fused_feature_attention_ln_im(
+        state.to(cd), lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"]
+    )
+    state = _item_sublayer(state, lp, single_eval_pos=single_eval_pos, cfg=cfg)
+    return fused_mlp_ln(state, lp["mlp"]["w1"], lp["mlp"]["w2"])
+
+
+def encoder_layer(
+    state: torch.Tensor, lp: dict, *, single_eval_pos: int, cfg: ModelConfig
+) -> torch.Tensor:
+    """Sample-major PerFeatureEncoderLayer (reference `layer.py:272-457`) on
+    state ``(b, s, t, e)``: post-norm [feature-attn, item-attn, MLP], each with
+    residual. Feature attention is plain: with ``cfg.fused_ops`` this layer runs
+    only for more tokens than K1 takes, where the JAX package's feature
+    attention is plain XLA too (`multimodalpfn_tpu/models/transformer.py:210-238`).
+    Item attention follows ``cfg.use_flash`` (`_item_sublayer`) and the MLP
+    runs K3 under ``cfg.fused_ops``, as in the JAX package."""
+    cd = DTYPES[cfg.compute_dtype]
+    state = state.to(cd)
+    h = mha(state, state, lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"], compute_dtype=cd)
+    state = residual_ln(state, h)
+    state = _item_sublayer(
+        state.transpose(1, 2), lp, single_eval_pos=single_eval_pos, cfg=cfg
+    ).transpose(1, 2)
+    if cfg.fused_ops:
+        return fused_mlp_ln(state.contiguous(), lp["mlp"]["w1"], lp["mlp"]["w2"])
+    h = _mlp(state, lp["mlp"]["w1"], lp["mlp"]["w2"], cd)
+    return residual_ln(state, h)
+
+
+def _group_features(x: torch.Tensor, fpg: int) -> torch.Tensor:
+    """Pad F to a multiple of features_per_group and group
+    (reference `transformer.py:626-657`). (b, s, F) -> (b, s, f, n)."""
+    b, s, F_ = x.shape
+    pad = (-F_) % fpg
+    if pad:
+        x = torch.cat([x, torch.zeros((b, s, pad), dtype=x.dtype, device=x.device)], dim=-1)
+    return x.reshape(b, s, (F_ + pad) // fpg, fpg)
+
+
+@torch.no_grad()
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor | None,
+    y_train: torch.Tensor,
+    image: torch.Tensor | None = None,
+    *,
+    single_eval_pos: int,
+) -> torch.Tensor:
+    """Inference forward.
+
+    Args:
+      x: tabular features ``(b, S, F)`` float32 (NaN/inf allowed), or None for
+        image-only mode (reference `transformer.py:765-766`).
+      y_train: train targets ``(b, sep)``.
+      image: frozen-encoder embeddings ``(b, S, N_img, in_dim)`` or ``(1, ...)``
+        shared by all members, or None.
+      single_eval_pos: the train/test split position ``sep``.
+
+    Returns logits ``(b, S - sep, n_out)`` in float32.
+    """
+    sep = single_eval_pos
+    b = y_train.shape[0]
+    S = x.shape[1] if x is not None else image.shape[1]
+    device = y_train.device
+
+    # target tokens: pad the test region with NaN, then encode (transformer.py:682-724)
+    y_full = torch.cat(
+        [
+            y_train.float(),
+            torch.full((b, S - sep), float("nan"), dtype=torch.float32, device=device),
+        ],
+        dim=1,
+    )
+    embedded_y = encode_y(params["y_encoder"], cfg, y_full, sep)  # (b, S, e)
+
+    embedded_x = None
+    if x is not None:
+        xg = _group_features(x.float(), cfg.features_per_group)
+        embedded_x = encode_x(params["encoder"], cfg, xg, sep)  # (b, S, f, e)
+
+    # multimodal mixer tokens appended on the feature axis (transformer.py:755-768)
+    if image is not None:
+        tokens = apply_mixer(params["mixer"], cfg.mixer, image.float())
+        if tokens.shape[0] == 1 and b > 1:
+            # members share the image: the mixer runs once and its tokens broadcast
+            tokens = tokens.expand(b, *tokens.shape[1:])
+        embedded_x = tokens if embedded_x is None else torch.cat([embedded_x, tokens], dim=-2)
+
+    # feature positional embedding ("subspace", transformer.py:925-933)
+    if cfg.feature_positional_embedding == "subspace":
+        noise = get_subspace_noise(
+            cfg.model_seed, embedded_x.shape[-2], cfg.emsize // 4, device=device
+        )
+        embs = noise @ params["feat_pos_emb"]["w"] + params["feat_pos_emb"]["b"]
+        embedded_x = embedded_x + embs[None, None]
+
+    cd = DTYPES[cfg.compute_dtype]
+    state = torch.cat([embedded_x, embedded_y[:, :, None, :]], dim=2).to(cd)
+
+    # item-major layout whenever the kernel path applies: one transpose before
+    # the stack, none per layer
+    item_major = cfg.fused_ops and state.shape[2] <= MAX_FUSED_ATTN_TOKENS
+    if item_major:
+        state = state.transpose(1, 2).contiguous()  # (b, t, s, e)
+        layer_fn = encoder_layer_im
+    else:
+        layer_fn = encoder_layer
+    for l in range(cfg.nlayers):
+        state = layer_fn(state, _layer(params, l), single_eval_pos=sep, cfg=cfg)
+
+    # decode the target tokens of the test rows (transformer.py:849-864)
+    test_targets = (state[:, -1, sep:] if item_major else state[:, sep:, -1]).float()
+    dec = params["decoder"]
+    hidden = F.gelu(test_targets @ dec["w1"] + dec["b1"], approximate="none")
+    return hidden @ dec["w2"] + dec["b2"]

@@ -1,0 +1,139 @@
+"""Fused row-local encoder sublayers: K1 (feature attention + residual + LN,
+item-major) and K3 (MLP + residual + LN). The counterpart of the JAX package's
+`multimodalpfn_tpu/ops/pallas_fused.py`, forward only.
+
+Each sublayer has a plain PyTorch version (``*_plain``) and a wrapper. The
+wrapper runs the plain version for a tensor on the CPU; for a CUDA tensor it
+launches the hand-written kernel (`csrc/feat_attn.cu`, `csrc/mlp_ln.cu`) or
+raises. The plain versions round to the compute dtype at the points where the
+Pallas kernels do (projections, scaled q, softmax weights, head outputs, the
+MLP hidden) and keep every sum in float32, so in float32 they are the same
+function as the kernels and in bfloat16 they differ only by summation order.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from multimodalpfn_tpu_torch.ops import kernels
+
+LN_EPS = 1e-5
+
+# Feature tokens the K1 kernel takes (the Pallas kernel's bound too): its
+# float32 softmax gives each lane of a warp two keys, and at 64 tokens
+# (e = h·d = 192) its shared-memory tiles take 140 KB of the 227 KB a block may
+# use. With more tokens the forward runs the sample-major layer, whose feature
+# attention is plain in both packages.
+MAX_FUSED_ATTN_TOKENS = 64
+
+
+def ln_rows(u32: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
+    """Affine-free LayerNorm over the last axis, float32 in and out
+    (reference `layer.py:236-246`)."""
+    mean = u32.mean(dim=-1, keepdim=True)
+    var = ((u32 - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (u32 - mean) * torch.rsqrt(var + eps)
+
+
+def rounder(cd: torch.dtype):
+    if cd == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(cd).float()
+
+
+# ---------------------------------------------------------------------------
+# K1: feature attention + residual + LN, item-major (b, t, s, e)
+# ---------------------------------------------------------------------------
+
+
+def feature_attention_ln_im_plain(
+    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor
+) -> torch.Tensor:
+    """``LN(x + W_out·attn(x))`` over the t tokens of every (member, sample)
+    row of x ``(b, t, s, e)``; w_qkv ``(3, h, d, e)``, w_out ``(h, d, e)``.
+    Returns x's shape and dtype."""
+    cd = x.dtype
+    rnd = rounder(cd)
+    _, h, d, e = w_qkv.shape
+    xs = x.transpose(1, 2).float()  # (b, s, t, e)
+    w = w_qkv.to(cd).float()
+    q = rnd(torch.einsum("bste,hde->bshtd", xs, w[0]))
+    q = rnd(q * (1.0 / math.sqrt(d)))
+    k = rnd(torch.einsum("bste,hde->bshtd", xs, w[1]))
+    v = rnd(torch.einsum("bste,hde->bshtd", xs, w[2]))
+    p = rnd(torch.softmax(q @ k.transpose(-1, -2), dim=-1))
+    o = rnd(p @ v)  # (b, s, h, t, d)
+    o_all = o.permute(0, 1, 3, 2, 4).reshape(*xs.shape[:3], h * d)
+    acc = o_all @ w_out.reshape(h * d, e).to(cd).float()
+    return ln_rows(xs + acc).to(cd).transpose(1, 2).contiguous()
+
+
+def fused_feature_attention_ln_im(
+    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor
+) -> torch.Tensor:
+    """K1. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel_im`
+    (called through `_attn_fwd_call_im`); kernel in `csrc/feat_attn.cu`."""
+    if x.device.type == "cpu":
+        return feature_attention_ln_im_plain(x, w_qkv, w_out)
+    b, t, s, e = x.shape
+    _, h, d, _ = w_qkv.shape
+    kernels.require_shape("K1", "w_qkv", w_qkv, (3, h, d, e))
+    kernels.require_shape("K1", "w_out", w_out, (h, d, e))
+    if t > MAX_FUSED_ATTN_TOKENS or e % 4 or d % 2 or (h * d) % 4:
+        raise ValueError(f"K1: unsupported shape t={t}, e={e}, h={h}, d={d}")
+    wqkv_t = kernels.aligned(w_qkv.reshape(3 * h * d, e).t().to(x.dtype).contiguous())  # (e, 3hd)
+    wout = kernels.aligned(w_out.reshape(h * d, e).to(x.dtype).contiguous())
+    x = kernels.aligned(x)
+    kernels.require_cuda("K1", x, wqkv_t, wout)
+    out = torch.empty_like(x)
+    lib = kernels.library()
+    rc = lib.mmpfn_feat_attn_ln_im(
+        x.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(),
+        b, t, s, e, h, d, *kernels.launch_args(x, "K1"),
+    )
+    kernels.check(rc, "K1")
+    kernels.LAUNCHES["K1"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: MLP + residual + LN, rows independent
+# ---------------------------------------------------------------------------
+
+
+def mlp_ln_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """``LN(x + gelu(x·W1)·W2)`` over the last axis (exact-erf gelu); w1
+    ``(e, nhid)``, w2 ``(nhid, e)``."""
+    cd = x.dtype
+    x32 = x.float()
+    hid = rounder(cd)(F.gelu(x32 @ w1.to(cd).float(), approximate="none"))
+    return ln_rows(x32 + hid @ w2.to(cd).float()).to(cd)
+
+
+def fused_mlp_ln(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """K3. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_mlp_kernel_g`
+    (called through `_mlp_fwd_call`); kernel in `csrc/mlp_ln.cu`."""
+    if x.device.type == "cpu":
+        return mlp_ln_plain(x, w1, w2)
+    e = x.shape[-1]
+    nhid = w1.shape[1]
+    kernels.require_shape("K3", "w1", w1, (e, nhid))
+    kernels.require_shape("K3", "w2", w2, (nhid, e))
+    if e > 256 or e % 2 or nhid % 4:
+        raise ValueError(f"K3: unsupported widths e={e}, nhid={nhid}")
+    w1c = kernels.aligned(w1.to(x.dtype).contiguous())
+    w2c = kernels.aligned(w2.to(x.dtype).contiguous())
+    x = kernels.aligned(x)
+    kernels.require_cuda("K3", x, w1c, w2c)
+    out = torch.empty_like(x)
+    rc = kernels.library().mmpfn_mlp_ln(
+        x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), out.data_ptr(),
+        x.numel() // e, e, nhid, *kernels.launch_args(x, "K3"),
+    )
+    kernels.check(rc, "K3")
+    kernels.LAUNCHES["K3"] += 1
+    return out
+

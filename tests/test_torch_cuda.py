@@ -1,0 +1,168 @@
+"""CUDA kernels of the port against their plain versions, at small ragged
+shapes, on a CUDA device. Marked ``cuda``: each test skips (in a fixture) where
+there is no card. The repository's ``tests/conftest.py`` imports jax, so these
+run only where jax is installed too; ``python3 chip_smoke.py`` is the check
+that runs on the card at the flagship shapes.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from multimodalpfn_tpu_torch.models import params as tparams
+from multimodalpfn_tpu_torch.models.config import ModelConfig
+from multimodalpfn_tpu_torch.models.transformer import forward
+from multimodalpfn_tpu_torch.ops import fused, item_fused, kernels
+
+# float32 kernels against float32 plain versions: summation order only
+F32_TOL = dict(rtol=5e-5, atol=5e-5)
+# whole float32 forwards whose op orders differ: the golden parity bound
+# (tests/test_forward_parity.py:28)
+FORWARD_TOL = dict(rtol=2e-4, atol=2e-5)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(gen, *shape, scale=1.0, device):
+    return (torch.randn(shape, generator=gen) * scale).to(device)
+
+
+@pytest.mark.parametrize("t,s", [(13, 37), (31, 5)])
+def test_k1_matches_plain(cuda, t, s):
+    g = torch.Generator().manual_seed(0)
+    x = _rand(g, 2, t, s, 32, device=cuda)
+    w_qkv, w_out = _rand(g, 3, 4, 8, 32, scale=0.2, device=cuda), _rand(g, 4, 8, 32, scale=0.2, device=cuda)
+    before = kernels.LAUNCHES["K1"]
+    got = fused.fused_feature_attention_ln_im(x, w_qkv, w_out)
+    assert kernels.LAUNCHES["K1"] == before + 1
+    torch.testing.assert_close(got, fused.feature_attention_ln_im_plain(x, w_qkv, w_out), **F32_TOL)
+
+
+@pytest.mark.parametrize(
+    "e,h,d,t",
+    [(64, 4, 16, 13), (64, 4, 16, 32), (64, 4, 16, 45), (192, 6, 32, 48), (32, 4, 8, 13)],
+)
+def test_k1_bf16_matches_plain(cuda, e, h, d, t):
+    """bf16 K1 within two bf16 ulps of the largest output of its plain
+    version: e = 64, d = 16 and the published e = 192, d = 32 take the
+    tensor-core kernel, as 32 token rows per sample up to t = 32 and 64 above
+    (37 samples leave a ragged last block); e = 32, d = 8 the CUDA-core one."""
+    g = torch.Generator().manual_seed(6)
+    x = _rand(g, 2, t, 37, e, device=cuda).to(torch.bfloat16)
+    w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
+    w_out = _rand(g, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    got = fused.fused_feature_attention_ln_im(x, w_qkv, w_out)
+    want = fused.feature_attention_ln_im_plain(x, w_qkv, w_out)
+    assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+
+
+@pytest.mark.parametrize("rows", [1, 33, 100])
+def test_k3_matches_plain(cuda, rows):
+    g = torch.Generator().manual_seed(1)
+    x = _rand(g, rows, 48, device=cuda)
+    w1, w2 = _rand(g, 48, 200, scale=0.1, device=cuda), _rand(g, 200, 48, scale=0.1, device=cuda)
+    torch.testing.assert_close(fused.fused_mlp_ln(x, w1, w2), fused.mlp_ln_plain(x, w1, w2), **F32_TOL)
+
+
+@pytest.mark.parametrize("S,sep", [(70, 48), (48, 48), (130, 1)])
+def test_k2_matches_plain(cuda, S, sep):
+    g = torch.Generator().manual_seed(2)
+    x3 = _rand(g, 3, S, 16, device=cuda)
+    w_qkv, w_out = _rand(g, 3, 2, 8, 16, scale=0.2, device=cuda), _rand(g, 2, 8, 16, scale=0.2, device=cuda)
+    o, lse = item_fused.item_attention_core(x3, w_qkv, sep)
+    o_ref, lse_ref = item_fused.item_attention_core_plain(x3, w_qkv, sep)
+    torch.testing.assert_close(o, o_ref, **F32_TOL)
+    torch.testing.assert_close(lse, lse_ref, **F32_TOL)
+    torch.testing.assert_close(
+        item_fused.item_epilogue_ln(x3, o, w_out),
+        item_fused.item_epilogue_ln_plain(x3, o, w_out),
+        **F32_TOL,
+    )
+
+
+@pytest.mark.parametrize("d,e", [(16, 32), (8, 36)])
+def test_k2a_bf16_matches_plain(cuda, d, e):
+    """bf16 K2a within two bf16 ulps of the largest output of its plain
+    version: d = 16, e = 32 takes the tensor-core projection and attention,
+    d = 8, e = 36 the CUDA-core ones."""
+    g = torch.Generator().manual_seed(3)
+    x3 = _rand(g, 3, 150, e, device=cuda).to(torch.bfloat16)
+    w_qkv = _rand(g, 3, 2, d, e, scale=0.2, device=cuda)
+    o, lse = item_fused.item_attention_core(x3, w_qkv, 100)
+    o_ref, lse_ref = item_fused.item_attention_core_plain(x3, w_qkv, 100)
+    err = (o.float() - o_ref.float()).abs().max() / o_ref.float().abs().max()
+    assert err <= 2.0**-6
+    # lse sums float32 exponentials of the same bf16 scores
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("e,hd", [(64, 96), (48, 40)])
+def test_k2b_bf16_matches_plain(cuda, e, hd):
+    """bf16 K2b within two bf16 ulps of the largest output: e = 64, h·d = 96
+    takes the tensor-core kernel (with a ragged last chunk of o), the other
+    shape the CUDA-core one."""
+    g = torch.Generator().manual_seed(5)
+    x3 = _rand(g, 2, 77, e, device=cuda).to(torch.bfloat16)
+    o = _rand(g, 2, 77, hd, device=cuda).to(torch.bfloat16)
+    w_out = _rand(g, hd, e, scale=hd**-0.5, device=cuda)
+    got, want = item_fused.item_epilogue_ln(x3, o, w_out), item_fused.item_epilogue_ln_plain(x3, o, w_out)
+    assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+
+
+@pytest.mark.parametrize("e,nhid", [(64, 128), (48, 200)])
+def test_k3_bf16_matches_plain(cuda, e, nhid):
+    """bf16 K3 (e = 64, nhid = 128 takes the tensor-core kernel, the other
+    shape the CUDA-core one) within two bf16 ulps of the largest output."""
+    g = torch.Generator().manual_seed(4)
+    x = _rand(g, 77, e, device=cuda).to(torch.bfloat16)
+    w1, w2 = _rand(g, e, nhid, scale=e**-0.5, device=cuda), _rand(g, nhid, e, scale=nhid**-0.5, device=cuda)
+    got, want = fused.fused_mlp_ln(x, w1, w2), fused.mlp_ln_plain(x, w1, w2)
+    assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+
+
+def _forward_case(device, n_features, S=40, sep=30):
+    """A 2-layer float32 model (e = 64, h = 4) with every output projection
+    filled in, and inputs of ``n_features`` tabular features."""
+    cfg = ModelConfig(emsize=64, nhead=4, nhid_factor=2, nlayers=2, n_out=5)
+    g = torch.Generator().manual_seed(7)
+    params = tparams.init_params(g, cfg)
+    layers = params["layers"]
+    for w in (layers["attn_feat"]["w_out"], layers["attn_item"]["w_out"], layers["mlp"]["w2"]):
+        w.copy_(torch.randn(w.shape, generator=g) * w.shape[-2] ** -0.5)
+    x = torch.randn((2, S, n_features), generator=g)
+    y = torch.randint(0, 5, (2, sep), generator=g).float()
+    return tparams.params_to(params, device), cfg, x.to(device), y.to(device), sep
+
+
+def test_forward_many_tokens_runs_item_and_mlp_kernels(cuda):
+    """With more feature tokens (71) than K1 takes, the kernel path runs the
+    sample-major layer: plain feature attention (as in the JAX package), then
+    K2a + K2b and K3 in every layer. Its logits match the plain path's."""
+    params, cfg, x, y, sep = _forward_case(cuda, n_features=70)
+    before = dict(kernels.LAUNCHES)
+    got = forward(params, dataclasses.replace(cfg, fused_ops=True, use_flash=True), x, y,
+                  single_eval_pos=sep)
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert ran == {"K1": 0, "K2a": cfg.nlayers, "K2b": cfg.nlayers, "K3": cfg.nlayers}
+    torch.testing.assert_close(got, forward(params, cfg, x, y, single_eval_pos=sep), **FORWARD_TOL)
+
+
+def test_forward_refused_item_attention_raises(cuda):
+    """Item attention without the multiquery test block is the flash kernel
+    K4's in the JAX package; it is not ported, so the kernel path refuses it on
+    the card instead of running plain attention there."""
+    params, cfg, x, y, sep = _forward_case(cuda, n_features=5)
+    cfg = dataclasses.replace(
+        cfg, fused_ops=True, use_flash=True, multiquery_item_attention_for_test_set=False
+    )
+    with pytest.raises(NotImplementedError, match="K4"):
+        forward(params, cfg, x, y, single_eval_pos=sep)

@@ -1,0 +1,121 @@
+"""Port K1 and K3 (multimodalpfn_tpu_torch/ops/fused.py) against the JAX
+package's Pallas kernels run in TPU interpret mode on the CPU.
+
+On the CPU the port's wrappers run their plain versions, so these tests pin the
+plain PyTorch versions (which the CUDA kernels are held to on the card) to the
+JAX kernels, in float32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from multimodalpfn_tpu.ops import pallas_fused as jf
+from multimodalpfn_tpu_torch.ops import fused as tf
+from multimodalpfn_tpu_torch.ops import kernels
+
+# Both sides are float32 sublayers that end in a LayerNorm (outputs O(1)); they
+# differ only in summation order (XLA CPU vs ATen CPU), which the JAX package's
+# own fused-vs-XLA tests bound at 3e-6 (tests/test_pallas_fused.py:43).
+TOL = dict(rtol=3e-6, atol=3e-6)
+
+
+def _weights(rng, e, h, d, nhid):
+    return (
+        rng.normal(size=(3, h, d, e)).astype(np.float32) * 0.1,
+        rng.normal(size=(h, d, e)).astype(np.float32) * 0.1,
+        rng.normal(size=(e, nhid)).astype(np.float32) * 0.1,
+        rng.normal(size=(nhid, e)).astype(np.float32) * 0.1,
+    )
+
+
+# odd t (13) exercises the Pallas sublane padding of the token axis; s = 37 is
+# not a multiple of the JAX block (block_rows 16)
+@pytest.mark.parametrize("b,t,s,e,h,d", [(2, 13, 37, 32, 4, 8), (1, 7, 20, 16, 2, 8)])
+def test_feature_attention_im_matches_jax(b, t, s, e, h, d):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(b, t, s, e)).astype(np.float32)
+    w_qkv, w_out, _, _ = _weights(rng, e, h, d, 8)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(
+            jf.fused_feature_attention_ln_im(
+                jnp.asarray(x), jnp.asarray(w_qkv), jnp.asarray(w_out), block_rows=16
+            )
+        )
+    got = tf.fused_feature_attention_ln_im(
+        torch.from_numpy(x), torch.from_numpy(w_qkv), torch.from_numpy(w_out)
+    )
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("lead,e,nhid", [((2, 13, 37), 32, 64), ((3, 19), 16, 48)])
+def test_mlp_ln_matches_jax(lead, e, nhid):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(*lead, e)).astype(np.float32)
+    _, _, w1, w2 = _weights(rng, e, 2, 8, nhid)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(
+            jf.fused_mlp_ln(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(w2), block_rows=16)
+        )
+    got = tf.fused_mlp_ln(torch.from_numpy(x), torch.from_numpy(w1), torch.from_numpy(w2))
+    assert got.shape == x.shape
+    # the Pallas MLP uses a polynomial erf (max abs error 1.5e-7,
+    # pallas_fused.py:101), the port the exact erf: inside the same bound
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_cpu_wrappers_run_plain_versions_without_counting():
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(1, 5, 9, 16)).astype(np.float32))
+    w_qkv, w_out, w1, w2 = (torch.from_numpy(a) for a in _weights(rng, 16, 2, 8, 32))
+    kernels.reset_launches()
+    a = tf.fused_feature_attention_ln_im(x, w_qkv, w_out)
+    m = tf.fused_mlp_ln(x, w1, w2)
+    assert torch.equal(a, tf.feature_attention_ln_im_plain(x, w_qkv, w_out))
+    assert torch.equal(m, tf.mlp_ln_plain(x, w1, w2))
+    assert kernels.LAUNCHES["K1"] == 0 and kernels.LAUNCHES["K3"] == 0
+
+
+def test_wrappers_refuse_non_cuda_devices():
+    """Off the CPU a wrapper launches its kernel or raises: a meta tensor is
+    neither, so it raises instead of falling back."""
+    x = torch.empty((1, 5, 9, 16), device="meta")
+    w_qkv = torch.empty((3, 2, 8, 16), device="meta")
+    w_out = torch.empty((2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.fused_feature_attention_ln_im(x, w_qkv, w_out)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.fused_mlp_ln(x, torch.empty((16, 32), device="meta"), torch.empty((32, 16), device="meta"))
+
+
+def test_wrappers_check_weight_shapes():
+    """Off the CPU a wrapper checks its weights against x before any launch: a
+    kernel handed a mismatched width would read past its operands."""
+    x = torch.empty((1, 5, 9, 16), device="meta")
+    with pytest.raises(ValueError, match="w_qkv"):
+        tf.fused_feature_attention_ln_im(
+            x, torch.empty((3, 2, 8, 32), device="meta"), torch.empty((2, 8, 16), device="meta")
+        )
+    with pytest.raises(ValueError, match="w2"):
+        tf.fused_mlp_ln(x, torch.empty((16, 32), device="meta"), torch.empty((32, 8), device="meta"))
+
+
+def test_plain_bf16_close_to_f32():
+    """The bf16 plain versions (the card's reference in production precision)
+    stay within bf16 resolution of the float32 result: LN outputs are O(1) and
+    bf16 keeps 8 bits of mantissa, so 0.06 abs covers the few roundings."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, 11, 23, 32)).astype(np.float32))
+    w_qkv, w_out, w1, w2 = (torch.from_numpy(a) for a in _weights(rng, 32, 4, 8, 64))
+    for fn, args in (
+        (tf.feature_attention_ln_im_plain, (w_qkv, w_out)),
+        (tf.mlp_ln_plain, (w1, w2)),
+    ):
+        ref = fn(x, *args)
+        got = fn(x.to(torch.bfloat16), *args)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), ref.numpy(), atol=0.06)
