@@ -10,23 +10,40 @@ Phases, each of which must pass:
 
 1. Setup: print the card (``nvidia-smi`` name and power limit), turn TF32 off,
    build the CUDA kernels from ``multimodalpfn_tpu_torch/csrc`` and print the
-   build time.
-2. Kernel checks: K1, K2a, K2b and K3 against their plain PyTorch versions at
-   the flagship shapes (4 members, 1838 train + 460 test rows bucketed to
-   2350, 31 tokens, e = 192, h = 6, d = 32, nhid = 768), in float32 and
-   bfloat16, with times of kernel and plain version (CUDA events); K1 also
-   at 48 tokens, which its bfloat16 kernel takes as 64 token rows per sample.
-3. The slice, served: ``MMPFNClassifier`` (random weights from a seed,
-   MGM+CAP, 4 members, numpy-only preprocessing) fits the PAD-UFES-shaped
-   synthetic set and answers three ``predict_proba`` requests (460, 128 and
-   300 test rows); the launch counters show every kernel ran in each layer.
-4. Kernel path against plain path: float32 ``predict_proba`` of the kernel
-   path against the same model's plain path (which the memory estimate
-   splits into forwards of a few members).
+   build time; write the model every phase serves (the published 192×12
+   architecture with MGM+CAP 16/8, random weights from seed 0, output
+   projections filled in from seed 1) to ``build/``.
+2. Kernel checks: each kernel against its plain PyTorch version at the shapes
+   the served paths give it, in float32 and bfloat16, with times of kernel
+   and plain version (CUDA events), the least time the card could take for
+   the same work (``bound_ms``) and, where one PyTorch call computes the same
+   function, that call's time (``library_ms``). K1, K2a, K2b and K3 at the
+   ``fit_preprocessors`` shapes (4 members, 1838 train + 460 test rows bucketed
+   to 2350, 31 tokens, e = 192, h = 6, d = 32, nhid = 768), K1 also at 48
+   tokens; K4 at the KV-cache prime shape (G = 4·31·6, 1838 × 1838) and the
+   multiquery predict shape (G = 4·31, 6·512 queries, 1838 keys); K5 at the
+   prime shape (4, 1838, 31, 192) and at 48 tokens.
+3. ``fit_preprocessors`` served: ``MMPFNClassifier`` (4 members, numpy-only
+   preprocessing) fits the PAD-UFES-shaped synthetic set and answers three
+   ``predict_proba`` requests (460, 128 and 300 test rows); the launch
+   counters, zeroed just before, show K1, K2a, K2b and K3 ran in every layer;
+   then the same requests again, warm.
+4. Its kernel path against its plain path: float32 ``predict_proba`` (the
+   plain path split by the memory estimate).
+5. ``fit_with_cache`` served: fit (which primes the KV cache) and the same
+   three requests; the counters, zeroed just before the fit, show K4, K5 and
+   K3 ran in every layer of the prime and of each request, and no
+   item-major kernel ran; then the requests again, warm.
+   ``predict_proba_many`` over the three requests equals the sequential
+   answers exactly. The largest difference from phase
+   3's answers is printed (the two differ by design where the encoder's
+   constant-column masks differ, `models/cached.py`).
+6. The cached kernel path against the cached plain path: float32
+   ``predict_proba``.
 
-``--profile`` adds a phase 5: ``torch.profiler`` around one warm request of
-each size, printing wall time, device kernel time, the idle share and the
-kernels that took the most device time.
+``--profile`` adds a phase 7: ``torch.profiler`` around one warm request of
+each size in both modes, printing wall time, device kernel time, the idle
+share and the kernels that took the most device time.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
@@ -50,10 +67,17 @@ ROOT = Path(__file__).resolve().parent
 # largest output (the JAX kernels' bar was 4.01e-5). In bfloat16 both round
 # their outputs (and intermediates) to 8 significant bits, and a different
 # summation order can move a value to the neighbouring bf16 number: the bound
-# is two bf16 ulps at the largest output, 2**-6 of it.
+# is two bf16 ulps at the largest output, 2**-6 of it. K4's float32 lse (a
+# log-sum of exponentials of float32 scores) must match to 1e-4 abs.
 F32_REL_BOUND = 5e-5
 BF16_REL_BOUND = 2.0**-6
+LSE_F32_ABS_BOUND = 1e-4
 PROBA_ABS_BOUND = 1e-4
+
+# Published peaks of one H100 SXM (dense, at the full 700 W power limit):
+# tensor-core bf16 and CUDA-core float32 FLOP/s, and HBM3 bytes/s
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 KERNELS = {
     "K1": dict(
@@ -76,7 +100,20 @@ KERNELS = {
         source="multimodalpfn_tpu_torch/csrc/mlp_ln.cu",
         replaces="multimodalpfn_tpu/ops/pallas_fused.py:160",
     ),
+    "K4": dict(
+        name="K4 flash attention forward (o, lse; multiquery by folding heads)",
+        source="multimodalpfn_tpu_torch/csrc/flash_fwd.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_attention.py:198",
+    ),
+    "K5": dict(
+        name="K5 feature attention + residual + LN (sample-major)",
+        source="multimodalpfn_tpu_torch/csrc/feat_attn.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_fused.py:388",
+    ),
 }
+# the served path each kernel's launch count comes from
+PATH_OF = {"K1": "preproc", "K2a": "preproc", "K2b": "preproc", "K3": "preproc",
+           "K4": "cached", "K5": "cached"}
 
 
 class SmokeFailure(RuntimeError):
@@ -108,6 +145,13 @@ def timed(fn, device, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float, tag: str) -> tuple[float, str]:
+    """The least time in ms the card could take for ``flops`` operations and
+    ``nbytes`` of device-memory traffic, and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[tag], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def densify(params: dict, seed: int) -> None:
     """Fill the output projections in place from a seeded generator. The
     published init zeroes them (`layer.py:192,232`), which multiplies every
@@ -121,13 +165,26 @@ def densify(params: dict, seed: int) -> None:
         w.copy_(torch.randn(w.shape, generator=gen) * (1.0 / w.shape[-2] ** 0.5))
 
 
+def write_model(path: Path) -> None:
+    """The served model: the published architecture with MGM+CAP 16/8, random
+    weights from seed 0, densified from seed 1, as an ``.npz``."""
+    from multimodalpfn_tpu_torch.models.loading import load_model, save_npz
+
+    loaded = load_model("random:0", mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8)
+    densify(loaded.params, seed=1)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_npz(path, loaded.params, loaded.config)
+
+
 def phase_kernels(device, dims, iters) -> dict:
-    """K1, K2a, K2b and K3 against their plain versions on the same inputs."""
+    """Every kernel against its plain version on the same inputs."""
     import torch
+    import torch.nn.functional as F
 
-    from multimodalpfn_tpu_torch.ops import fused, item_fused
+    from multimodalpfn_tpu_torch.ops import flash, fused, item_fused
 
-    b, t, S, sep, e, h, d, nhid = dims
+    b, t, S, sep, e, h, d, nhid, n_pred = dims
+    hd = h * d
     gen = torch.Generator().manual_seed(0)
 
     def rand(*shape, scale=1.0):
@@ -138,59 +195,116 @@ def phase_kernels(device, dims, iters) -> dict:
     w_out = rand(h, d, e, scale=(h * d) ** -0.5)
     w1 = rand(e, nhid, scale=e**-0.5)
     w2 = rand(nhid, e, scale=nhid**-0.5)
-    o_in = rand(b * t, S, h * d)
+    o_in = rand(b * t, S, hd)
     x48 = rand(b, 48, S, e)  # K1 with more tokens than 32
+    xs = rand(b, sep, t, e)  # K5 at the prime shape: the train rows, sample-major
+    xs48 = rand(b, sep, 48, e)
+    qp, kp, vp = rand(b * t * h, sep, d), rand(b * t * h, sep, d), rand(b * t * h, sep, d)
+    qm = rand(b * t, h * n_pred, d)  # multiquery: heads folded into the queries
+
+    def feat_work(rows, tt):  # K1 / K5: projections, t×t attention, out-projection
+        return lambda es: (2 * rows * tt * 4 * hd * e + 4 * rows * h * tt * tt * d,
+                           2 * rows * tt * e * es + 4 * hd * e * es)
+
+    def flash_work(G, Sq, Skv):
+        return lambda es: (4 * G * Sq * Skv * d, (G * Sq + 2 * G * Skv) * d * es + G * Sq * (d + 1) * 4)
+
+    def sdpa(q, k, v):  # (G, S, d) -> one call with the G groups as heads
+        return lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])
+
+    def item_sdpa(dt):
+        """K2a's attention core as PyTorch calls: the projection is done
+        before timing, then one call per block (train rows on every head,
+        test rows on KV head 0)."""
+        w2_ = w_qkv.reshape(3 * hd, e).to(dt)
+        qkv = (x.reshape(b * t, S, e).to(dt) @ w2_.T).reshape(b * t, S, 3, h, d).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1][:, :, :sep], qkv[2][:, :, :sep]
+        k0, v0 = k[:, :1].expand_as(k), v[:, :1].expand_as(v)
+
+        def run():
+            F.scaled_dot_product_attention(q[:, :, :sep], k, v)
+            F.scaled_dot_product_attention(q[:, :, sep:], k0, v0)
+        return run
+
+    G2, R = b * t, b * S
     cases = {
         "K1": (fused.fused_feature_attention_ln_im, fused.feature_attention_ln_im_plain,
-               lambda dt: (x.to(dt), w_qkv, w_out)),
+               lambda dt: (x.to(dt), w_qkv, w_out), feat_work(R, t), None),
         "K1@t48": (fused.fused_feature_attention_ln_im, fused.feature_attention_ln_im_plain,
-                   lambda dt: (x48.to(dt), w_qkv, w_out)),
-        "K2a": (lambda *a: item_fused.item_attention_core(*a),
-                lambda *a: item_fused.item_attention_core_plain(*a),
-                lambda dt: (x.reshape(b * t, S, e).to(dt), w_qkv, sep)),
+                   lambda dt: (x48.to(dt), w_qkv, w_out), feat_work(R, 48), None),
+        "K2a": (item_fused.item_attention_core, item_fused.item_attention_core_plain,
+                lambda dt: (x.reshape(G2, S, e).to(dt), w_qkv, sep),
+                lambda es: (2 * G2 * S * e * 3 * hd + 4 * G2 * h * S * sep * d,
+                            (G2 * S * e + 3 * hd * e + G2 * S * hd) * es + G2 * h * S * 4),
+                item_sdpa),
         "K2b": (item_fused.item_epilogue_ln, item_fused.item_epilogue_ln_plain,
-                lambda dt: (x.reshape(b * t, S, e).to(dt), o_in.to(dt), w_out)),
-        "K3": (fused.fused_mlp_ln, fused.mlp_ln_plain, lambda dt: (x.to(dt), w1, w2)),
+                lambda dt: (x.reshape(G2, S, e).to(dt), o_in.to(dt), w_out),
+                lambda es: (2 * G2 * S * hd * e, (G2 * S * (2 * e + hd) + hd * e) * es), None),
+        "K3": (fused.fused_mlp_ln, fused.mlp_ln_plain, lambda dt: (x.to(dt), w1, w2),
+               lambda es: (4 * R * t * e * nhid, (2 * R * t * e + 2 * e * nhid) * es), None),
+        "K4": (flash.flash_attention, flash.flash_attention_plain,
+               lambda dt: (qp.to(dt), kp.to(dt), vp.to(dt)), flash_work(b * t * h, sep, sep),
+               lambda dt: sdpa(qp.to(dt), kp.to(dt), vp.to(dt))),
+        "K4@predict": (flash.flash_attention, flash.flash_attention_plain,
+                       lambda dt: (qm.to(dt), kp[:G2].to(dt), vp[:G2].to(dt)),
+                       flash_work(G2, h * n_pred, sep),
+                       lambda dt: sdpa(qm.to(dt), kp[:G2].to(dt), vp[:G2].to(dt))),
+        "K5": (fused.fused_feature_attention_ln, fused.feature_attention_ln_plain,
+               lambda dt: (xs.to(dt), w_qkv, w_out), feat_work(b * sep, t), None),
+        "K5@t48": (fused.fused_feature_attention_ln, fused.feature_attention_ln_plain,
+                   lambda dt: (xs48.to(dt), w_qkv, w_out), feat_work(b * sep, 48), None),
     }
     results = {}
-    for kid, (kern, plain, make) in cases.items():
+    for kid, (kern, plain, make, work, library) in cases.items():
         res = {"shape": list(make(torch.float32)[0].shape)}
-        for dt, tag, bound in (
+        for dt, tag, rel_bound in (
             (torch.float32, "f32", F32_REL_BOUND),
             (torch.bfloat16, "bf16", BF16_REL_BOUND),
         ):
             args = make(dt)
             got, want = kern(*args), plain(*args)
-            if kid == "K2a":
+            if isinstance(got, tuple):  # (o, lse)
                 (got, got_lse), (want, want_lse) = got, want
-                res[f"lse_max_abs_err_{tag}"] = float((got_lse - want_lse).abs().max())
+                lse_err = float((got_lse - want_lse).abs().max())
+                res[f"lse_max_abs_err_{tag}"] = lse_err
+                if kid.startswith("K4") and tag == "f32":
+                    check(lse_err <= LSE_F32_ABS_BOUND, f"{kid} f32 lse err {lse_err:.3e}")
             if device.type == "cuda":
                 torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             rel = err / float(want.float().abs().max())
             finite = bool(torch.isfinite(got.float()).all())
+            del got, want
             res[f"max_abs_err_{tag}"] = err
             res[f"rel_err_{tag}"] = rel
             res[f"ms_{tag}"] = timed(lambda: kern(*args), device, iters)
             res[f"plain_ms_{tag}"] = timed(lambda: plain(*args), device, max(1, iters // 2))
+            flops, nbytes = work(2 if tag == "bf16" else 4)
+            res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = bound(flops, nbytes, tag)
+            res[f"library_ms_{tag}"] = None
+            if library is not None and tag == "bf16":
+                res[f"library_ms_{tag}"] = timed(library(dt), device, iters)
+            lib = res[f"library_ms_{tag}"]
             print(
-                f"  {kid} {tag}: max abs err {err:.3e}, rel err {rel:.3e} (bound {bound:.3e}), "
-                f"kernel {res[f'ms_{tag}']:.3f} ms, plain {res[f'plain_ms_{tag}']:.3f} ms",
+                f"  {kid} {tag}: max abs err {err:.3e}, rel err {rel:.3e} (bound {rel_bound:.3e}), "
+                f"kernel {res[f'ms_{tag}']:.3f} ms, plain {res[f'plain_ms_{tag}']:.3f} ms, "
+                f"bound {res[f'bound_ms_{tag}']:.3f} ms ({res[f'bound_by_{tag}']})"
+                + ("" if tag == "f32" else ", no single library call" if lib is None
+                   else f", library {lib:.3f} ms"),
                 flush=True,
             )
             check(finite, f"{kid} {tag}: non-finite output")
-            check(rel <= bound, f"{kid} {tag}: rel err {rel:.3e} > {bound:.3e}")
-            del got, want
+            check(rel <= rel_bound, f"{kid} {tag}: rel err {rel:.3e} > {rel_bound:.3e}")
         results[kid] = res
     return results
 
 
-def make_classifier(device, **kw):
+def make_classifier(device, model_path, **kw):
     from multimodalpfn_tpu_torch import MMPFNClassifier
     from multimodalpfn_tpu_torch.preprocess.ensemble import PreprocessorConfig
 
     return MMPFNClassifier(
-        model_path="random:0",
+        model_path=str(model_path),
         mixer_type="MGM+CAP",
         mgm_heads=16,
         cap_heads=8,
@@ -213,85 +327,142 @@ def check_proba(p, n_rows: int, n_classes: int, tag: str) -> None:
     check(float(np.abs(p.sum(axis=1) - 1).max()) < 1e-6, f"{tag}: rows do not sum to 1")
 
 
-def phase_served(device, data, request_sizes, n_layers) -> tuple[dict, list]:
-    """fit once, then the three predict requests through the public API."""
+def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) -> dict:
+    """Fit once, then the predict requests through the public API, with the
+    launch counters zeroed just before (fit_with_cache: before the fit, whose
+    prime launches kernels too) and read just after."""
+    import torch
+
     from multimodalpfn_tpu_torch.ops import kernels
 
     X_tr, img_tr, y_tr, X_te, img_te = data
-    clf = make_classifier(device)
+    cached = fit_mode == "fit_with_cache"
+    clf = make_classifier(device, model_path, fit_mode=fit_mode)
+    if cached:
+        kernels.reset_launches()
     t0 = time.perf_counter()
     clf.fit(X_tr, img_tr, y_tr)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - t0) * 1e3
-    densify(clf.params_, seed=1)
     groups = len({m.X_train.shape[1] for m in clf.executor_.members})
     print(f"  fit {fit_ms:.1f} ms; {groups} width group(s) of members", flush=True)
 
-    kernels.reset_launches()
-    times = []
+    if not cached:
+        kernels.reset_launches()
+    times, answers = [], []
     for n in request_sizes:
         t0 = time.perf_counter()
         p = clf.predict_proba(X_te[:n], img_te[:n])
         times.append((time.perf_counter() - t0) * 1e3)
         check_proba(p, n, clf.n_classes_, f"request of {n} rows")
+        answers.append(p)
         print(f"  predict_proba({n} rows): {times[-1]:.1f} ms", flush=True)
     launches = dict(kernels.LAUNCHES)
-    need = n_layers * groups * len(request_sizes)
-    print(f"  launches {launches} (each must be >= {need})", flush=True)
+    if cached:
+        need = n_layers * groups * (len(request_sizes) + 1)
+        ran, idle = ("K4", "K5", "K3"), ("K1", "K2a", "K2b")
+    else:
+        need = n_layers * groups * len(request_sizes)
+        ran, idle = ("K1", "K2a", "K2b", "K3"), ("K4", "K5")
+    print(f"  launches {launches} ({', '.join(ran)} each must be >= {need}, "
+          f"{', '.join(idle)} 0)", flush=True)
     if device.type == "cuda":
-        for kid, n in launches.items():
-            check(n >= need, f"{kid} launched {n} times, expected >= {need}")
-    return launches, times
+        for kid in ran:
+            check(launches[kid] >= need, f"{kid} launched {launches[kid]} times, expected >= {need}")
+        for kid in idle:
+            check(launches[kid] == 0, f"{kid} launched {launches[kid]} times on the {fit_mode} path")
+    warm = []  # the same requests again, each now at a sequence length seen before
+    for n in request_sizes:
+        t0 = time.perf_counter()
+        clf.predict_proba(X_te[:n], img_te[:n])
+        warm.append((time.perf_counter() - t0) * 1e3)
+    print(f"  warm requests: {', '.join(f'{ms:.1f}' for ms in warm)} ms", flush=True)
+    out = dict(launches=launches, fit_ms=fit_ms, times=times, warm=warm, answers=answers)
+    if cached:
+        reqs = [(X_te[:n], img_te[:n]) for n in request_sizes]
+        t0 = time.perf_counter()
+        many = clf.predict_proba_many([r[0] for r in reqs], [r[1] for r in reqs])
+        out["many_ms"] = (time.perf_counter() - t0) * 1e3
+        same = all(a.shape == b.shape and bool((a == b).all()) for a, b in zip(many, answers))
+        print(f"  predict_proba_many over the {len(reqs)} requests: {out['many_ms']:.1f} ms, "
+              f"equal to the sequential answers: {same}", flush=True)
+        check(same, "predict_proba_many differs from sequential predict_proba")
+    return out
 
 
-def phase_kernel_vs_plain(device, data) -> float:
-    """float32 predict_proba of the kernel path against the plain path."""
+def phase_kernel_vs_plain(device, model_path, data, fit_mode) -> float:
+    """float32 predict_proba of the kernel path against the plain path of the
+    same fitted classifier (fit_with_cache primes again for each path)."""
     X_tr, img_tr, y_tr, X_te, img_te = data
-    clf = make_classifier(device, inference_precision="float32")
+    clf = make_classifier(device, model_path, inference_precision="float32", fit_mode=fit_mode)
     clf.fit(X_tr, img_tr, y_tr)
-    densify(clf.params_, seed=1)
     clf.executor_.use_kernels = True  # the default on CUDA; explicit for --rehearse
     p_kernel = clf.predict_proba(X_te, img_te)
     # the plain path materializes (b, t, h, S, S) scores; the memory estimate
-    # sizes its forwards
+    # sizes its forwards (and for fit_with_cache its prime)
     clf.executor_.use_kernels = False
     p_plain = clf.predict_proba(X_te, img_te)
     for p, tag in ((p_kernel, "kernel path"), (p_plain, "plain path")):
-        check_proba(p, len(X_te), clf.n_classes_, tag)
+        check_proba(p, len(X_te), clf.n_classes_, f"{fit_mode} {tag}")
     err = float(abs(p_kernel - p_plain).max())
-    print(f"  f32 predict_proba kernel vs plain: max abs err {err:.3e} (bound {PROBA_ABS_BOUND})")
-    check(err <= PROBA_ABS_BOUND, f"kernel path differs from plain path by {err:.3e}")
+    print(f"  f32 {fit_mode} predict_proba kernel vs plain: max abs err {err:.3e} "
+          f"(bound {PROBA_ABS_BOUND})")
+    check(err <= PROBA_ABS_BOUND, f"{fit_mode}: kernel path differs from plain path by {err:.3e}")
     return err
 
 
-def phase_profile(device, data, request_sizes, top: int = 14) -> None:
-    """torch.profiler around one warm request of each size: wall time (host
-    clock around ``predict_proba``), the sum of device kernel times, the idle
-    share ``1 - kernel / wall`` and the kernels that took the most time."""
+def phase_profile(device, model_path, data, request_sizes, top: int = 14) -> None:
+    """torch.profiler around one warm request of each size in both modes:
+    wall time (host clock around ``predict_proba``), the sum of device kernel
+    times, the idle share ``1 - kernel / wall`` and the kernels that took the
+    most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     X_tr, img_tr, y_tr, X_te, img_te = data
-    clf = make_classifier(device)
-    clf.fit(X_tr, img_tr, y_tr)
-    densify(clf.params_, seed=1)
-    for n in request_sizes:  # every sequence length once, so the profiled requests are warm
-        clf.predict_proba(X_te[:n], img_te[:n])
-    for n in request_sizes:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+    for fit_mode in ("fit_preprocessors", "fit_with_cache"):
+        clf = make_classifier(device, model_path, fit_mode=fit_mode)
+        clf.fit(X_tr, img_tr, y_tr)
+        for n in request_sizes:  # every sequence length once, so the profiled requests are warm
             clf.predict_proba(X_te[:n], img_te[:n])
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for ev in prof.key_averages():
-            dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-            if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
-                rows.append((dt / 1e3, ev.count, ev.key[:90]))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        print(f"  request of {n} rows: wall {wall:.2f} ms, device kernel time {busy:.2f} ms, "
-              f"idle share {1 - busy / wall:.3f}", flush=True)
-        for ms, count, key in rows[:top]:
-            print(f"    {ms:9.3f} ms  x{count:4d}  {key}", flush=True)
+        for n in request_sizes:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                clf.predict_proba(X_te[:n], img_te[:n])
+                wall = (time.perf_counter() - t0) * 1e3
+            rows = []
+            for ev in prof.key_averages():
+                dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+                if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+                    rows.append((dt / 1e3, ev.count, ev.key[:90]))
+            rows.sort(reverse=True)
+            busy = sum(r[0] for r in rows)
+            print(f"  {fit_mode} request of {n} rows: wall {wall:.2f} ms, device kernel time "
+                  f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}", flush=True)
+            for ms, count, key in rows[:top]:
+                print(f"    {ms:9.3f} ms  x{count:4d}  {key}", flush=True)
+
+
+def kernel_rows(kres: dict, launches: dict) -> list[dict]:
+    """The ``kernels`` line: per kernel its bf16 numbers at the first shape
+    (``ms`` etc.), every other measurement under its own key."""
+    rows = []
+    for kid, meta in KERNELS.items():
+        r = dict(kres[kid])
+        for sub in ("t48", "predict"):
+            r.update({f"{k}_{sub}": v for k, v in kres.get(f"{kid}@{sub}", {}).items()})
+        main = {"max_abs_err": "max_abs_err_f32", "ms": "ms_bf16", "plain_ms": "plain_ms_bf16",
+                "bound_ms": "bound_ms_bf16", "bound_by": "bound_by_bf16",
+                "library_ms": "library_ms_bf16"}
+        row = {"name": meta["name"], "route": "cuda", "source": meta["source"],
+               "replaces": meta["replaces"], "launches": launches[PATH_OF[kid]][kid]}
+        row.update({k: r[v] for k, v in main.items()})
+        if kid == "K3":
+            row["launches_cached"] = launches["cached"]["K3"]
+        row.update({k: v for k, v in r.items() if k not in main.values()})
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -299,7 +470,7 @@ def main() -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase at a tiny size on the CPU; exits 1")
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 5: profile one warm request of each size")
+                    help="add phase 7: profile one warm request of each size")
     args = ap.parse_args()
 
     if not (ROOT / "multimodalpfn_tpu_torch" / "csrc").is_dir():
@@ -331,42 +502,46 @@ def main() -> int:
         kernels.library()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"({kernels.library_path().name})", flush=True)
+    model_path = ROOT / "build" / "chip_smoke_model.npz"
+    write_model(model_path)
 
     print("== phase 2: kernels against their plain versions", flush=True)
     if args.rehearse:
-        dims, iters = (2, 7, 40, 30, 32, 4, 8, 64), 1
+        dims, iters = (2, 7, 40, 30, 32, 4, 8, 64, 16), 1
     else:
-        dims, iters = (4, 31, 2350, 1838, 192, 6, 32, 768), 10
+        dims, iters = (4, 31, 2350, 1838, 192, 6, 32, 768, 512), 10
     kres = phase_kernels(device, dims, iters)
 
-    print("== phase 3: the slice, served", flush=True)
     X, img, y = pad_ufes_like(seed=0)
     if args.rehearse:
         X, img, y = X[:150], img[:150], y[:150]
     n_tr = int(round(0.8 * len(X)))
     data = (X[:n_tr], img[:n_tr], y[:n_tr], X[n_tr:], img[n_tr:])
     sizes = [len(X) - n_tr, min(128, len(X) - n_tr), min(300, len(X) - n_tr)]
-    launches, req_ms = phase_served(device, data, sizes, n_layers=12)
 
-    print("== phase 4: kernel path against plain path (float32)", flush=True)
-    proba_err = phase_kernel_vs_plain(device, data)
+    print("== phase 3: fit_preprocessors, served", flush=True)
+    pre = phase_served(device, model_path, data, sizes, 12, "fit_preprocessors")
+    print("== phase 4: fit_preprocessors kernel path against plain path (float32)", flush=True)
+    proba_err = phase_kernel_vs_plain(device, model_path, data, "fit_preprocessors")
+
+    print("== phase 5: fit_with_cache, served", flush=True)
+    kv = phase_served(device, model_path, data, sizes, 12, "fit_with_cache")
+    diff = max(float(abs(a - b).max()) for a, b in zip(kv["answers"], pre["answers"]))
+    print(f"  cached vs fit_preprocessors answers: max abs difference {diff:.3e} "
+          "(not gated: the encoder masks differ by design)", flush=True)
+    print("== phase 6: fit_with_cache kernel path against plain path (float32)", flush=True)
+    kv_err = phase_kernel_vs_plain(device, model_path, data, "fit_with_cache")
 
     if args.profile:
-        print("== phase 5: profile of warm requests", flush=True)
-        phase_profile(device, data, sizes)
+        print("== phase 7: profile of warm requests", flush=True)
+        phase_profile(device, model_path, data, sizes)
 
-    rows = []
-    for kid, meta in KERNELS.items():
-        r = dict(kres[kid])
-        r.update({f"{k}_t48": v for k, v in kres.get(f"{kid}@t48", {}).items()})
-        rows.append({
-            "name": meta["name"], "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[kid],
-            "max_abs_err": r["max_abs_err_f32"], "ms": r["ms_bf16"], "plain_ms": r["plain_ms_bf16"],
-            **{k: v for k, v in r.items() if k not in ("max_abs_err_f32", "ms_bf16", "plain_ms_bf16")},
-        })
-    print(f"  requests ms {req_ms}; f32 proba err {proba_err:.3e}; "
-          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"]})
+    print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
+          f"warm {pre['warm']}; fit_with_cache: fit {kv['fit_ms']:.1f} ms, requests ms "
+          f"{kv['times']}, warm {kv['warm']}, "
+          f"predict_proba_many {kv['many_ms']:.1f} ms; f32 proba err {proba_err:.3e} "
+          f"(cached {kv_err:.3e}); total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.rehearse:
         print("rehearsal on the CPU passed; no result is reported without CUDA", file=sys.stderr)
         return 1

@@ -1,21 +1,28 @@
-// K1: per (member, sample) row of an item-major x (b, t, s, e):
-//   out = LN(x + W_out · attn(W_q x, W_k x, W_v x)) over the row's t feature
-// tokens, h heads of width d, affine-free LN (eps 1e-5).
+// K1 and K5: per row of t feature tokens,
+//   out = LN(x + W_out · attn(W_q x, W_k x, W_v x)) over the row's tokens,
+// h heads of width d, affine-free LN (eps 1e-5). Keys at or past
+// `token_valid` (<= t) get no weight, as the Pallas kernel's static key mask.
 //
-// Replaces multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel_im (body
+// K1, item-major x (b, t, s, e), a row per (member, sample): replaces
+// multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel_im (body
 // _feat_attn_fwd_core :335; pallas_call in _attn_fwd_call_im, :472/:531).
+// K5, sample-major x (m, t, e), rows flattened over every leading axis:
+// replaces _feat_attn_kernel (pallas_call in _attn_fwd_call, :388/:454).
+// One body serves both: a compile-time layout flag, SM (sample-major), says
+// where token `tok` of a row lies. (Runtime strides cost K1's tensor-core
+// body 11 % in an A/B; with the flag K1 keeps its item-major address arithmetic.)
 //
 // What bounds it on the H100: arithmetic. A row at t = 31, e = h·d = 192
 // costs 4.6 M FMAs (QKV and out projections; the t×t attention is 8% of it)
 // against 2·t·e·sizeof(T) bytes of activations; the 590 KB (f32) of weights
 // are re-read from L1/L2 by every block. Two kernels: float32 operands run on
 // the CUDA cores (the parity mode needs full float32 products); bf16 operands
-// at the published widths run on the tensor cores (feat_attn_ln_im_tc_kernel
+// at the published widths run on the tensor cores (feat_attn_ln_tc_kernel
 // below). wgmma and TMA pipelining are later work.
 //
-// CUDA-core design: one block per row, reading the row's tokens straight from the
-// strided item-major layout (no transpose through device memory). The t×e
-// tile, the concatenated head outputs, one head's q/k/v and its t×t weights
+// CUDA-core design: one block per row, reading the row's tokens straight from
+// their layout (strided item-major for K1: no transpose through device
+// memory). The t×e tile, the concatenated head outputs, one head's q/k/v and its t×t weights
 // live in dynamic shared memory (64 KB at t = 31; opt-in above 48 KB). Per
 // head: the projection assigns each thread two adjacent q/k/v columns and 8
 // tokens (one 2-wide weight load feeds 16 FMAs; float4 reads of the token
@@ -25,7 +32,8 @@
 // columns per thread) accumulates in registers and writes the residual sum
 // over the x tile; a warp per token then normalizes
 // and stores. There are exactly t tokens, so no padded token can leak into a
-// softmax (the Pallas kernel had to zero its sublane-padding tail).
+// softmax (the Pallas kernel had to zero its sublane-padding tail); keys at
+// or past token_valid score -inf, one compare.
 #include "common.cuh"
 
 #include <type_traits>
@@ -36,11 +44,20 @@ constexpr int THREADS = 256;
 constexpr int TT = 8;        // tokens per projection work item
 constexpr int MAX_TOKENS = 64;
 
-template <typename T>
+// Token `tok` of row `si` of member `bi` starts at element
+// bi * t * s * e + tok * s * e + si * e of an item-major x (b, t, s, e), and at
+// (si * t + tok) * e of a sample-major x (s, t, e) (b = 1).
+template <bool SM>
+__device__ __forceinline__ long long token_offset(int bi, int si, int tok, int t, int s, int e) {
+  if constexpr (SM) return ((long long)si * t + tok) * e;
+  return ((long long)bi * t + tok) * s * e + (long long)si * e;
+}
+
+template <typename T, bool SM>
 __global__ void __launch_bounds__(THREADS)
-feat_attn_ln_im_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
-                       const T* __restrict__ wout, T* __restrict__ out, int t, int s, int e,
-                       int h, int d, float scale) {
+feat_attn_ln_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
+                    const T* __restrict__ wout, T* __restrict__ out, int t, int s, int e, int h,
+                    int d, int tv, float scale) {
   extern __shared__ float sm[];
   const int hd = h * d, dp = d + 1, ld = 3 * hd;
   float* xs = sm;           // [t][e]  x, then x + out-projection
@@ -52,8 +69,8 @@ feat_attn_ln_im_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
   const int si = blockIdx.x, bi = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int NWARPS = THREADS / 32;
-  const long long tok_stride = (long long)s * e;
-  const long long base = ((long long)bi * t * s + si) * e;  // token 0 of this row
+  const long long tok_stride = SM ? e : (long long)s * e;
+  const long long base = token_offset<SM>(bi, si, 0, t, s, e);  // token 0 of this row
 
   for (int i = tid; i < t * e; i += THREADS) {
     const int tok = i / e, c = i - tok * e;
@@ -108,7 +125,7 @@ feat_attn_ln_im_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
       for (int jj = 0; jj < 2; ++jj) {
         const int j = lane + 32 * jj;
         float a = -INFINITY;
-        if (j < t) {
+        if (j < tv) {
           a = 0.f;
           for (int c = 0; c < d; ++c) a = fmaf(qs[i * dp + c], ks[j * dp + c], a);
         }
@@ -181,14 +198,14 @@ feat_attn_ln_im_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
 // ---- bf16 on the tensor cores ---------------------------------------------
 // The same function for bf16 operands with h·d = e and the widths
 // instantiated in `launch`, for every t the wrapper takes: a block holds
-// TROWS = 128 token rows, TS = TROWS / TTOK samples of one member as TTOK = 32
+// TROWS = 128 token rows, TS = TROWS / TTOK rows (samples) of one member as TTOK = 32
 // (t <= 32) or 64 (t <= 64) token rows each (rows past t zero), a warp per 16
 // rows. Per head it stages
 // that head's q/k/v columns of W_qkv^T in shared memory and projects all rows
 // with mma.sync (bf16 in, float32 accumulated), rounding q, the scaled q, k
 // and v to bf16 as the Pallas kernel does. Each warp's 16 rows lie in one
 // sample: their scores against the sample's 32 token rows and P·V are mma
-// products, and the softmax (keys >= t masked) runs on the score fragments,
+// products, and the softmax (keys >= token_valid masked) runs on the score fragments,
 // each row in one quad of lanes; the normalized weights and the head outputs
 // are rounded to bf16. The concatenated head outputs stay in shared memory
 // for the out-projection, which streams W_out in chunks of OC rows; residual
@@ -204,12 +221,12 @@ constexpr int tc_smem_elems() {
   return 2 * TROWS * (E + 8) + w + 3 * TROWS * (D + 8);
 }
 
-template <int E, int D, int TTOK>
+template <int E, int D, int TTOK, bool SM>
 __global__ void __launch_bounds__(TTHREADS)
-feat_attn_ln_im_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                          const __nv_bfloat16* __restrict__ wqkv_t,
-                          const __nv_bfloat16* __restrict__ wout, __nv_bfloat16* __restrict__ out,
-                          int t, int s, float scale) {
+feat_attn_ln_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ wqkv_t,
+                       const __nv_bfloat16* __restrict__ wout, __nv_bfloat16* __restrict__ out,
+                       int t, int s, int tv, float scale) {
   constexpr int TS = TROWS / TTOK;  // samples per block
   constexpr int H = E / D, XP = E + 8, WP = 3 * D + 8, QP = D + 8;
   constexpr int NW = E * WP > OC * XP ? E * WP : OC * XP;
@@ -224,8 +241,9 @@ feat_attn_ln_im_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int wr = 16 * (tid >> 5);        // this warp's first row
   const int kr0 = wr / TTOK * TTOK;      // first token row of its sample
   const int s0 = blockIdx.x * TS;
-  const long long tok_stride = (long long)s * E;
-  const long long base = (long long)blockIdx.y * t * tok_stride;  // member blockIdx.y, token 0
+  const long long tok_stride = SM ? E : (long long)s * E;
+  const long long row_stride = SM ? (long long)t * E : E;
+  const long long base = SM ? 0 : (long long)blockIdx.y * t * tok_stride;  // member, row 0, token 0
   const uint4 zero = make_uint4(0, 0, 0, 0);
 
   // tile row r is token r % TTOK of sample s0 + r / TTOK
@@ -234,7 +252,7 @@ feat_attn_ln_im_tc_kernel(const __nv_bfloat16* __restrict__ x,
     const int si = s0 + r / TTOK, tok = r % TTOK;
     *reinterpret_cast<uint4*>(xs + r * XP + c) =
         tok < t && si < s
-            ? *reinterpret_cast<const uint4*>(x + base + tok * tok_stride + (long long)si * E + c)
+            ? *reinterpret_cast<const uint4*>(x + base + tok * tok_stride + si * row_stride + c)
             : zero;
   }
 
@@ -301,7 +319,7 @@ feat_attn_ln_im_tc_kernel(const __nv_bfloat16* __restrict__ x,
         for (int nb = 0; nb < TTOK / 8; ++nb)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            if (nb * 8 + 2 * q4 + i >= t) sc[nb][2 * r + i] = -INFINITY;
+            if (nb * 8 + 2 * q4 + i >= tv) sc[nb][2 * r + i] = -INFINITY;
             m = fmaxf(m, sc[nb][2 * r + i]);
           }
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
@@ -367,65 +385,81 @@ feat_attn_ln_im_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int si = s0 + wr / TTOK;  // a warp's 16 rows lie in one sample
   residual_ln_store<E>(acc, xs + wr * XP, XP, [=](int r) -> __nv_bfloat16* {
     const int tok = wr % TTOK + r;
-    return tok < t && si < s ? out + base + tok * tok_stride + (long long)si * E : nullptr;
+    return tok < t && si < s ? out + base + tok * tok_stride + si * row_stride : nullptr;
   });
 }
 
-template <int E, int D, int TTOK>
+template <int E, int D, int TTOK, bool SM>
 int launch_tc_rows(const void* x, const void* wqkv_t, const void* wout, void* out, int b, int t,
-                   int s, cudaStream_t stream) {
+                   int s, int tv, cudaStream_t stream) {
   static_assert(E % OC == 0 && D % 16 == 0 && E % D == 0, "widths the tile layout takes");
   static_assert(TROWS % TTOK == 0 && TTOK % 16 == 0, "a warp's rows lie in one sample");
   constexpr int TS = TROWS / TTOK;
   const size_t smem = sizeof(__nv_bfloat16) * tc_smem_elems<E, D>();
   static_assert(sizeof(__nv_bfloat16) * tc_smem_elems<E, D>() <= MMPFN_MAX_SMEM, "tiles fit");
-  int rc = mmpfn_allow_smem(feat_attn_ln_im_tc_kernel<E, D, TTOK>, smem);
+  int rc = mmpfn_allow_smem(feat_attn_ln_tc_kernel<E, D, TTOK, SM>, smem);
   if (rc) return rc;
-  feat_attn_ln_im_tc_kernel<E, D, TTOK><<<dim3((s + TS - 1) / TS, b), TTHREADS, smem, stream>>>(
+  feat_attn_ln_tc_kernel<E, D, TTOK, SM><<<dim3((s + TS - 1) / TS, b), TTHREADS, smem, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)wqkv_t, (const __nv_bfloat16*)wout,
-      (__nv_bfloat16*)out, t, s, 1.f / sqrtf((float)D));
+      (__nv_bfloat16*)out, t, s, tv, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <int E, int D>
+template <int E, int D, bool SM>
 int launch_tc(const void* x, const void* wqkv_t, const void* wout, void* out, int b, int t, int s,
-              cudaStream_t stream) {
-  return t <= 32 ? launch_tc_rows<E, D, 32>(x, wqkv_t, wout, out, b, t, s, stream)
-                 : launch_tc_rows<E, D, MAX_TOKENS>(x, wqkv_t, wout, out, b, t, s, stream);
+              int tv, cudaStream_t stream) {
+  return t <= 32 ? launch_tc_rows<E, D, 32, SM>(x, wqkv_t, wout, out, b, t, s, tv, stream)
+                 : launch_tc_rows<E, D, MAX_TOKENS, SM>(x, wqkv_t, wout, out, b, t, s, tv, stream);
 }
 
-template <typename T>
+template <typename T, bool SM>
 int launch(const void* x, const void* wqkv_t, const void* wout, void* out, int b, int t, int s,
-           int e, int h, int d, cudaStream_t stream) {
+           int e, int h, int d, int tv, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     // the published width, and a small one the tests reach
     if (h * d == e && e == 192 && d == 32)
-      return launch_tc<192, 32>(x, wqkv_t, wout, out, b, t, s, stream);
+      return launch_tc<192, 32, SM>(x, wqkv_t, wout, out, b, t, s, tv, stream);
     if (h * d == e && e == 64 && d == 16)
-      return launch_tc<64, 16>(x, wqkv_t, wout, out, b, t, s, stream);
+      return launch_tc<64, 16, SM>(x, wqkv_t, wout, out, b, t, s, tv, stream);
   }
   const size_t smem =
       sizeof(float) * ((size_t)t * e + (size_t)t * h * d + 3 * (size_t)t * (d + 1) + (size_t)t * t);
   if (smem > MMPFN_MAX_SMEM) return MMPFN_BAD_ARGS;
-  int rc = mmpfn_allow_smem(feat_attn_ln_im_kernel<T>, smem);
+  int rc = mmpfn_allow_smem(feat_attn_ln_kernel<T, SM>, smem);
   if (rc) return rc;
-  feat_attn_ln_im_kernel<T><<<dim3(s, b), THREADS, smem, stream>>>(
-      (const T*)x, (const T*)wqkv_t, (const T*)wout, (T*)out, t, s, e, h, d,
+  feat_attn_ln_kernel<T, SM><<<dim3(s, b), THREADS, smem, stream>>>(
+      (const T*)x, (const T*)wqkv_t, (const T*)wout, (T*)out, t, s, e, h, d, tv,
       1.f / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
 
+// b members of s rows each, item-major or (SM, b = 1) sample-major
+template <bool SM>
+int run(const void* x, const void* wqkv_t, const void* wout, void* out, int b, int t, int s, int e,
+        int h, int d, int tv, int dtype, int device, void* stream) {
+  if (cudaError_t err = cudaSetDevice(device)) return (int)err;
+  if (b <= 0 || s <= 0) return 0;
+  if (t < 1 || t > MAX_TOKENS || tv < 1 || tv > t || e % 4 || d % 2 || (h * d) % 4 || b > 65535)
+    return MMPFN_BAD_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == MMPFN_F32) return launch<float, SM>(x, wqkv_t, wout, out, b, t, s, e, h, d, tv, st);
+  if (dtype == MMPFN_BF16)
+    return launch<__nv_bfloat16, SM>(x, wqkv_t, wout, out, b, t, s, e, h, d, tv, st);
+  return MMPFN_BAD_ARGS;
+}
+
 }  // namespace
 
+// K1: x (b, t, s, e), item-major
 extern "C" int mmpfn_feat_attn_ln_im(const void* x, const void* wqkv_t, const void* wout,
                                      void* out, int b, int t, int s, int e, int h, int d,
                                      int dtype, int device, void* stream) {
-  if (cudaError_t err = cudaSetDevice(device)) return (int)err;
-  if (b <= 0 || s <= 0) return 0;
-  if (t < 1 || t > MAX_TOKENS || e % 4 || d % 2 || (h * d) % 4 || b > 65535) return MMPFN_BAD_ARGS;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == MMPFN_F32) return launch<float>(x, wqkv_t, wout, out, b, t, s, e, h, d, st);
-  if (dtype == MMPFN_BF16)
-    return launch<__nv_bfloat16>(x, wqkv_t, wout, out, b, t, s, e, h, d, st);
-  return MMPFN_BAD_ARGS;
+  return run<false>(x, wqkv_t, wout, out, b, t, s, e, h, d, t, dtype, device, stream);
+}
+
+// K5: x (rows, t, e), sample-major; keys at or past token_valid masked
+extern "C" int mmpfn_feat_attn_ln(const void* x, const void* wqkv_t, const void* wout, void* out,
+                                  int rows, int t, int e, int h, int d, int token_valid, int dtype,
+                                  int device, void* stream) {
+  return run<true>(x, wqkv_t, wout, out, 1, t, rows, e, h, d, token_valid, dtype, device, stream);
 }

@@ -36,8 +36,8 @@
 //    kept K/V resident in VMEM and was capped at 4096 rows).
 //    item_attn_mma_kernel is its bf16 tensor-core twin (d a multiple of 16):
 //    a warp owns 16 query rows and runs the same online softmax on mma
-//    fragments.
-#include "common.cuh"
+//    fragments. Both tile loops live in attn_tile.cuh, shared with K4.
+#include "attn_tile.cuh"
 
 #include <type_traits>
 
@@ -155,9 +155,15 @@ proj_nt_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __re
 }
 
 // ---- two-block online-softmax attention ------------------------------------
-constexpr int BQ = 64;   // query rows per block (one per thread)
-constexpr int BKV = 64;  // K/V rows per shared-memory tile
-constexpr int SUB = 16;  // keys per online-softmax update
+// The tile loops are attn_tile.cuh's, shared with K4. A block owns one
+// (group, head, query tile); the query tiles of the two regions are
+// enumerated in one grid, so a tile never straddles `sep`, and a test tile
+// reads KV head 0.
+using attn::BQ;
+using attn::BKV;
+using attn::MQ;
+using attn::MKV;
+using attn::MTHREADS;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(BQ)
@@ -176,64 +182,11 @@ item_attn_kernel(const T* __restrict__ qkv, T* __restrict__ o, float* __restrict
   const int qi = q0 + tid;
   const bool valid = qi < q_end;
 
-  float q[D], acc[D];
+  float q[D], acc[D], m, l;
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    q[c] = valid ? to_f<T>(grp[(long long)qi * ld + hh * D + c]) : 0.f;
-    acc[c] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < sep; k0 += BKV) {
-    for (int i = tid; i < BKV * D; i += BQ) {
-      const int r = i / D, c = i - r * D;
-      const int kr = k0 + r;
-      const bool ok = kr < sep;
-      const T* row = grp + (long long)kr * ld + kvh * D + c;
-      Ks[r][c] = ok ? to_f<T>(row[hd]) : 0.f;
-      Vs[r][c] = ok ? to_f<T>(row[2 * hd]) : 0.f;
-    }
-    __syncthreads();
-    const int nk = min(BKV, sep - k0);
-    for (int j0 = 0; j0 < nk; j0 += SUB) {
-      float sc[SUB];
-      float mt = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float* kr = Ks[j0 + jj];
-        float a = 0.f;
-#pragma unroll
-        for (int c = 0; c < D; c += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(kr + c);
-          a = fmaf(q[c], kv.x, fmaf(q[c + 1], kv.y, fmaf(q[c + 2], kv.z, fmaf(q[c + 3], kv.w, a))));
-        }
-        sc[jj] = j0 + jj < nk ? a * scale : -1e30f;
-        mt = fmaxf(mt, sc[jj]);
-      }
-      const float m_new = fmaxf(m, mt);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float p = expf(sc[jj] - m_new);
-        l += p;
-        const float pr = round_t<T>(p);
-        const float* vr = Vs[j0 + jj];
-#pragma unroll
-        for (int c = 0; c < D; c += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + c);
-          acc[c] = fmaf(pr, vv.x, acc[c]);
-          acc[c + 1] = fmaf(pr, vv.y, acc[c + 1]);
-          acc[c + 2] = fmaf(pr, vv.z, acc[c + 2]);
-          acc[c + 3] = fmaf(pr, vv.w, acc[c + 3]);
-        }
-      }
-      m = m_new;
-    }
-    __syncthreads();
-  }
+  for (int c = 0; c < D; ++c) q[c] = valid ? to_f<T>(grp[(long long)qi * ld + hh * D + c]) : 0.f;
+  attn::cc_rows<T, D>(q, grp + hd + kvh * D, grp + 2 * hd + kvh * D, ld, sep, scale, Ks, Vs, acc,
+                      m, l);
   if (valid) {
     T* orow = o + ((long long)g * S + qi) * hd + hh * D;
     const float inv = 1.f / l;
@@ -243,29 +196,15 @@ item_attn_kernel(const T* __restrict__ qkv, T* __restrict__ o, float* __restrict
   }
 }
 
-// ---- bf16 attention on the tensor cores ------------------------------------
-// The same function for bf16 operands: a warp owns 16 query rows, scores and
-// P·V are mma.sync m16n8k16 products (bf16 in, float32 accumulated), and the
-// online softmax runs on the score fragments: each row lives in the 4 lanes
-// of a quad, which combine their maxima with shuffles and keep partial sums
-// that are added once at the end. P is rounded to bf16 to enter the P·V
-// product, as the Pallas kernel rounds it. K and V tiles are staged
-// row-major with 16-byte loads (ldmatrix.trans reads V as b fragments), rows
-// padded so fragment reads hit distinct banks; 128 query rows per block share
-// each staged tile.
-constexpr int MQ = 128;       // query rows per block: 8 warps x 16
-constexpr int MKV = 64;       // keys per shared-memory tile
-constexpr int MTHREADS = 2 * MQ;
-
+// The same function for bf16 operands on the tensor cores (a warp owns 16
+// query rows of the block's 128).
 template <int D>
 __global__ void __launch_bounds__(MTHREADS)
 item_attn_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o,
                      float* __restrict__ lse, int S, int sep, int h, float scale) {
-  constexpr int KP = D + 8;     // padded row of the K and V tiles (bf16 elements)
-  constexpr int NB = MKV / 8;   // score tiles of 8 keys
-  constexpr int ND = D / 8;     // output tiles of 8 columns
-  __shared__ __align__(16) __nv_bfloat16 Ks[MKV * KP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[MKV * KP];
+  constexpr int ND = D / 8;  // output tiles of 8 columns
+  __shared__ __align__(16) __nv_bfloat16 Ks[MKV * (D + attn::MPAD)];
+  __shared__ __align__(16) __nv_bfloat16 Vs[MKV * (D + attn::MPAD)];
   const int g_i = blockIdx.z, hh = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
   const int n_qb_tr = (sep + MQ - 1) / MQ;
@@ -287,84 +226,12 @@ item_attn_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
                       ? *reinterpret_cast<const uint32_t*>(grp + (long long)row * ld + hh * D + col)
                       : 0u;
     }
-  float oacc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) oacc[nd][0] = oacc[nd][1] = oacc[nd][2] = oacc[nd][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g+8
-
-  for (int k0 = 0; k0 < sep; k0 += MKV) {
-    for (int i = tid; i < MKV * D / 8; i += MTHREADS) {
-      const int r = i / (D / 8), c = 8 * (i - r * (D / 8));
-      const int kr = k0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (kr < sep) {
-        const __nv_bfloat16* row = grp + (long long)kr * ld + kvh * D + c;
-        kv = *reinterpret_cast<const uint4*>(row + hd);
-        vv = *reinterpret_cast<const uint4*>(row + 2 * hd);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * KP + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * KP + c) = vv;
-    }
-    __syncthreads();
-
-    float sc[NB][4];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const __nv_bfloat16* kr = Ks + (nb * 8 + g) * KP + ks * 16 + 2 * q4;
-        mma_bf16_16816(sc[nb], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                       *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-    const int nk = min(MKV, sep - k0);
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = nb * 8 + 2 * q4 + (i & 1);
-        sc[nb][i] = key < nk ? sc[nb][i] * scale : -1e30f;
-        mt[i >> 1] = fmaxf(mt[i >> 1], sc[nb][i]);
-      }
-    uint32_t pa[MKV / 16][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m[r], mt[r]);
-      const float alpha = expf(m[r] - m_new);
-      l[r] *= alpha;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        oacc[nd][2 * r] *= alpha;
-        oacc[nd][2 * r + 1] *= alpha;
-      }
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const float p0 = expf(sc[nb][2 * r] - m_new), p1 = expf(sc[nb][2 * r + 1] - m_new);
-        l[r] += p0 + p1;
-        // score tiles 2j and 2j+1 are the A fragment of keys 16j..16j+15
-        pa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(p0, p1);
-      }
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int j = 0; j < MKV / 16; ++j) {
-        uint32_t b0, b1;
-        ldsm_x2_trans(b0, b1, Vs + (j * 16 + (lane & 15)) * KP + nd * 8);
-        mma_bf16_16816(oacc[nd], pa[j], b0, b1);
-      }
-    __syncthreads();
-  }
+  float oacc[ND][4], m[2], l[2];  // rows g and g+8
+  attn::mma_rows<D>(qa, grp + hd + kvh * D, grp + 2 * hd + kvh * D, ld, sep, scale, Ks, Vs, oacc,
+                    m, l);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = q0 + g + 8 * r;
     if (row < q_end) {
       const float inv = 1.f / l[r];

@@ -83,3 +83,28 @@ def determine_precision(inference_precision, device: torch.device) -> tuple[bool
     if inference_precision in ("bfloat16", torch.bfloat16, "bf16"):
         return True, "bfloat16"
     raise ValueError(f"Invalid inference_precision: {inference_precision}")
+
+
+def pipeline_requests(dispatch, finalize, Xs, image_tests, max_in_flight: int) -> list:
+    """The scheduling loop of a pipelined request stream
+    (`MMPFNClassifier.predict_proba_many`): request N+1 is dispatched (host
+    transforms, uploads and enqueued device work) before request N is
+    finalized, so host and device overlap; at most ``max_in_flight``
+    dispatched requests wait to be finalized. The results are exactly
+    ``[finalize(dispatch(X, img)) for X, img in zip(Xs, image_tests)]``."""
+    if max_in_flight < 1:
+        raise ValueError("max_in_flight must be >= 1")
+    if image_tests is None:
+        image_tests = [None] * len(Xs)
+    if len(image_tests) != len(Xs):
+        raise ValueError(f"got {len(Xs)} X requests but {len(image_tests)} image requests")
+    results: list = [None] * len(Xs)
+    in_flight: list[tuple[int, object]] = []
+    for i, (X, img) in enumerate(zip(Xs, image_tests)):
+        in_flight.append((i, dispatch(X, img)))
+        if len(in_flight) > max_in_flight:
+            j, handle = in_flight.pop(0)
+            results[j] = finalize(handle)
+    for j, handle in in_flight:
+        results[j] = finalize(handle)
+    return results

@@ -24,6 +24,7 @@ import torch
 from multimodalpfn_tpu_torch.estimator.base import (
     determine_precision,
     initialize_model,
+    pipeline_requests,
     resolve_device,
 )
 from multimodalpfn_tpu_torch.estimator.data_utils import (
@@ -223,15 +224,38 @@ class MMPFNClassifier:
     def predict_proba(self, X, image_test: np.ndarray | None = None) -> np.ndarray:
         return self._predict_proba_impl(X, image_test)
 
+    def predict_proba_many(
+        self, Xs, image_tests=None, *, max_in_flight: int = 2
+    ) -> list[np.ndarray]:
+        """``predict_proba`` over a stream of requests, pipelined: the host
+        work of request N+1 (validation, member transforms, uploads, kernel
+        launches) overlaps the card's work on request N, since PyTorch
+        launches return before the card finishes. ``max_in_flight`` bounds
+        the dispatched requests awaiting their host sync. The results are
+        exactly ``[predict_proba(X, img) for X, img in zip(Xs, image_tests)]``;
+        only the ``fit_with_cache`` engine defers device work, the others
+        compute each request in its dispatch (JAX package
+        `classifier.py:225-248`)."""
+        return pipeline_requests(
+            self._dispatch_predict, self._finalize_predict, Xs, image_tests, max_in_flight
+        )
+
     def _predict_proba_impl(self, X, image_test: np.ndarray | None) -> np.ndarray:
-        """Member logits -> temperature -> reverse class permutation -> softmax/
-        average -> balance -> renormalize (reference `classifier.py:517-576`)."""
+        return self._finalize_predict(self._dispatch_predict(X, image_test))
+
+    def _dispatch_predict(self, X, image_test: np.ndarray | None):
+        """Validation, encoding and the engine's dispatch (no host sync)."""
         if not hasattr(self, "executor_"):
             raise RuntimeError(f"This {type(self).__name__} instance is not fitted yet.")
         if X is not None:
             X = self._encode_X(validate_X_predict(X, self), fit=False)
+        return self.executor_.dispatch_outputs(X, image_test)
+
+    def _finalize_predict(self, handle) -> np.ndarray:
+        """Member logits -> temperature -> reverse class permutation -> softmax/
+        average -> balance -> renormalize (reference `classifier.py:517-576`)."""
         outputs = []
-        for output, config in self.executor_.iter_outputs(X, image_test):
+        for output, config in self.executor_.finalize_outputs(handle):
             output = np.asarray(output, dtype=np.float64)
             if self.softmax_temperature != 1:
                 output = output[:, : self.n_classes_] / self.softmax_temperature

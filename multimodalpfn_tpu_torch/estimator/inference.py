@@ -6,6 +6,12 @@ CachePreprocessing / CacheKV). As in the JAX package
 match are stacked on the batch axis and run as one forward. Members of
 different widths run as separate groups (the JAX package's cross-width merge
 and its cost model were calibrated on a TPU and are not carried over).
+
+A predict splits into `dispatch_outputs`, which transforms the test rows and
+enqueues the device work without waiting for it, and `finalize_outputs`,
+which copies every group's logits to the host at once. A request stream
+(`MMPFNClassifier.predict_proba_many`) dispatches request N+1 before it
+finalizes request N, so host work overlaps device work.
 """
 
 from __future__ import annotations
@@ -17,6 +23,12 @@ from typing import Any, Literal, Sequence
 import numpy as np
 import torch
 
+from multimodalpfn_tpu_torch.models.cached import (
+    TrainsetCache,
+    forward_cached,
+    prime_cache,
+    slice_members,
+)
 from multimodalpfn_tpu_torch.models.config import ModelConfig
 from multimodalpfn_tpu_torch.models.transformer import forward
 from multimodalpfn_tpu_torch.preprocess.ensemble import EnsembleConfig, fit_preprocessing
@@ -51,6 +63,47 @@ def _repeat_last_pad(a: np.ndarray, pad: int) -> np.ndarray:
     return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
 
 
+def _run_config(
+    cfg: ModelConfig, autocast: bool, device: torch.device, use_kernels: bool | None
+) -> tuple[ModelConfig, bool]:
+    """The model config a forward runs with (bf16 or float32 compute, the
+    kernels on or off: ``use_kernels``, None = on a CUDA device) and whether
+    the kernels are on."""
+    kernels = device.type == "cuda" if use_kernels is None else use_kernels
+    run_cfg = dataclasses.replace(
+        cfg,
+        compute_dtype="bfloat16" if autocast else "float32",
+        use_flash=kernels,
+        fused_ops=kernels,
+    )
+    return run_cfg, kernels
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to a CUDA device through pinned memory
+    without blocking the host, so a dispatch does not wait for the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _fetch(pending: list[tuple[list[int], torch.Tensor]], n_members: int, pad_rows: int):
+    """Per-member logits of every pending forward, ``pad_rows`` bucket rows
+    cut, with one device-to-host copy (one host sync) for all of them."""
+    flat = torch.cat([lg.reshape(-1) for _, lg in pending]).cpu().numpy()
+    outputs: list[np.ndarray | None] = [None] * n_members
+    off = 0
+    for idxs, lg in pending:
+        a = flat[off : off + lg.numel()].reshape(lg.shape)
+        off += lg.numel()
+        if pad_rows:
+            a = a[:, :-pad_rows]
+        for j, i in enumerate(idxs):
+            outputs[i] = a[j]
+    return outputs
+
+
 def _mixer_token_count(mx, n_img_patches: int) -> int:
     """Token count the mixer emits: MGM+CAP pools to cap_heads queries; MoE
     emits one token per expert (= mgm_heads); plain MGM emits mgm_heads per
@@ -79,13 +132,7 @@ def _group_and_run(
     """Stack same-width members into batched forwards; return per-member logits.
 
     ``use_kernels`` (None = on a CUDA device) runs the item-major kernel path."""
-    kernels = device.type == "cuda" if use_kernels is None else use_kernels
-    run_cfg = dataclasses.replace(
-        cfg,
-        compute_dtype="bfloat16" if autocast else "float32",
-        use_flash=kernels,
-        fused_ops=kernels,
-    )
+    run_cfg, kernels = _run_config(cfg, autocast, device, use_kernels)
 
     n_test = None
     if image_test is not None:
@@ -149,15 +196,7 @@ def _group_and_run(
                 single_eval_pos=sep,
             )
             pending.append((idxs[sl], logits))
-    # one host sync for every group
-    outputs: list[np.ndarray | None] = [None] * len(members)
-    for chunk_idxs, logits in pending:
-        logits = logits.cpu().numpy()
-        if pad_rows:
-            logits = logits[:, :-pad_rows]
-        for j, i in enumerate(chunk_idxs):
-            outputs[i] = logits[j]
-    return outputs  # type: ignore[return-value]
+    return _fetch(pending, len(members), pad_rows)  # type: ignore[return-value]
 
 
 @dataclass
@@ -180,6 +219,15 @@ class InferenceEngine:
         self, X: np.ndarray | None, image_test: np.ndarray | None
     ) -> list[tuple[np.ndarray, EnsembleConfig]]:
         raise NotImplementedError
+
+    def dispatch_outputs(self, X, image_test):
+        """Begin one predict and return a handle for `finalize_outputs`. An
+        engine without a device phase to overlap computes everything here."""
+        return ("eager", self.iter_outputs(X, image_test))
+
+    def finalize_outputs(self, handle) -> list[tuple[np.ndarray, EnsembleConfig]]:
+        """Complete a predict begun by `dispatch_outputs` (the host sync)."""
+        return handle[1]
 
     def _image_train_device(self) -> torch.Tensor | None:
         """The train-side image on the device, uploaded once per engine."""
@@ -273,6 +321,106 @@ class InferenceEngineOnDemand(InferenceEngine):
         return self._run([_Member(*row) for row in fitted], X, image_test)
 
 
+@dataclass
+class InferenceEngineCacheKV(InferenceEngineCachePreprocessing):
+    """fit_with_cache: prime each member group's per-layer train K/V cache at
+    fit time; a predict runs only the test rows against it (reference
+    `inference.py:354-513`; the JAX package's `InferenceEngineCacheKV`).
+
+    A cache holds values of one run configuration (compute dtype, kernels on
+    or off): when ``use_kernels`` changes, the next predict primes again."""
+
+    caches: list[tuple[TrainsetCache, list[int], int]] | None = None
+    primed_cfg: ModelConfig | None = None
+
+    def _run_cfg(self) -> tuple[ModelConfig, bool]:
+        return _run_config(self.cfg, self.autocast, self.device, self.use_kernels)
+
+    def _prime(self) -> None:
+        run_cfg, kernels = self._run_cfg()
+        img = self._image_train_device()
+        n_img_tokens = 0 if img is None else _mixer_token_count(self.cfg.mixer, img.shape[-2])
+        groups: dict[tuple, list[int]] = {}
+        for i, m in enumerate(self.members):
+            width = -1 if m.X_train is None else m.X_train.shape[1]
+            groups.setdefault((width, len(m.y_train)), []).append(i)
+        caches = []
+        for (width, sep), idxs in groups.items():
+            ys = _to_device(np.stack([self.members[i].y_train.astype(np.float32) for i in idxs]),
+                            self.device)
+            xs = None
+            if width >= 0:
+                xs = _to_device(
+                    np.stack([self.members[i].X_train.astype(np.float32) for i in idxs]),
+                    self.device,
+                )
+            n_tokens = (0 if width < 0 else -(-width // self.cfg.features_per_group)) + n_img_tokens
+            # the plain path materializes (b, t, h, sep, sep) scores
+            for chunk in split_batch_for_memory(
+                len(idxs), run_cfg, seq_len=sep, n_feature_tokens=n_tokens,
+                device=self.device, kernels=kernels,
+            ):
+                sl = slice(chunk.start, chunk.stop)
+                cache = prime_cache(
+                    self.params,
+                    run_cfg,
+                    None if xs is None else xs[sl],
+                    ys[sl],
+                    None if img is None else img[None],  # shared by the members
+                )
+                caches.append((cache, idxs[sl], width))
+        self.caches, self.primed_cfg = caches, run_cfg
+
+    def iter_outputs(self, X, image_test):
+        return self.finalize_outputs(self.dispatch_outputs(X, image_test))
+
+    def dispatch_outputs(self, X, image_test):
+        """Transform the test rows and enqueue every cache group's forward;
+        nothing here waits for the card."""
+        run_cfg, kernels = self._run_cfg()
+        if run_cfg != self.primed_cfg:
+            self._prime()
+        img_dev, n_test = None, None
+        if image_test is not None:
+            a = np.asarray(image_test, dtype=np.float32)
+            n_test = len(a)
+            img_dev = _to_device(_repeat_last_pad(a, _bucket_test_rows(n_test) - n_test),
+                                 self.device)[None]  # shared by the members
+        X_tests = [
+            None if m.X_train is None else m.preprocessor.transform(X).X for m in self.members
+        ]
+        if n_test is None:
+            n_test = len(next(Xt for Xt in X_tests if Xt is not None))
+        n_rows = _bucket_test_rows(n_test)
+        pad_rows = n_rows - n_test
+        pending: list[tuple[list[int], torch.Tensor]] = []
+        for cache, idxs, width in self.caches:
+            xs = None
+            if width >= 0:
+                xs = _to_device(
+                    np.stack([_repeat_last_pad(X_tests[i], pad_rows).astype(np.float32)
+                              for i in idxs]),
+                    self.device,
+                )
+            # the plain path materializes (b, t, h, rows, sep) scores
+            for chunk in split_batch_for_memory(
+                len(idxs), run_cfg, seq_len=n_rows, kv_len=cache.kv0.shape[-2],
+                n_feature_tokens=cache.kv0.shape[2] - 1, device=self.device, kernels=kernels,
+            ):
+                sl = slice(chunk.start, chunk.stop)
+                logits = forward_cached(
+                    self.params, run_cfg, slice_members(cache, sl),
+                    None if xs is None else xs[sl], img_dev,
+                )
+                pending.append((idxs[sl], logits))
+        return ("kv", pending, pad_rows)
+
+    def finalize_outputs(self, handle):
+        _, pending, pad_rows = handle
+        outputs = _fetch(pending, len(self.members), pad_rows)
+        return [(o, m.config) for o, m in zip(outputs, self.members)]
+
+
 def create_inference_engine(
     *,
     X_train,
@@ -293,12 +441,10 @@ def create_inference_engine(
     elif fit_mode == "fit_preprocessors":
         engine_cls = InferenceEngineCachePreprocessing
     elif fit_mode == "fit_with_cache":
-        raise NotImplementedError(
-            "fit_mode='fit_with_cache' (the KV-cache engine) is not ported yet"
-        )
+        engine_cls = InferenceEngineCacheKV
     else:
         raise ValueError(f"Invalid fit_mode: {fit_mode}")
-    return engine_cls.prepare(
+    engine = engine_cls.prepare(
         X_train,
         y_train,
         image_train,
@@ -310,3 +456,6 @@ def create_inference_engine(
         autocast=autocast,
         device=device,
     )
+    if isinstance(engine, InferenceEngineCacheKV):
+        engine._prime()  # the cache is built at fit time, as in the reference
+    return engine

@@ -56,11 +56,9 @@ def _item_sublayer(
     """Item-attention sublayer ``LN(x + attn(x))`` over the items axis of
     item-major state ``(b, t, s, e)``, in the compute dtype. With
     ``cfg.use_flash`` it runs the kernels K2a + K2b where the gate admits the
-    configuration; with ``use_flash`` off, the plain path. A flash
-    configuration the gate refuses (no multiquery test block, a ring axis, or
-    ``fused_item`` off) runs the flash kernel K4 in the JAX package
-    (`multimodalpfn_tpu/ops/pallas_attention.py:198`), which is not ported:
-    its plain version serves it on the CPU, and on a CUDA device this raises."""
+    configuration, and otherwise (no multiquery test block, a ring axis, or
+    ``fused_item`` off) the flash kernel K4 inside `item_attention`, as the JAX
+    package does; with ``use_flash`` off, the plain path."""
     cd = DTYPES[cfg.compute_dtype]
     sep, S = single_eval_pos, state.shape[-2]
     multiquery = cfg.multiquery_item_attention_for_test_set
@@ -78,13 +76,6 @@ def _item_sublayer(
             single_eval_pos=sep,
             compute_dtype=cd,
         )
-    if cfg.use_flash and state.device.type == "cuda":
-        raise NotImplementedError(
-            "item attention with use_flash for this configuration "
-            f"(multiquery_item_attention_for_test_set={multiquery}, "
-            f"seq_shard_axis={cfg.seq_shard_axis!r}, fused_item={cfg.fused_item}) needs the "
-            "flash kernel K4, which is not ported yet; set use_flash=False for the plain path"
-        )
     h = item_attention(
         state,
         lp["attn_item"]["w_qkv"],
@@ -92,6 +83,7 @@ def _item_sublayer(
         single_eval_pos=sep,
         multiquery_test=multiquery,
         compute_dtype=cd,
+        use_flash=cfg.use_flash,
     )
     return residual_ln(state, h)
 

@@ -12,7 +12,9 @@ with the stacked ``w_qkv (3,h,d,in)`` / ``w_out (h,d,out)`` weight layout
     `multi_head_attention.py:438-445`).
 
 Matmuls take and emit the compute dtype (the JAX package's
-``preferred_element_type=compute_dtype``); the softmax runs in float32.
+``preferred_element_type=compute_dtype``); the softmax runs in float32. With
+``use_flash`` the attention core is the flash kernel K4 (`ops/flash.py`), whose
+plain version serves CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from multimodalpfn_tpu_torch.ops.flash import flash_attention
 
 
 def can_use_fused_item(
@@ -53,18 +57,22 @@ def mha(
     *,
     kv_head0_only: bool = False,
     compute_dtype: torch.dtype = torch.float32,
+    use_flash: bool = False,
 ) -> torch.Tensor:
     """Multi-head attention with stacked qkv weights.
 
     x_q ``(..., Sq, E)``, x_kv ``(..., Sk, E)``, w_qkv ``(3, h, d, E)``,
     w_out ``(h, d, E_out)``. ``kv_head0_only``: multiquery — K/V only from
-    head 0, shared across all query heads."""
+    head 0, shared across all query heads. ``use_flash``: the attention core
+    runs K4 (the JAX package's flash branch, `ops/attention.py:105-151`)."""
     d = w_qkv.shape[2]
     scale = 1.0 / math.sqrt(d)
     cd = compute_dtype
     xq = x_q.to(cd)
     xkv = x_kv.to(cd)
     wq, wk, wv = (w_qkv[i].to(cd) for i in range(3))
+    if use_flash:
+        return _flash_mha(xq, xkv, wq, wk, wv, w_out.to(cd), kv_head0_only)
     q = torch.einsum("...si,hdi->...shd", xq, wq)
     if kv_head0_only:
         k = torch.einsum("...si,di->...sd", xkv, wk[0])
@@ -81,6 +89,26 @@ def mha(
     return torch.einsum("...qhd,hdo->...qo", o, w_out.to(cd))
 
 
+def _flash_mha(xq, xkv, wq, wk, wv, w_out, kv_head0_only: bool) -> torch.Tensor:
+    """`mha` through K4 on compute-dtype operands: the projections emit the
+    compute dtype, the heads (or, multiquery, the query heads folded into the
+    query axis, head-major, against KV head 0) fold into K4's groups, and K4's
+    float32 output is rounded to the compute dtype for the out-projection."""
+    lead, Sq, Skv = xq.shape[:-2], xq.shape[-2], xkv.shape[-2]
+    h, d = wq.shape[:2]
+    q = torch.einsum("...si,hdi->...hsd", xq, wq)
+    if kv_head0_only:
+        k = torch.einsum("...si,di->...sd", xkv, wk[0]).reshape(-1, Skv, d)
+        v = torch.einsum("...si,di->...sd", xkv, wv[0]).reshape(-1, Skv, d)
+        o, _ = flash_attention(q.reshape(-1, h * Sq, d), k, v)
+    else:
+        k = torch.einsum("...si,hdi->...hsd", xkv, wk).reshape(-1, Skv, d)
+        v = torch.einsum("...si,hdi->...hsd", xkv, wv).reshape(-1, Skv, d)
+        o, _ = flash_attention(q.reshape(-1, Sq, d), k, v)
+    o = o.reshape(*lead, h, Sq, d).to(xq.dtype)
+    return torch.einsum("...hqd,hdo->...qo", o, w_out)
+
+
 def item_attention(
     x: torch.Tensor,
     w_qkv: torch.Tensor,
@@ -89,14 +117,19 @@ def item_attention(
     single_eval_pos: int,
     multiquery_test: bool = True,
     compute_dtype: torch.dtype = torch.float32,
+    use_flash: bool = False,
 ) -> torch.Tensor:
     """Two-block attention over the items axis of ``x`` ``(..., S, E)``, whose
     first ``single_eval_pos`` rows are train rows (reference `layer.py:341-395`).
-    Returns the pre-residual sublayer value ``(..., S, E_out)``."""
+    Returns the pre-residual sublayer value ``(..., S, E_out)``.
+
+    ``use_flash`` runs both blocks' attention cores on K4 at every ``sep``: the
+    JAX package's ``sep >= 512`` floor (`ops/attention.py:344`) avoided TPU
+    tile padding, and K4 masks its ragged tiles."""
     sep = single_eval_pos
     train = x[..., :sep, :]
     test = x[..., sep:, :]
-    out_train = mha(train, train, w_qkv, w_out, compute_dtype=compute_dtype)
+    out_train = mha(train, train, w_qkv, w_out, compute_dtype=compute_dtype, use_flash=use_flash)
     if test.shape[-2] == 0:
         return out_train
     out_test = mha(
@@ -106,5 +139,6 @@ def item_attention(
         w_out,
         kv_head0_only=multiquery_test,
         compute_dtype=compute_dtype,
+        use_flash=use_flash,
     )
     return torch.cat([out_train, out_test], dim=-2)

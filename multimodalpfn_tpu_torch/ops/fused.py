@@ -1,6 +1,7 @@
-"""Fused row-local encoder sublayers: K1 (feature attention + residual + LN,
-item-major) and K3 (MLP + residual + LN). The counterpart of the JAX package's
-`multimodalpfn_tpu/ops/pallas_fused.py`, forward only.
+"""Fused row-local encoder sublayers: K1 and K5 (feature attention + residual
++ LN, item-major and sample-major) and K3 (MLP + residual + LN). The
+counterpart of the JAX package's `multimodalpfn_tpu/ops/pallas_fused.py`,
+forward only.
 
 Each sublayer has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper runs the plain version for a tensor on the CPU; for a CUDA tensor it
@@ -22,11 +23,12 @@ from multimodalpfn_tpu_torch.ops import kernels
 
 LN_EPS = 1e-5
 
-# Feature tokens the K1 kernel takes (the Pallas kernel's bound too): its
-# float32 softmax gives each lane of a warp two keys, and at 64 tokens
-# (e = h·d = 192) its shared-memory tiles take 140 KB of the 227 KB a block may
-# use. With more tokens the forward runs the sample-major layer, whose feature
-# attention is plain in both packages.
+# Feature tokens K1 and K5 take: their float32 softmax gives each lane of a
+# warp two keys, and at 64 tokens (e = h·d = 192) their shared-memory tiles
+# take 140 KB of the 227 KB a block may use. The Pallas kernels stop at 48
+# (`multimodalpfn_tpu/ops/pallas_fused.py:42`), a bound from the TPU's VMEM.
+# With more tokens the forward runs the sample-major layer and the KV-cache
+# path its feature attention plain, in both packages.
 MAX_FUSED_ATTN_TOKENS = 64
 
 
@@ -44,31 +46,106 @@ def rounder(cd: torch.dtype):
     return lambda t: t.to(cd).float()
 
 
+def softmax_pv(s: torch.Tensor, v: torch.Tensor, rnd) -> tuple[torch.Tensor, torch.Tensor]:
+    """Softmax-weighted values with the attention kernels' rounding (K2a, K4):
+    the unnormalized weights are rounded by ``rnd`` before the product, the sum
+    is float32, and lse = max + log(sum). s and v float32."""
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return (rnd(p) @ v) / l, (m + torch.log(l)).squeeze(-1)
+
+
+def _attn_operands(kernel: str, x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor,
+                   t: int, token_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's and K5's checks and weights: W_qkv^T ``(e, 3·h·d)`` and W_out
+    ``(h·d, e)`` in x's dtype."""
+    e = x.shape[-1]
+    _, h, d, _ = w_qkv.shape
+    kernels.require_shape(kernel, "w_qkv", w_qkv, (3, h, d, e))
+    kernels.require_shape(kernel, "w_out", w_out, (h, d, e))
+    if t > MAX_FUSED_ATTN_TOKENS or not 1 <= token_valid <= t or e % 4 or d % 2 or (h * d) % 4:
+        raise ValueError(
+            f"{kernel}: unsupported shape t={t}, token_valid={token_valid}, e={e}, h={h}, d={d}"
+        )
+    wqkv_t = kernels.aligned(w_qkv.reshape(3 * h * d, e).t().to(x.dtype).contiguous())
+    wout = kernels.aligned(w_out.reshape(h * d, e).to(x.dtype).contiguous())
+    return wqkv_t, wout
+
+
 # ---------------------------------------------------------------------------
-# K1: feature attention + residual + LN, item-major (b, t, s, e)
+# K5 / K1: feature attention + residual + LN, sample-major (..., t, e) and
+# item-major (b, t, s, e)
 # ---------------------------------------------------------------------------
+
+
+def feature_attention_ln_plain(
+    x: torch.Tensor,
+    w_qkv: torch.Tensor,
+    w_out: torch.Tensor,
+    token_valid_count: int | None = None,
+) -> torch.Tensor:
+    """``LN(x + W_out·attn(x))`` over the t tokens of every row of x
+    ``(..., t, e)``; w_qkv ``(3, h, d, e)``, w_out ``(h, d, e)``. Keys at or
+    past ``token_valid_count`` (None: t) get no weight. Returns x's shape and
+    dtype."""
+    cd = x.dtype
+    rnd = rounder(cd)
+    _, h, d, e = w_qkv.shape
+    t = x.shape[-2]
+    xs = x.float()
+    w = w_qkv.to(cd).float()
+    q = rnd(torch.einsum("...te,hde->...htd", xs, w[0]))
+    q = rnd(q * (1.0 / math.sqrt(d)))
+    k = rnd(torch.einsum("...te,hde->...htd", xs, w[1]))
+    v = rnd(torch.einsum("...te,hde->...htd", xs, w[2]))
+    s = q @ k.transpose(-1, -2)  # (..., h, t, t)
+    if token_valid_count is not None:
+        if not 1 <= token_valid_count <= t:
+            raise ValueError(f"token_valid_count={token_valid_count} outside [1, {t}]")
+        s = s.masked_fill(torch.arange(t, device=x.device) >= token_valid_count, float("-inf"))
+    p = rnd(torch.softmax(s, dim=-1))
+    o = rnd(p @ v)  # (..., h, t, d)
+    o_all = o.transpose(-3, -2).reshape(*xs.shape[:-1], h * d)
+    acc = o_all @ w_out.reshape(h * d, e).to(cd).float()
+    return ln_rows(xs + acc).to(cd)
+
+
+def fused_feature_attention_ln(
+    x: torch.Tensor,
+    w_qkv: torch.Tensor,
+    w_out: torch.Tensor,
+    token_valid_count: int | None = None,
+) -> torch.Tensor:
+    """K5. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel`
+    (called through `_attn_fwd_call`); kernel in `csrc/feat_attn.cu`, K1's
+    body with contiguous tokens and rows flattened over x's leading axes."""
+    if x.device.type == "cpu":
+        return feature_attention_ln_plain(x, w_qkv, w_out, token_valid_count)
+    t, e = x.shape[-2:]
+    _, h, d, _ = w_qkv.shape
+    tv = t if token_valid_count is None else token_valid_count
+    wqkv_t, wout = _attn_operands("K5", x, w_qkv, w_out, t, tv)
+    x2 = kernels.aligned(x.reshape(-1, t, e).contiguous())
+    if x2.shape[0] >= 2**31:
+        raise ValueError(f"K5: {x2.shape[0]} rows exceed the kernel's grid")
+    kernels.require_cuda("K5", x2, wqkv_t, wout)
+    out = torch.empty_like(x2)
+    rc = kernels.library().mmpfn_feat_attn_ln(
+        x2.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(),
+        x2.shape[0], t, e, h, d, tv, *kernels.launch_args(x2, "K5"),
+    )
+    kernels.check(rc, "K5")
+    kernels.LAUNCHES["K5"] += 1
+    return out.reshape(x.shape)
 
 
 def feature_attention_ln_im_plain(
     x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor
 ) -> torch.Tensor:
-    """``LN(x + W_out·attn(x))`` over the t tokens of every (member, sample)
-    row of x ``(b, t, s, e)``; w_qkv ``(3, h, d, e)``, w_out ``(h, d, e)``.
-    Returns x's shape and dtype."""
-    cd = x.dtype
-    rnd = rounder(cd)
-    _, h, d, e = w_qkv.shape
-    xs = x.transpose(1, 2).float()  # (b, s, t, e)
-    w = w_qkv.to(cd).float()
-    q = rnd(torch.einsum("bste,hde->bshtd", xs, w[0]))
-    q = rnd(q * (1.0 / math.sqrt(d)))
-    k = rnd(torch.einsum("bste,hde->bshtd", xs, w[1]))
-    v = rnd(torch.einsum("bste,hde->bshtd", xs, w[2]))
-    p = rnd(torch.softmax(q @ k.transpose(-1, -2), dim=-1))
-    o = rnd(p @ v)  # (b, s, h, t, d)
-    o_all = o.permute(0, 1, 3, 2, 4).reshape(*xs.shape[:3], h * d)
-    acc = o_all @ w_out.reshape(h * d, e).to(cd).float()
-    return ln_rows(xs + acc).to(cd).transpose(1, 2).contiguous()
+    """`feature_attention_ln_plain` over the t tokens of every (member,
+    sample) row of an item-major x ``(b, t, s, e)``."""
+    return feature_attention_ln_plain(x.transpose(1, 2), w_qkv, w_out).transpose(1, 2).contiguous()
 
 
 def fused_feature_attention_ln_im(
@@ -80,12 +157,7 @@ def fused_feature_attention_ln_im(
         return feature_attention_ln_im_plain(x, w_qkv, w_out)
     b, t, s, e = x.shape
     _, h, d, _ = w_qkv.shape
-    kernels.require_shape("K1", "w_qkv", w_qkv, (3, h, d, e))
-    kernels.require_shape("K1", "w_out", w_out, (h, d, e))
-    if t > MAX_FUSED_ATTN_TOKENS or e % 4 or d % 2 or (h * d) % 4:
-        raise ValueError(f"K1: unsupported shape t={t}, e={e}, h={h}, d={d}")
-    wqkv_t = kernels.aligned(w_qkv.reshape(3 * h * d, e).t().to(x.dtype).contiguous())  # (e, 3hd)
-    wout = kernels.aligned(w_out.reshape(h * d, e).to(x.dtype).contiguous())
+    wqkv_t, wout = _attn_operands("K1", x, w_qkv, w_out, t, t)
     x = kernels.aligned(x)
     kernels.require_cuda("K1", x, wqkv_t, wout)
     out = torch.empty_like(x)

@@ -24,7 +24,7 @@ import math
 import torch
 
 from multimodalpfn_tpu_torch.ops import kernels
-from multimodalpfn_tpu_torch.ops.fused import rounder, ln_rows
+from multimodalpfn_tpu_torch.ops.fused import ln_rows, rounder, softmax_pv
 
 # The plain version materializes (chunk, h, rows, sep) float32 scores; groups
 # are processed in chunks of at most this many score bytes.
@@ -34,16 +34,6 @@ _PLAIN_SCORE_BYTES = 1 << 30
 # ---------------------------------------------------------------------------
 # K2a: QKV projection + two-block attention -> o (G, S, h·d), lse (G, h, S)
 # ---------------------------------------------------------------------------
-
-
-def _softmax_pv(s: torch.Tensor, v: torch.Tensor, rnd) -> tuple[torch.Tensor, torch.Tensor]:
-    """Softmax-weighted values with the kernel's rounding: the unnormalized
-    weights are rounded to the compute dtype before the product, the sum is
-    float32, and lse = max + log(sum)."""
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    return (rnd(p) @ v) / l, (m + torch.log(l)).squeeze(-1)
 
 
 def item_attention_core_plain(
@@ -68,10 +58,10 @@ def item_attention_core_plain(
         q = qkv[..., :hd].reshape(n, S, h, d).transpose(1, 2)  # (n, h, S, d)
         k = qkv[:, :sep, hd : 2 * hd].reshape(n, sep, h, d).transpose(1, 2)
         v = qkv[:, :sep, 2 * hd :].reshape(n, sep, h, d).transpose(1, 2)
-        o_tr, lse_tr = _softmax_pv(
+        o_tr, lse_tr = softmax_pv(
             (q[:, :, :sep] @ k.transpose(-1, -2)) * scale, v, rnd
         )
-        o_te, lse_te = _softmax_pv(  # test rows: KV head 0 for every query head
+        o_te, lse_te = softmax_pv(  # test rows: KV head 0 for every query head
             (q[:, :, sep:] @ k[:, :1].transpose(-1, -2)) * scale, v[:, :1], rnd
         )
         o = torch.cat([o_tr, o_te], dim=2)  # (n, h, S, d)

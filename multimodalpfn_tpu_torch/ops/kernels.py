@@ -39,16 +39,21 @@ NVCC_FLAGS = [
 ]
 
 # kernel id -> launches through its wrapper since the last reset
-LAUNCHES: dict[str, int] = {"K1": 0, "K2a": 0, "K2b": 0, "K3": 0}
+LAUNCHES: dict[str, int] = {"K1": 0, "K2a": 0, "K2b": 0, "K3": 0, "K4": 0, "K5": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # (x, wqkv_t, wout, out, b, t, s, e, h, d, dtype, device, stream)
     "mmpfn_feat_attn_ln_im": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (x, wqkv_t, wout, out, rows, t, e, h, d, token_valid, dtype, device, stream)
+    "mmpfn_feat_attn_ln": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (q, k, v, o, lse, G, Sq, Skv, d, scale, dtype, device, stream)
+    "mmpfn_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # (x, w1, w2, out, rows, e, nhid, dtype, device, stream)
     "mmpfn_mlp_ln": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # (a, b, c, M, N, K, dtype, device, stream)

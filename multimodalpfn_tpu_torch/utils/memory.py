@@ -28,21 +28,31 @@ def device_memory_bytes(device: torch.device | str) -> int:
 
 
 def estimate_forward_bytes(
-    cfg, *, batch: int, seq_len: int, n_feature_tokens: int, kernels: bool
+    cfg,
+    *,
+    batch: int,
+    seq_len: int,
+    n_feature_tokens: int,
+    kernels: bool,
+    kv_len: int | None = None,
 ) -> int:
     """Closed-form activation estimate for one batched forward (the spirit of
     reference `memory.py:146-226`).
 
     Dominant terms per layer: the state (b, s, t, e), the MLP hidden
     (b, s, t, nhid) and, on the plain path only, the item-attention logits,
-    their softmax and its compute-dtype copy, each (b, t, h, s, s).
+    their softmax and its compute-dtype copy, each (b, t, h, s, kv_len).
+    ``kv_len`` is the key count (None: ``seq_len``): the train rows when the
+    KV cache is primed (``seq_len`` train rows too) or read (``seq_len`` test
+    rows).
     """
     t = n_feature_tokens + 1
     e, h, nhid = cfg.emsize, cfg.nhead, cfg.nhid
+    kv_len = seq_len if kv_len is None else kv_len
     bytes_per = 2 if cfg.compute_dtype == "bfloat16" else 4
     state = batch * seq_len * t * e * bytes_per
     mlp_hidden = batch * seq_len * t * nhid * bytes_per
-    attn_scores = 0 if kernels else 3 * batch * t * h * seq_len * seq_len * 4
+    attn_scores = 0 if kernels else 3 * batch * t * h * seq_len * kv_len * 4
     return int(3 * state + attn_scores + mlp_hidden)
 
 
@@ -54,6 +64,7 @@ def split_batch_for_memory(
     n_feature_tokens: int,
     device: torch.device | str,
     kernels: bool,
+    kv_len: int | None = None,
     budget: int | None = None,
 ) -> Iterator[range]:
     """Yield batch ranges sized to fit the device memory budget (80% of the
@@ -66,6 +77,7 @@ def split_batch_for_memory(
             seq_len=seq_len,
             n_feature_tokens=n_feature_tokens,
             kernels=kernels,
+            kv_len=kv_len,
         ),
         1,
     )

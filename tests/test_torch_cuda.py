@@ -13,7 +13,7 @@ import torch
 from multimodalpfn_tpu_torch.models import params as tparams
 from multimodalpfn_tpu_torch.models.config import ModelConfig
 from multimodalpfn_tpu_torch.models.transformer import forward
-from multimodalpfn_tpu_torch.ops import fused, item_fused, kernels
+from multimodalpfn_tpu_torch.ops import flash, fused, item_fused, kernels
 
 # float32 kernels against float32 plain versions: summation order only
 F32_TOL = dict(rtol=5e-5, atol=5e-5)
@@ -63,6 +63,75 @@ def test_k1_bf16_matches_plain(cuda, e, h, d, t):
     got = fused.fused_feature_attention_ln_im(x, w_qkv, w_out)
     want = fused.feature_attention_ln_im_plain(x, w_qkv, w_out)
     assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+
+
+@pytest.mark.parametrize(
+    "lead,t,e,h,d,tvc",
+    [((2, 37), 31, 32, 4, 8, None), ((3, 11), 48, 64, 4, 16, 40), ((2, 37), 13, 32, 4, 8, 5)],
+)
+def test_k5_matches_plain(cuda, lead, t, e, h, d, tvc):
+    """float32 K5 (the CUDA-core body) on sample-major rows, with and without
+    the key mask."""
+    g = torch.Generator().manual_seed(8)
+    x = _rand(g, *lead, t, e, device=cuda)
+    w_qkv, w_out = _rand(g, 3, h, d, e, scale=0.2, device=cuda), _rand(g, h, d, e, scale=0.2, device=cuda)
+    before = kernels.LAUNCHES["K5"]
+    got = fused.fused_feature_attention_ln(x, w_qkv, w_out, tvc)
+    assert kernels.LAUNCHES["K5"] == before + 1
+    torch.testing.assert_close(got, fused.feature_attention_ln_plain(x, w_qkv, w_out, tvc), **F32_TOL)
+
+
+@pytest.mark.parametrize("e,h,d,t,tvc", [(192, 6, 32, 31, None), (192, 6, 32, 48, None),
+                                         (64, 4, 16, 31, 20), (64, 4, 16, 48, 33)])
+def test_k5_bf16_matches_plain(cuda, e, h, d, t, tvc):
+    """bf16 K5 takes the tensor-core body (32 token rows per sample up to
+    t = 32, 64 above), within two bf16 ulps of the largest output."""
+    g = torch.Generator().manual_seed(9)
+    x = _rand(g, 2, 37, t, e, device=cuda).to(torch.bfloat16)
+    w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
+    w_out = _rand(g, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    got = fused.fused_feature_attention_ln(x, w_qkv, w_out, tvc)
+    want = fused.feature_attention_ln_plain(x, w_qkv, w_out, tvc)
+    assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Sq,Skv,d", [(3, 37, 45, 16), (2, 130, 200, 32), (4, 200, 1, 32),
+                                        (2, 70, 129, 64), (2, 33, 40, 8)])
+def test_k4_matches_plain(cuda, G, Sq, Skv, d, dtype):
+    """K4 on ragged query and key counts: float32 on the CUDA cores within
+    the float32 bound, bf16 (d a multiple of 16: the tensor cores) within two
+    bf16 ulps of the largest output; lse in float32 within 1e-4, in bf16
+    within 1e-3 (float32 sums of the same bf16 scores, in another order and
+    with the weights rescaled per tile)."""
+    g = torch.Generator().manual_seed(10)
+    q, k, v = (_rand(g, G, n, d, device=cuda).to(dtype) for n in (Sq, Skv, Skv))
+    before = kernels.LAUNCHES["K4"]
+    o, lse = flash.flash_attention(q, k, v)
+    assert kernels.LAUNCHES["K4"] == before + 1
+    o_ref, lse_ref = flash.flash_attention_plain(q, k, v)
+    assert o.dtype == lse.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_ref, **F32_TOL)
+        torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    else:
+        assert (o - o_ref).abs().max() / o_ref.abs().max() <= 2.0**-6
+        torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_multiquery_matches_plain(cuda, dtype):
+    """Multiquery: 6 query heads folded head-major into the query axis against
+    KV head 0, through `flash_mha`."""
+    g = torch.Generator().manual_seed(11)
+    B, h, Sq, Skv, d = 3, 6, 50, 77, 32
+    q = _rand(g, B, h, Sq, d, device=cuda).to(dtype)
+    k, v = (_rand(g, B, 1, Skv, d, device=cuda).to(dtype) for _ in range(2))
+    got = flash.flash_mha(q, k, v, kv_head0_only=True)
+    want, _ = flash.flash_attention_plain(q.reshape(B, h * Sq, d), k[:, 0], v[:, 0])
+    want = want.reshape(B, h, Sq, d)
+    bound = 5e-5 if dtype == torch.float32 else 2.0**-6
+    assert (got - want).abs().max() / want.abs().max() <= bound
 
 
 @pytest.mark.parametrize("rows", [1, 33, 100])
@@ -152,17 +221,50 @@ def test_forward_many_tokens_runs_item_and_mlp_kernels(cuda):
     got = forward(params, dataclasses.replace(cfg, fused_ops=True, use_flash=True), x, y,
                   single_eval_pos=sep)
     ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-    assert ran == {"K1": 0, "K2a": cfg.nlayers, "K2b": cfg.nlayers, "K3": cfg.nlayers}
+    assert ran == {"K1": 0, "K2a": cfg.nlayers, "K2b": cfg.nlayers, "K3": cfg.nlayers, "K4": 0, "K5": 0}
     torch.testing.assert_close(got, forward(params, cfg, x, y, single_eval_pos=sep), **FORWARD_TOL)
 
 
-def test_forward_refused_item_attention_raises(cuda):
-    """Item attention without the multiquery test block is the flash kernel
-    K4's in the JAX package; it is not ported, so the kernel path refuses it on
-    the card instead of running plain attention there."""
+@pytest.mark.parametrize(
+    "cfg_kw", [dict(multiquery_item_attention_for_test_set=False), dict(fused_item=False)]
+)
+def test_forward_refused_item_attention_runs_k4(cuda, cfg_kw):
+    """Item attention that the K2 gate refuses (no multiquery test block, or
+    ``fused_item`` off) runs K4 for both blocks of every layer, as the JAX
+    package runs its flash kernel there; the logits match the plain path's."""
     params, cfg, x, y, sep = _forward_case(cuda, n_features=5)
-    cfg = dataclasses.replace(
-        cfg, fused_ops=True, use_flash=True, multiquery_item_attention_for_test_set=False
+    run = dataclasses.replace(cfg, fused_ops=True, use_flash=True, **cfg_kw)
+    before = dict(kernels.LAUNCHES)
+    got = forward(params, run, x, y, single_eval_pos=sep)
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert ran == {"K1": cfg.nlayers, "K2a": 0, "K2b": 0, "K3": cfg.nlayers, "K4": 2 * cfg.nlayers,
+                   "K5": 0}
+    plain = forward(params, dataclasses.replace(cfg, **cfg_kw), x, y, single_eval_pos=sep)
+    torch.testing.assert_close(got, plain, **FORWARD_TOL)
+
+
+def test_cached_serving_runs_k4_k5_k3(cuda):
+    """``fit_with_cache`` on the card: prime and each predict launch K5, K4
+    and K3 once per layer, and no item-major kernel; float32 answers match
+    the cached plain path's."""
+    from multimodalpfn_tpu_torch import TabPFNClassifier
+    from multimodalpfn_tpu_torch.datasets.synthetic import toy_classification
+    from multimodalpfn_tpu_torch.preprocess.ensemble import PreprocessorConfig
+
+    X, y = toy_classification(n=90, n_classes=3, seed=4)
+    clf = TabPFNClassifier(
+        model_path="random:0", n_estimators=2, fit_mode="fit_with_cache", device="cuda",
+        inference_precision="float32",
+        inference_config={"PREPROCESS_TRANSFORMS": [
+            PreprocessorConfig("none", categorical_name="numeric", subsample_features=-1)]},
     )
-    with pytest.raises(NotImplementedError, match="K4"):
-        forward(params, cfg, x, y, single_eval_pos=sep)
+    kernels.reset_launches()
+    clf.fit(X[:60], y[:60])
+    groups = len(clf.executor_.caches)
+    p_kernel = clf.predict_proba(X[60:])
+    layers = clf.config_.nlayers
+    assert kernels.LAUNCHES == {"K1": 0, "K2a": 0, "K2b": 0, "K3": 2 * layers * groups,
+                                "K4": 2 * layers * groups, "K5": 2 * layers * groups}
+    clf.executor_.use_kernels = False  # primes again, on the plain path
+    p_plain = clf.predict_proba(X[60:])
+    assert abs(p_kernel - p_plain).max() <= 1e-4

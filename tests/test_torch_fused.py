@@ -1,4 +1,4 @@
-"""Port K1 and K3 (multimodalpfn_tpu_torch/ops/fused.py) against the JAX
+"""Port K1, K5 and K3 (multimodalpfn_tpu_torch/ops/fused.py) against the JAX
 package's Pallas kernels run in TPU interpret mode on the CPU.
 
 On the CPU the port's wrappers run their plain versions, so these tests pin the
@@ -52,6 +52,39 @@ def test_feature_attention_im_matches_jax(b, t, s, e, h, d):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+# sample-major (..., t, e) rows: odd t against the Pallas sublane padding,
+# with and without the static key mask
+@pytest.mark.parametrize(
+    "lead,t,e,h,d,tvc", [((2, 19), 13, 32, 4, 8, None), ((2, 19), 13, 32, 4, 8, 9), ((23,), 7, 16, 2, 8, 1)]
+)
+def test_feature_attention_matches_jax(lead, t, e, h, d, tvc):
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(*lead, t, e)).astype(np.float32)
+    w_qkv, w_out, _, _ = _weights(rng, e, h, d, 8)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(
+            jf.fused_feature_attention_ln(
+                jnp.asarray(x), jnp.asarray(w_qkv), jnp.asarray(w_out),
+                token_valid_count=tvc, block_rows=16,
+            )
+        )
+    got = tf.fused_feature_attention_ln(
+        torch.from_numpy(x), torch.from_numpy(w_qkv), torch.from_numpy(w_out), tvc
+    )
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_item_major_plain_is_sample_major_plain_transposed():
+    """K1's plain version is K5's on the transposed rows, exactly."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 6, 11, 16)).astype(np.float32))
+    w_qkv, w_out = (torch.from_numpy(a) for a in _weights(rng, 16, 2, 8, 8)[:2])
+    im = tf.feature_attention_ln_im_plain(x, w_qkv, w_out)
+    sm = tf.feature_attention_ln_plain(x.transpose(1, 2).contiguous(), w_qkv, w_out)
+    assert torch.equal(im, sm.transpose(1, 2))
+
+
 @pytest.mark.parametrize("lead,e,nhid", [((2, 13, 37), 32, 64), ((3, 19), 16, 48)])
 def test_mlp_ln_matches_jax(lead, e, nhid):
     rng = np.random.default_rng(1)
@@ -75,9 +108,11 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
     kernels.reset_launches()
     a = tf.fused_feature_attention_ln_im(x, w_qkv, w_out)
     m = tf.fused_mlp_ln(x, w1, w2)
+    f = tf.fused_feature_attention_ln(x, w_qkv, w_out, 3)
     assert torch.equal(a, tf.feature_attention_ln_im_plain(x, w_qkv, w_out))
     assert torch.equal(m, tf.mlp_ln_plain(x, w1, w2))
-    assert kernels.LAUNCHES["K1"] == 0 and kernels.LAUNCHES["K3"] == 0
+    assert torch.equal(f, tf.feature_attention_ln_plain(x, w_qkv, w_out, 3))
+    assert kernels.LAUNCHES["K1"] == kernels.LAUNCHES["K3"] == kernels.LAUNCHES["K5"] == 0
 
 
 def test_wrappers_refuse_non_cuda_devices():
@@ -88,6 +123,10 @@ def test_wrappers_refuse_non_cuda_devices():
     w_out = torch.empty((2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tf.fused_feature_attention_ln_im(x, w_qkv, w_out)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.fused_feature_attention_ln(x, w_qkv, w_out)
+    with pytest.raises(ValueError, match="token_valid=10"):  # more valid keys than t = 9
+        tf.fused_feature_attention_ln(x, w_qkv, w_out, 10)
     with pytest.raises(ValueError, match="CUDA"):
         tf.fused_mlp_ln(x, torch.empty((16, 32), device="meta"), torch.empty((32, 16), device="meta"))
 
