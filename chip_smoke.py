@@ -22,17 +22,24 @@ Phases, each of which must pass:
    to 2350, 31 tokens, e = 192, h = 6, d = 32, nhid = 768), K1 also at 48
    tokens; K4 at the KV-cache prime shape (G = 4·31·6, 1838 × 1838) and the
    multiquery predict shape (G = 4·31, 6·512 queries, 1838 keys); K5 at the
-   prime shape (4, 1838, 31, 192) and at 48 tokens.
-3. ``fit_preprocessors`` served: ``MMPFNClassifier`` (4 members, numpy-only
-   preprocessing) fits the PAD-UFES-shaped synthetic set and answers three
-   ``predict_proba`` requests (460, 128 and 300 test rows); the launch
-   counters, zeroed just before, show K1, K2a, K2b and K3 ran in every layer;
-   then the same requests again, warm.
+   prime shape (4, 1838, 31, 192) and at 48 tokens; the key-masked K6a at
+   (4, 48, 2350, 192) and K6b at the merged prime (4·1838, 48, 192) and
+   predict (4·512, 48, 192) shapes, with the masks of members 39/39/22/22
+   features wide (+ 8 image tokens and the target: 17 keys of the narrow
+   members masked).
+3. ``fit_preprocessors`` served: ``MMPFNClassifier`` (4 members, the
+   classifier's default preprocessing: quantile transform, appended
+   originals, global SVD, on numpy/scipy) fits the PAD-UFES-shaped synthetic
+   set and answers three ``predict_proba`` requests (460, 128 and 300 test
+   rows); the members' widths and the planned groups are printed; the launch
+   counters, zeroed just before, show the item-major kernels (K1, or K6a for
+   a merged group; K2a, K2b, K3) ran in every layer of every group; then the
+   same requests again, warm.
 4. Its kernel path against its plain path: float32 ``predict_proba`` (the
    plain path split by the memory estimate).
 5. ``fit_with_cache`` served: fit (which primes the KV cache) and the same
-   three requests; the counters, zeroed just before the fit, show K4, K5 and
-   K3 ran in every layer of the prime and of each request, and no
+   three requests; the counters, zeroed just before the fit, show K4, K5 (or
+   K6b) and K3 ran in every layer of the prime and of each request, and no
    item-major kernel ran; then the requests again, warm.
    ``predict_proba_many`` over the three requests equals the sequential
    answers exactly. The largest difference from phase
@@ -40,8 +47,16 @@ Phases, each of which must pass:
    constant-column masks differ, `models/cached.py`).
 6. The cached kernel path against the cached plain path: float32
    ``predict_proba``.
+7. Forced plans (``estimator.inference._FORCE_MERGE``): the members' widths
+   as split groups and as one padded group, in both fit modes, whatever the
+   cost rule plans (its own choices are printed). In bf16, with the counters
+   zeroed just before the fit: split groups launch K1 (K5 in the prime and
+   every request) in every layer and no masked kernel; the merged group K6a
+   (K6b) and no unmasked one; warm requests of both plans are timed. In
+   float32 the merged answers equal the split ones to 1e-5, and the merged
+   kernel path matches the merged plain path to 1e-4.
 
-``--profile`` adds a phase 7: ``torch.profiler`` around one warm request of
+``--profile`` adds a phase 8: ``torch.profiler`` around one warm request of
 each size in both modes, printing wall time, device kernel time, the idle
 share and the kernels that took the most device time.
 
@@ -73,6 +88,11 @@ F32_REL_BOUND = 5e-5
 BF16_REL_BOUND = 2.0**-6
 LSE_F32_ABS_BOUND = 1e-4
 PROBA_ABS_BOUND = 1e-4
+# merged against split float32 answers: the padded keys get exactly zero
+# weight, so the two differ by summation order only (the JAX package's bar)
+MERGE_ABS_BOUND = 1e-5
+# the flagship ensemble's member widths, the image tokens of MGM+CAP 16/8
+MERGE_WIDTHS, N_IMG_TOKENS = (39, 39, 22, 22), 8
 
 # Published peaks of one H100 SXM (dense, at the full 700 W power limit):
 # tensor-core bf16 and CUDA-core float32 FLOP/s, and HBM3 bytes/s
@@ -110,10 +130,22 @@ KERNELS = {
         source="multimodalpfn_tpu_torch/csrc/feat_attn.cu",
         replaces="multimodalpfn_tpu/ops/pallas_fused.py:388",
     ),
+    "K6a": dict(
+        name="K6a key-masked feature attention + residual + LN (item-major, a mask per member)",
+        source="multimodalpfn_tpu_torch/csrc/feat_attn.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_fused.py:303",
+    ),
+    "K6b": dict(
+        name="K6b key-masked feature attention + residual + LN (sample-major, a mask per member)",
+        source="multimodalpfn_tpu_torch/csrc/feat_attn.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_fused.py:280",
+    ),
 }
-# the served path each kernel's launch count comes from
-PATH_OF = {"K1": "preproc", "K2a": "preproc", "K2b": "preproc", "K3": "preproc",
-           "K4": "cached", "K5": "cached"}
+# the served path each kernel's launch count comes from: phases 3 and 5 serve
+# the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
+# (K6a, K6b) whatever the rule plans
+PATH_OF = {"K1": "split", "K2a": "preproc", "K2b": "preproc", "K3": "preproc",
+           "K4": "cached", "K5": "split_cached", "K6a": "merged", "K6b": "merged_cached"}
 
 
 class SmokeFailure(RuntimeError):
@@ -201,10 +233,24 @@ def phase_kernels(device, dims, iters) -> dict:
     xs48 = rand(b, sep, 48, e)
     qp, kp, vp = rand(b * t * h, sep, d), rand(b * t * h, sep, d), rand(b * t * h, sep, d)
     qm = rand(b * t, h * n_pred, d)  # multiquery: heads folded into the queries
+    xp48 = rand(b, n_pred, 48, e)  # K6b at the merged predict shape
+    # the merged group's key masks: each member's own feature tokens, none of
+    # its padded ones, the image tokens and the target
+    widths = [MERGE_WIDTHS[i % len(MERGE_WIDTHS)] for i in range(b)]
+    g_max = 48 - N_IMG_TOKENS - 1
+    mask = torch.ones((b, 48), dtype=torch.bool)
+    for i, w in enumerate(widths):
+        mask[i, w:g_max] = False
+    keys = [w + N_IMG_TOKENS + 1 for w in widths]  # valid keys per member
 
-    def feat_work(rows, tt):  # K1 / K5: projections, t×t attention, out-projection
-        return lambda es: (2 * rows * tt * 4 * hd * e + 4 * rows * h * tt * tt * d,
-                           2 * rows * tt * e * es + 4 * hd * e * es)
+    def feat_work(rows, tt, valid=None):
+        """K1 / K5 (K6a / K6b): projections and out-projection of every token,
+        attention of every query against the valid keys of its row."""
+        mask_bytes = 0 if valid is None else 8 * b  # a 64-bit word per member
+        valid = [tt] * b if valid is None else valid
+        attn = sum(4 * (rows // b) * h * tt * kv * d for kv in valid)
+        return lambda es: (2 * rows * tt * 4 * hd * e + attn,
+                           2 * rows * tt * e * es + 4 * hd * e * es + mask_bytes)
 
     def flash_work(G, Sq, Skv):
         return lambda es: (4 * G * Sq * Skv * d, (G * Sq + 2 * G * Skv) * d * es + G * Sq * (d + 1) * 4)
@@ -253,6 +299,14 @@ def phase_kernels(device, dims, iters) -> dict:
                lambda dt: (xs.to(dt), w_qkv, w_out), feat_work(b * sep, t), None),
         "K5@t48": (fused.fused_feature_attention_ln, fused.feature_attention_ln_plain,
                    lambda dt: (xs48.to(dt), w_qkv, w_out), feat_work(b * sep, 48), None),
+        "K6a": (fused.fused_feature_attention_ln_im, fused.feature_attention_ln_im_plain,
+                lambda dt: (x48.to(dt), w_qkv, w_out, mask), feat_work(R, 48, keys), None),
+        "K6b": (fused.fused_feature_attention_ln, fused.feature_attention_ln_plain,
+                lambda dt: (xs48.to(dt), w_qkv, w_out, None, mask[:, None]),
+                feat_work(b * sep, 48, keys), None),
+        "K6b@predict": (fused.fused_feature_attention_ln, fused.feature_attention_ln_plain,
+                        lambda dt: (xp48.to(dt), w_qkv, w_out, None, mask[:, None]),
+                        feat_work(b * n_pred, 48, keys), None),
     }
     results = {}
     for kid, (kern, plain, make, work, library) in cases.items():
@@ -300,8 +354,8 @@ def phase_kernels(device, dims, iters) -> dict:
 
 
 def make_classifier(device, model_path, **kw):
+    """The served classifier: 4 members, the default preprocessing."""
     from multimodalpfn_tpu_torch import MMPFNClassifier
-    from multimodalpfn_tpu_torch.preprocess.ensemble import PreprocessorConfig
 
     return MMPFNClassifier(
         model_path=str(model_path),
@@ -310,13 +364,21 @@ def make_classifier(device, model_path, **kw):
         cap_heads=8,
         n_estimators=4,
         device=str(device),
-        inference_config={
-            "PREPROCESS_TRANSFORMS": [
-                PreprocessorConfig("none", categorical_name="numeric", subsample_features=-1)
-            ]
-        },
         **kw,
     )
+
+
+def planned_groups(clf, cached: bool, request_sizes) -> list[tuple[list[int], int, bool]]:
+    """The fitted classifier's member groups as the engine plans them, for
+    the first request (the KV cache: for the bucket floor, when it is
+    primed): (member indices, width, merged)."""
+    from multimodalpfn_tpu_torch.estimator import inference as inf
+
+    members = clf.executor_.members
+    groups = inf._width_groups(members, [m.X_train.shape[1] for m in members])
+    n_test = inf.TEST_SIZE_BUCKET if cached else inf._bucket_test_rows(request_sizes[0])
+    plans = inf._plan_groups(groups, clf.config_, N_IMG_TOKENS, n_test, cached=cached)
+    return [(idxs, width, tab_valid is not None) for idxs, width, tab_valid, _ in plans]
 
 
 def check_proba(p, n_rows: int, n_classes: int, tag: str) -> None:
@@ -345,8 +407,11 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
     if device.type == "cuda":
         torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - t0) * 1e3
-    groups = len({m.X_train.shape[1] for m in clf.executor_.members})
-    print(f"  fit {fit_ms:.1f} ms; {groups} width group(s) of members", flush=True)
+    widths = [m.X_train.shape[1] for m in clf.executor_.members]
+    plans = planned_groups(clf, cached, request_sizes)
+    groups, merged = len(plans), sum(m for _, _, m in plans)
+    print(f"  fit {fit_ms:.1f} ms; member widths {widths}; planned groups "
+          f"{[(idxs, w, 'merged' if m else 'one width') for idxs, w, m in plans]}", flush=True)
 
     if not cached:
         kernels.reset_launches()
@@ -359,17 +424,22 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
         answers.append(p)
         print(f"  predict_proba({n} rows): {times[-1]:.1f} ms", flush=True)
     launches = dict(kernels.LAUNCHES)
+    passes = len(request_sizes) + 1 if cached else len(request_sizes)
+    # per kernel, the launches every layer of every planned group and pass
+    # needs at least (a memory split of a group adds more)
     if cached:
-        need = n_layers * groups * (len(request_sizes) + 1)
-        ran, idle = ("K4", "K5", "K3"), ("K1", "K2a", "K2b")
+        feat, masked, idle = "K5", "K6b", ("K1", "K2a", "K2b", "K6a")
+        need = {"K4": groups, "K3": groups}
     else:
-        need = n_layers * groups * len(request_sizes)
-        ran, idle = ("K1", "K2a", "K2b", "K3"), ("K4", "K5")
-    print(f"  launches {launches} ({', '.join(ran)} each must be >= {need}, "
-          f"{', '.join(idle)} 0)", flush=True)
+        feat, masked, idle = "K1", "K6a", ("K4", "K5", "K6b")
+        need = {"K2a": groups, "K2b": groups, "K3": groups}
+    need |= {feat: groups - merged, masked: merged}
+    need = {k: n_layers * passes * n for k, n in need.items()}
+    idle += tuple(k for k, n in need.items() if n == 0)
+    print(f"  launches {launches} (at least {need}; {', '.join(idle)} 0)", flush=True)
     if device.type == "cuda":
-        for kid in ran:
-            check(launches[kid] >= need, f"{kid} launched {launches[kid]} times, expected >= {need}")
+        for kid, n in need.items():
+            check(launches[kid] >= n, f"{kid} launched {launches[kid]} times, expected >= {n}")
         for kid in idle:
             check(launches[kid] == 0, f"{kid} launched {launches[kid]} times on the {fit_mode} path")
     warm = []  # the same requests again, each now at a sequence length seen before
@@ -378,7 +448,8 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
         clf.predict_proba(X_te[:n], img_te[:n])
         warm.append((time.perf_counter() - t0) * 1e3)
     print(f"  warm requests: {', '.join(f'{ms:.1f}' for ms in warm)} ms", flush=True)
-    out = dict(launches=launches, fit_ms=fit_ms, times=times, warm=warm, answers=answers)
+    out = dict(launches=launches, fit_ms=fit_ms, times=times, warm=warm, answers=answers,
+               widths=widths, plans=plans)
     if cached:
         reqs = [(X_te[:n], img_te[:n]) for n in request_sizes]
         t0 = time.perf_counter()
@@ -391,9 +462,10 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
     return out
 
 
-def phase_kernel_vs_plain(device, model_path, data, fit_mode) -> float:
+def phase_kernel_vs_plain(device, model_path, data, fit_mode, tag="") -> tuple[float, object]:
     """float32 predict_proba of the kernel path against the plain path of the
-    same fitted classifier (fit_with_cache primes again for each path)."""
+    same fitted classifier (fit_with_cache primes again for each path).
+    Returns the error and the kernel path's answers."""
     X_tr, img_tr, y_tr, X_te, img_te = data
     clf = make_classifier(device, model_path, inference_precision="float32", fit_mode=fit_mode)
     clf.fit(X_tr, img_tr, y_tr)
@@ -403,13 +475,87 @@ def phase_kernel_vs_plain(device, model_path, data, fit_mode) -> float:
     # sizes its forwards (and for fit_with_cache its prime)
     clf.executor_.use_kernels = False
     p_plain = clf.predict_proba(X_te, img_te)
-    for p, tag in ((p_kernel, "kernel path"), (p_plain, "plain path")):
-        check_proba(p, len(X_te), clf.n_classes_, f"{fit_mode} {tag}")
+    for p, name in ((p_kernel, "kernel path"), (p_plain, "plain path")):
+        check_proba(p, len(X_te), clf.n_classes_, f"{fit_mode}{tag} {name}")
     err = float(abs(p_kernel - p_plain).max())
-    print(f"  f32 {fit_mode} predict_proba kernel vs plain: max abs err {err:.3e} "
-          f"(bound {PROBA_ABS_BOUND})")
-    check(err <= PROBA_ABS_BOUND, f"{fit_mode}: kernel path differs from plain path by {err:.3e}")
-    return err
+    print(f"  f32 {fit_mode}{tag} predict_proba kernel vs plain: max abs err {err:.3e} "
+          f"(bound {PROBA_ABS_BOUND})", flush=True)
+    check(err <= PROBA_ABS_BOUND, f"{fit_mode}{tag}: kernel path differs from plain path by {err:.3e}")
+    return err, p_kernel
+
+
+def phase_forced_plans(device, model_path, data, request_sizes, n_layers) -> dict:
+    """The member widths forced into split groups and into one padded group,
+    in both fit modes, whatever the cost rule plans. In bf16: the launch
+    counts (zeroed just before the fit; split groups run K1 / K5 in every
+    layer and no masked kernel, the merged group K6a / K6b and no unmasked
+    one) and warm requests. In float32: merged against split answers, and the
+    merged kernel path against the merged plain path."""
+    import torch
+
+    from multimodalpfn_tpu_torch.estimator import inference as inf
+    from multimodalpfn_tpu_torch.ops import kernels
+
+    X_tr, img_tr, y_tr, X_te, img_te = data
+    out = {}
+    try:
+        for fit_mode in ("fit_preprocessors", "fit_with_cache"):
+            cached = fit_mode == "fit_with_cache"
+            for force in (False, True):
+                plan = "merged" if force else "split"
+                inf._FORCE_MERGE = force
+                clf = make_classifier(device, model_path, fit_mode=fit_mode)
+                kernels.reset_launches()
+                clf.fit(X_tr, img_tr, y_tr)
+                plans = planned_groups(clf, cached, request_sizes)
+                check(all(m == force for _, _, m in plans) and (len(plans) == 1) == force,
+                      f"{fit_mode}: planned groups {plans} are not {plan}")
+                at_fit = dict(kernels.LAUNCHES)
+                kernels.reset_launches()
+                for n in request_sizes:
+                    check_proba(clf.predict_proba(X_te[:n], img_te[:n]), n, clf.n_classes_,
+                                f"{plan} {fit_mode} request of {n} rows")
+                launches = dict(kernels.LAUNCHES)
+                kid, idle = {(False, False): ("K1", "K6a"), (False, True): ("K6a", "K1"),
+                             (True, False): ("K5", "K6b"), (True, True): ("K6b", "K5")}[cached, force]
+                need = n_layers * len(plans)
+                print(f"  {plan} {fit_mode} ({len(plans)} group(s)): launches at the fit {at_fit}, "
+                      f"over the {len(request_sizes)} requests {launches} ({kid} >= "
+                      f"{need * len(request_sizes)}" + (f", and >= {need} at the fit" if cached else "")
+                      + f"; {idle} 0)", flush=True)
+                if device.type == "cuda":
+                    check(launches[kid] >= need * len(request_sizes),
+                          f"{kid} launched {launches[kid]} times in the {plan} {fit_mode} requests")
+                    check(at_fit[kid] >= (need if cached else 0),
+                          f"{kid} launched {at_fit[kid]} times at the {plan} {fit_mode} fit")
+                    check(launches[idle] == 0 and at_fit[idle] == 0,
+                          f"{idle} ran in the {plan} {fit_mode} groups")
+                warm = []
+                for n in request_sizes:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    clf.predict_proba(X_te[:n], img_te[:n])
+                    warm.append((time.perf_counter() - t0) * 1e3)
+                print(f"  {plan} {fit_mode} warm requests: {', '.join(f'{ms:.1f}' for ms in warm)} ms",
+                      flush=True)
+                out[fit_mode, plan] = dict(launches={k: at_fit[k] + launches[k] for k in launches},
+                                           warm=warm)
+            # float32: the split answers, then the merged kernel and plain paths
+            inf._FORCE_MERGE = False
+            p_split = make_classifier(device, model_path, inference_precision="float32",
+                                      fit_mode=fit_mode).fit(X_tr, img_tr, y_tr).predict_proba(X_te, img_te)
+            inf._FORCE_MERGE = True
+            err_plain, p_merged = phase_kernel_vs_plain(device, model_path, data, fit_mode,
+                                                        tag=" merged")
+            diff = float(abs(p_merged - p_split).max())
+            print(f"  f32 {fit_mode} merged vs split predict_proba: max abs err {diff:.3e} "
+                  f"(bound {MERGE_ABS_BOUND})", flush=True)
+            check(diff <= MERGE_ABS_BOUND, f"{fit_mode}: merged answers differ from split by {diff:.3e}")
+            out[fit_mode, "merged"] |= dict(merged_vs_split=diff, merged_kernel_vs_plain=err_plain)
+    finally:
+        inf._FORCE_MERGE = None
+    return out
 
 
 def phase_profile(device, model_path, data, request_sizes, top: int = 14) -> None:
@@ -522,7 +668,7 @@ def main() -> int:
     print("== phase 3: fit_preprocessors, served", flush=True)
     pre = phase_served(device, model_path, data, sizes, 12, "fit_preprocessors")
     print("== phase 4: fit_preprocessors kernel path against plain path (float32)", flush=True)
-    proba_err = phase_kernel_vs_plain(device, model_path, data, "fit_preprocessors")
+    proba_err, _ = phase_kernel_vs_plain(device, model_path, data, "fit_preprocessors")
 
     print("== phase 5: fit_with_cache, served", flush=True)
     kv = phase_served(device, model_path, data, sizes, 12, "fit_with_cache")
@@ -530,13 +676,30 @@ def main() -> int:
     print(f"  cached vs fit_preprocessors answers: max abs difference {diff:.3e} "
           "(not gated: the encoder masks differ by design)", flush=True)
     print("== phase 6: fit_with_cache kernel path against plain path (float32)", flush=True)
-    kv_err = phase_kernel_vs_plain(device, model_path, data, "fit_with_cache")
+    kv_err, _ = phase_kernel_vs_plain(device, model_path, data, "fit_with_cache")
+
+    print("== phase 7: the member widths forced split and merged, both fit modes", flush=True)
+    from multimodalpfn_tpu_torch.estimator import inference as inf
+    from multimodalpfn_tpu_torch.models.loading import load_npz
+
+    for cached, n_test in ((False, inf._bucket_test_rows(sizes[0])), (True, inf.TEST_SIZE_BUCKET)):
+        rule = inf._plan_groups({(39, n_tr): [0, 1], (22, n_tr): [2, 3]},
+                                load_npz(model_path).config, N_IMG_TOKENS, n_test, cached=cached)
+        print(f"  the cost rule at widths 39/39/22/22, {n_tr} train rows, {n_test} test rows"
+              f"{' (KV-cache predict)' if cached else ''}: {'split' if len(rule) == 2 else 'merge'}",
+              flush=True)
+    forced = phase_forced_plans(device, model_path, data, sizes, 12)
+    for mode in ("fit_preprocessors", "fit_with_cache"):
+        print(f"  {mode} warm requests (ms): split {forced[mode, 'split']['warm']}, merged "
+              f"{forced[mode, 'merged']['warm']}", flush=True)
 
     if args.profile:
-        print("== phase 7: profile of warm requests", flush=True)
+        print("== phase 8: profile of warm requests", flush=True)
         phase_profile(device, model_path, data, sizes)
 
-    rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"]})
+    rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"]}
+                       | {f"{plan}{'_cached' if mode == 'fit_with_cache' else ''}": run["launches"]
+                          for (mode, plan), run in forced.items()})
     print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
           f"warm {pre['warm']}; fit_with_cache: fit {kv['fit_ms']:.1f} ms, requests ms "
           f"{kv['times']}, warm {kv['warm']}, "

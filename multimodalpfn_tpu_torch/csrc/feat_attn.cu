@@ -12,6 +12,17 @@
 // where token `tok` of a row lies. (Runtime strides cost K1's tensor-core
 // body 11 % in an A/B; with the flag K1 keeps its item-major address arithmetic.)
 //
+// K6a and K6b are K1 and K5 with a per-member key mask, for members of
+// different feature widths zero-padded into one group: K6a replaces
+// _feat_attn_kernel_im_masked (pallas_fused.py:303, pallas_call :500), K6b
+// _feat_attn_kernel_masked (:280, pallas_call :427). A second compile-time
+// flag, MASKED, swaps the key test `j < token_valid` for bit j of the row's
+// member's 64-bit mask word (t <= 64, so a row's keys fit one word): one
+// word per member, K6a taking the member from the block, K6b from
+// row / rows_per_member. K1's and K5's instantiations keep their code. The
+// wrapper refuses a word without the target token's bit, so no softmax row is
+// empty; the rows of padded tokens are computed and never read.
+//
 // What bounds it on the H100: arithmetic. A row at t = 31, e = h·d = 192
 // costs 4.6 M FMAs (QKV and out projections; the t×t attention is 8% of it)
 // against 2·t·e·sizeof(T) bytes of activations; the 590 KB (f32) of weights
@@ -53,11 +64,28 @@ __device__ __forceinline__ long long token_offset(int bi, int si, int tok, int t
   return ((long long)bi * t + tok) * s * e + (long long)si * e;
 }
 
-template <typename T, bool SM>
+// Whether key j takes part in the softmax: j < tv, or (MASKED) bit j of the
+// row's mask word.
+template <bool MASKED>
+__device__ __forceinline__ bool key_valid(int j, int tv, unsigned long long word) {
+  if constexpr (MASKED) return (word >> j) & 1ull;
+  return j < tv;
+}
+
+// The mask word of row `si` of member `bi`: one per member, item-major (K6a)
+// by the member index, sample-major (K6b) by rows_per_member consecutive rows.
+template <bool SM>
+__device__ __forceinline__ unsigned long long mask_word(const unsigned long long* masks, int bi,
+                                                        int si, int rpm) {
+  return masks[SM ? si / rpm : bi];
+}
+
+template <typename T, bool SM, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 feat_attn_ln_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
                     const T* __restrict__ wout, T* __restrict__ out, int t, int s, int e, int h,
-                    int d, int tv, float scale) {
+                    int d, int tv, const unsigned long long* __restrict__ masks, int rpm,
+                    float scale) {
   extern __shared__ float sm[];
   const int hd = h * d, dp = d + 1, ld = 3 * hd;
   float* xs = sm;           // [t][e]  x, then x + out-projection
@@ -71,6 +99,8 @@ feat_attn_ln_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
   constexpr int NWARPS = THREADS / 32;
   const long long tok_stride = SM ? e : (long long)s * e;
   const long long base = token_offset<SM>(bi, si, 0, t, s, e);  // token 0 of this row
+  unsigned long long kmask = 0;
+  if constexpr (MASKED) kmask = mask_word<SM>(masks, bi, si, rpm);
 
   for (int i = tid; i < t * e; i += THREADS) {
     const int tok = i / e, c = i - tok * e;
@@ -125,7 +155,7 @@ feat_attn_ln_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
       for (int jj = 0; jj < 2; ++jj) {
         const int j = lane + 32 * jj;
         float a = -INFINITY;
-        if (j < tv) {
+        if (key_valid<MASKED>(j, tv, kmask)) {
           a = 0.f;
           for (int c = 0; c < d; ++c) a = fmaf(qs[i * dp + c], ks[j * dp + c], a);
         }
@@ -221,12 +251,13 @@ constexpr int tc_smem_elems() {
   return 2 * TROWS * (E + 8) + w + 3 * TROWS * (D + 8);
 }
 
-template <int E, int D, int TTOK, bool SM>
+template <int E, int D, int TTOK, bool SM, bool MASKED>
 __global__ void __launch_bounds__(TTHREADS)
 feat_attn_ln_tc_kernel(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ wqkv_t,
                        const __nv_bfloat16* __restrict__ wout, __nv_bfloat16* __restrict__ out,
-                       int t, int s, int tv, float scale) {
+                       int t, int s, int tv, const unsigned long long* __restrict__ masks,
+                       int rpm, float scale) {
   constexpr int TS = TROWS / TTOK;  // samples per block
   constexpr int H = E / D, XP = E + 8, WP = 3 * D + 8, QP = D + 8;
   constexpr int NW = E * WP > OC * XP ? E * WP : OC * XP;
@@ -245,6 +276,10 @@ feat_attn_ln_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const long long row_stride = SM ? (long long)t * E : E;
   const long long base = SM ? 0 : (long long)blockIdx.y * t * tok_stride;  // member, row 0, token 0
   const uint4 zero = make_uint4(0, 0, 0, 0);
+  // the mask word of this warp's sample (a ragged block's samples past s
+  // take the last one's: their rows are never stored)
+  unsigned long long kmask = 0;
+  if constexpr (MASKED) kmask = mask_word<SM>(masks, blockIdx.y, min(s0 + wr / TTOK, s - 1), rpm);
 
   // tile row r is token r % TTOK of sample s0 + r / TTOK
   for (int i = tid; i < TROWS * E / 8; i += TTHREADS) {
@@ -319,7 +354,7 @@ feat_attn_ln_tc_kernel(const __nv_bfloat16* __restrict__ x,
         for (int nb = 0; nb < TTOK / 8; ++nb)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            if (nb * 8 + 2 * q4 + i >= tv) sc[nb][2 * r + i] = -INFINITY;
+            if (!key_valid<MASKED>(nb * 8 + 2 * q4 + i, tv, kmask)) sc[nb][2 * r + i] = -INFINITY;
             m = fmaxf(m, sc[nb][2 * r + i]);
           }
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
@@ -389,62 +424,72 @@ feat_attn_ln_tc_kernel(const __nv_bfloat16* __restrict__ x,
   });
 }
 
-template <int E, int D, int TTOK, bool SM>
+template <int E, int D, int TTOK, bool SM, bool MASKED>
 int launch_tc_rows(const void* x, const void* wqkv_t, const void* wout, void* out, int b, int t,
-                   int s, int tv, cudaStream_t stream) {
+                   int s, int tv, const unsigned long long* masks, int rpm, cudaStream_t stream) {
   static_assert(E % OC == 0 && D % 16 == 0 && E % D == 0, "widths the tile layout takes");
   static_assert(TROWS % TTOK == 0 && TTOK % 16 == 0, "a warp's rows lie in one sample");
   constexpr int TS = TROWS / TTOK;
   const size_t smem = sizeof(__nv_bfloat16) * tc_smem_elems<E, D>();
   static_assert(sizeof(__nv_bfloat16) * tc_smem_elems<E, D>() <= MMPFN_MAX_SMEM, "tiles fit");
-  int rc = mmpfn_allow_smem(feat_attn_ln_tc_kernel<E, D, TTOK, SM>, smem);
+  int rc = mmpfn_allow_smem(feat_attn_ln_tc_kernel<E, D, TTOK, SM, MASKED>, smem);
   if (rc) return rc;
-  feat_attn_ln_tc_kernel<E, D, TTOK, SM><<<dim3((s + TS - 1) / TS, b), TTHREADS, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)wqkv_t, (const __nv_bfloat16*)wout,
-      (__nv_bfloat16*)out, t, s, tv, 1.f / sqrtf((float)D));
+  feat_attn_ln_tc_kernel<E, D, TTOK, SM, MASKED>
+      <<<dim3((s + TS - 1) / TS, b), TTHREADS, smem, stream>>>(
+          (const __nv_bfloat16*)x, (const __nv_bfloat16*)wqkv_t, (const __nv_bfloat16*)wout,
+          (__nv_bfloat16*)out, t, s, tv, masks, rpm, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <int E, int D, bool SM>
+template <int E, int D, bool SM, bool MASKED>
 int launch_tc(const void* x, const void* wqkv_t, const void* wout, void* out, int b, int t, int s,
-              int tv, cudaStream_t stream) {
-  return t <= 32 ? launch_tc_rows<E, D, 32, SM>(x, wqkv_t, wout, out, b, t, s, tv, stream)
-                 : launch_tc_rows<E, D, MAX_TOKENS, SM>(x, wqkv_t, wout, out, b, t, s, tv, stream);
+              int tv, const unsigned long long* masks, int rpm, cudaStream_t stream) {
+  return t <= 32 ? launch_tc_rows<E, D, 32, SM, MASKED>(x, wqkv_t, wout, out, b, t, s, tv, masks,
+                                                        rpm, stream)
+                 : launch_tc_rows<E, D, MAX_TOKENS, SM, MASKED>(x, wqkv_t, wout, out, b, t, s, tv,
+                                                                masks, rpm, stream);
 }
 
-template <typename T, bool SM>
+template <typename T, bool SM, bool MASKED>
 int launch(const void* x, const void* wqkv_t, const void* wout, void* out, int b, int t, int s,
-           int e, int h, int d, int tv, cudaStream_t stream) {
+           int e, int h, int d, int tv, const unsigned long long* masks, int rpm,
+           cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     // the published width, and a small one the tests reach
     if (h * d == e && e == 192 && d == 32)
-      return launch_tc<192, 32, SM>(x, wqkv_t, wout, out, b, t, s, tv, stream);
+      return launch_tc<192, 32, SM, MASKED>(x, wqkv_t, wout, out, b, t, s, tv, masks, rpm, stream);
     if (h * d == e && e == 64 && d == 16)
-      return launch_tc<64, 16, SM>(x, wqkv_t, wout, out, b, t, s, tv, stream);
+      return launch_tc<64, 16, SM, MASKED>(x, wqkv_t, wout, out, b, t, s, tv, masks, rpm, stream);
   }
   const size_t smem =
       sizeof(float) * ((size_t)t * e + (size_t)t * h * d + 3 * (size_t)t * (d + 1) + (size_t)t * t);
   if (smem > MMPFN_MAX_SMEM) return MMPFN_BAD_ARGS;
-  int rc = mmpfn_allow_smem(feat_attn_ln_kernel<T, SM>, smem);
+  int rc = mmpfn_allow_smem(feat_attn_ln_kernel<T, SM, MASKED>, smem);
   if (rc) return rc;
-  feat_attn_ln_kernel<T, SM><<<dim3(s, b), THREADS, smem, stream>>>(
-      (const T*)x, (const T*)wqkv_t, (const T*)wout, (T*)out, t, s, e, h, d, tv,
+  feat_attn_ln_kernel<T, SM, MASKED><<<dim3(s, b), THREADS, smem, stream>>>(
+      (const T*)x, (const T*)wqkv_t, (const T*)wout, (T*)out, t, s, e, h, d, tv, masks, rpm,
       1.f / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
 
-// b members of s rows each, item-major or (SM, b = 1) sample-major
-template <bool SM>
-int run(const void* x, const void* wqkv_t, const void* wout, void* out, int b, int t, int s, int e,
-        int h, int d, int tv, int dtype, int device, void* stream) {
+// b members of s rows each, item-major or (SM, b = 1) sample-major; MASKED:
+// a mask word per member (item-major) or per rpm rows (sample-major)
+template <bool SM, bool MASKED>
+int run(const void* x, const void* wqkv_t, const void* wout, void* out, const void* masks,
+        int rpm, int b, int t, int s, int e, int h, int d, int tv, int dtype, int device,
+        void* stream) {
   if (cudaError_t err = cudaSetDevice(device)) return (int)err;
   if (b <= 0 || s <= 0) return 0;
   if (t < 1 || t > MAX_TOKENS || tv < 1 || tv > t || e % 4 || d % 2 || (h * d) % 4 || b > 65535)
     return MMPFN_BAD_ARGS;
+  if (MASKED && (masks == nullptr || rpm < 1)) return MMPFN_BAD_ARGS;
+  const unsigned long long* mw = (const unsigned long long*)masks;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == MMPFN_F32) return launch<float, SM>(x, wqkv_t, wout, out, b, t, s, e, h, d, tv, st);
+  if (dtype == MMPFN_F32)
+    return launch<float, SM, MASKED>(x, wqkv_t, wout, out, b, t, s, e, h, d, tv, mw, rpm, st);
   if (dtype == MMPFN_BF16)
-    return launch<__nv_bfloat16, SM>(x, wqkv_t, wout, out, b, t, s, e, h, d, tv, st);
+    return launch<__nv_bfloat16, SM, MASKED>(x, wqkv_t, wout, out, b, t, s, e, h, d, tv, mw, rpm,
+                                             st);
   return MMPFN_BAD_ARGS;
 }
 
@@ -454,12 +499,34 @@ int run(const void* x, const void* wqkv_t, const void* wout, void* out, int b, i
 extern "C" int mmpfn_feat_attn_ln_im(const void* x, const void* wqkv_t, const void* wout,
                                      void* out, int b, int t, int s, int e, int h, int d,
                                      int dtype, int device, void* stream) {
-  return run<false>(x, wqkv_t, wout, out, b, t, s, e, h, d, t, dtype, device, stream);
+  return run<false, false>(x, wqkv_t, wout, out, nullptr, 1, b, t, s, e, h, d, t, dtype, device,
+                           stream);
 }
 
 // K5: x (rows, t, e), sample-major; keys at or past token_valid masked
 extern "C" int mmpfn_feat_attn_ln(const void* x, const void* wqkv_t, const void* wout, void* out,
                                   int rows, int t, int e, int h, int d, int token_valid, int dtype,
                                   int device, void* stream) {
-  return run<true>(x, wqkv_t, wout, out, 1, t, rows, e, h, d, token_valid, dtype, device, stream);
+  return run<true, false>(x, wqkv_t, wout, out, nullptr, 1, 1, t, rows, e, h, d, token_valid,
+                          dtype, device, stream);
+}
+
+// K6a: x (b, t, s, e), item-major; masks: b words, bit j of word i set when
+// token j of member i is a key
+extern "C" int mmpfn_feat_attn_ln_im_masked(const void* x, const void* wqkv_t, const void* wout,
+                                            void* out, const void* masks, int b, int t, int s,
+                                            int e, int h, int d, int dtype, int device,
+                                            void* stream) {
+  return run<false, true>(x, wqkv_t, wout, out, masks, 1, b, t, s, e, h, d, t, dtype, device,
+                          stream);
+}
+
+// K6b: x (rows, t, e), sample-major; masks: a word per rows_per_member
+// consecutive rows
+extern "C" int mmpfn_feat_attn_ln_masked(const void* x, const void* wqkv_t, const void* wout,
+                                         void* out, const void* masks, int rows, int t, int e,
+                                         int h, int d, int rows_per_member, int dtype, int device,
+                                         void* stream) {
+  return run<true, true>(x, wqkv_t, wout, out, masks, rows_per_member, 1, t, rows, e, h, d, t,
+                         dtype, device, stream);
 }

@@ -25,10 +25,16 @@ def _cache_dir() -> Path:
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
-    """``"auto"`` is the first CUDA device when there is one, else the CPU."""
-    if device == "auto":
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(device)
+    """The device the estimator runs on. A CUDA device is never replaced by
+    the CPU: without CUDA it raises, and the caller asks for the CPU
+    explicitly with ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} was requested but CUDA is not available; "
+            'pass device="cpu" to run on the CPU'
+        )
+    return device
 
 
 def initialize_model(

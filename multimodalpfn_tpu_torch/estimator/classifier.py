@@ -6,10 +6,9 @@ with `TabPFNClassifier` exposing the vanilla two-argument tabular API. The same
 constructor, fit and predict as the JAX package's classifier
 (`multimodalpfn_tpu/estimator/classifier.py`), plus a ``device``.
 
-On a numeric ``np.ndarray`` and a numpy-only preprocessing config (e.g.
-``PreprocessorConfig("none", categorical_name="numeric")``) neither scikit-learn
-nor pandas is imported; labels are encoded with ``np.unique``, which is
-``LabelEncoder``'s mapping.
+scikit-learn is never imported, and on a numeric ``np.ndarray`` pandas is not
+either; labels are encoded with ``np.unique``, which is ``LabelEncoder``'s
+mapping.
 """
 
 from __future__ import annotations
@@ -28,9 +27,9 @@ from multimodalpfn_tpu_torch.estimator.base import (
     resolve_device,
 )
 from multimodalpfn_tpu_torch.estimator.data_utils import (
+    OrdinalEncoder,
     fix_dtypes,
     infer_categorical_features,
-    make_ordinal_encoder,
     validate_X_predict,
     validate_Xy_fit,
 )
@@ -69,7 +68,7 @@ class MMPFNClassifier:
         balance_probabilities: bool = False,
         average_before_softmax: bool = False,
         model_path: str | Path | Literal["auto"] = "auto",
-        device: str | torch.device | Literal["auto"] = "auto",
+        device: str | torch.device = "cuda",
         ignore_pretraining_limits: bool = False,
         inference_precision: str | Literal["autocast", "auto"] = "auto",
         fit_mode: Literal["low_memory", "fit_preprocessors", "fit_with_cache"] = "fit_preprocessors",
@@ -210,7 +209,7 @@ class MMPFNClassifier:
         (the ordinal encoder selects no column of it)."""
         X = fix_dtypes(X, cat_indices=self.categorical_features_indices)
         if fit:
-            self.preprocessor_ = None if isinstance(X, np.ndarray) else make_ordinal_encoder()
+            self.preprocessor_ = None if isinstance(X, np.ndarray) else OrdinalEncoder()
             if self.preprocessor_ is not None:
                 return np.asarray(self.preprocessor_.fit_transform(X))
         elif self.preprocessor_ is not None:

@@ -2,16 +2,18 @@
 
 Semantics anchors: reference `mmpfn/models/mmpfn/utils.py:379-618`.
 
-A numeric ``np.ndarray`` takes a numpy-only path: shape and finiteness are
-validated as sklearn's ``check_X_y(..., ensure_all_finite="allow-nan")`` does,
-and ordinal encoding is skipped, because the ordinal encoder's
-``dtype_include=["category", "string"]`` selector picks no column of a float
-frame (the encoder is an identity there). pandas and scikit-learn are imported
-only for DataFrame, object or string input.
+Inputs are validated as sklearn's ``check_X_y(..., dtype=None,
+ensure_all_finite="allow-nan")`` does, on numpy alone. A numeric ``np.ndarray``
+skips the ordinal encoding, because the encoder's category/string column
+selector picks no column of a float frame (the encoder is an identity there).
+pandas is imported only for DataFrame, object or string input; scikit-learn
+never.
 """
 
 from __future__ import annotations
 
+import math
+import numbers
 import warnings
 from typing import Sequence
 
@@ -70,27 +72,51 @@ def fix_dtypes(X, cat_indices: Sequence | None, numeric_dtype="float64"):
     return X
 
 
-def make_ordinal_encoder():
-    """Category/string columns -> ordinal codes, unknown -> -1, missing stays NaN
-    (reference `_get_ordinal_encoder`, `utils.py:447-470`)."""
-    from sklearn.compose import ColumnTransformer, make_column_selector
-    from sklearn.preprocessing import OrdinalEncoder
+class OrdinalEncoder:
+    """Category/string columns -> ordinal codes, unknown -> -1, missing stays
+    NaN (reference `_get_ordinal_encoder`, `utils.py:447-470`): scikit-learn's
+    ``ColumnTransformer`` of an ``OrdinalEncoder`` over the columns that
+    ``select_dtypes(include=["category", "string"])`` picks, other columns
+    passed through after them, all as float64. A column's codes are the
+    positions of its values among its sorted non-missing train values; as in
+    scikit-learn, only None and NaN count as missing, and a column whose
+    values do not sort (strings beside pandas' NA) is refused."""
 
-    oe = OrdinalEncoder(
-        categories="auto",
-        dtype=DEFAULT_NUMPY_DTYPE,
-        handle_unknown="use_encoded_value",
-        unknown_value=-1,
-        encoded_missing_value=np.nan,
-    )
-    return ColumnTransformer(
-        transformers=[
-            ("encoder", oe, make_column_selector(dtype_include=["category", "string"]))
-        ],
-        remainder="passthrough",
-        sparse_threshold=0.0,
-        verbose_feature_names_out=False,
-    )
+    def fit(self, X) -> "OrdinalEncoder":
+        picked = set(X.select_dtypes(include=["category", "string"]).columns)
+        self.cols_ = [i for i, c in enumerate(X.columns) if c in picked]
+        self.rest_ = [i for i in range(X.shape[1]) if i not in self.cols_]
+        self.categories_ = []
+        for i in self.cols_:
+            values = X.iloc[:, i].to_numpy(dtype=object)
+            try:
+                self.categories_.append(sorted(set(values[~_missing(values)])))
+            except TypeError:
+                types = sorted({type(v).__qualname__ for v in values})
+                raise TypeError(
+                    "Encoders require their input argument must be uniformly strings or "
+                    f"numbers. Got {types}"
+                ) from None
+        return self
+
+    def transform(self, X) -> np.ndarray:
+        out = []
+        for i, cats in zip(self.cols_, self.categories_):
+            values = X.iloc[:, i].to_numpy(dtype=object)
+            index = {c: j for j, c in enumerate(cats)}
+            codes = [np.nan if m else index.get(v, -1) for v, m in zip(values, _missing(values))]
+            out.append(np.asarray(codes, dtype=DEFAULT_NUMPY_DTYPE))
+        rest = X.iloc[:, self.rest_].to_numpy(dtype=DEFAULT_NUMPY_DTYPE)
+        return np.column_stack([*out, rest]) if out else rest
+
+    def fit_transform(self, X) -> np.ndarray:
+        return self.fit(X).transform(X)
+
+
+def _missing(values: np.ndarray) -> np.ndarray:
+    """The None and NaN entries of an object array."""
+    return np.array([v is None or (isinstance(v, numbers.Real) and math.isnan(v)) for v in values],
+                    dtype=bool)
 
 
 def infer_categorical_features(
@@ -117,9 +143,10 @@ def infer_categorical_features(
     return out
 
 
-def _check_numeric_X(X: np.ndarray, *, ensure_min_samples: int = 1) -> np.ndarray:
-    """sklearn ``check_array(X, ensure_all_finite="allow-nan")`` for a numeric
-    ndarray: 2-D, at least one feature, no infinities (NaN allowed)."""
+def _check_X(X: np.ndarray, *, ensure_min_samples: int = 1) -> np.ndarray:
+    """sklearn ``check_array(X, dtype=None, ensure_all_finite="allow-nan")``
+    for an ndarray: 2-D, at least one feature, no infinities in a float array
+    (NaN allowed; an object array is not checked for them)."""
     if X.ndim != 2:
         raise ValueError(
             f"Expected 2D array, got {X.ndim}D array instead. Reshape your data."
@@ -195,37 +222,18 @@ def validate_Xy_fit(
     ignore_pretraining_limits: bool = False,
 ):
     """Fit-time validation of a classifier's inputs (reference
-    `validate_Xy_fit`, `utils.py:472-550`). Returns (X, y, feature names,
-    n_features)."""
-    if is_numeric_array(X):
-        X = _check_numeric_X(X, ensure_min_samples=2)
-        y = _check_classification_y(y)
-        if len(y) != X.shape[0]:
-            raise ValueError(
-                "Found input variables with inconsistent numbers of samples: "
-                f"[{X.shape[0]}, {len(y)}]"
-            )
-        names = None
-    else:
-        from sklearn.utils.multiclass import check_classification_targets
-        from sklearn.utils.validation import check_array, check_X_y
-
-        feature_names = getattr(X, "columns", None)
-        X, y = check_X_y(
-            X,
-            y,
-            accept_sparse=False,
-            dtype=None,
-            ensure_all_finite="allow-nan",
-            ensure_min_samples=2,
-            ensure_min_features=1,
-            estimator=estimator,
+    `validate_Xy_fit`, `utils.py:472-550`). A DataFrame comes back as its
+    values (object where its columns' dtypes mix). Returns (X, y, feature
+    names, n_features)."""
+    feature_names = getattr(X, "columns", None)
+    X = _check_X(np.asarray(X), ensure_min_samples=2)
+    y = _check_classification_y(y)
+    if len(y) != X.shape[0]:
+        raise ValueError(
+            "Found input variables with inconsistent numbers of samples: "
+            f"[{X.shape[0]}, {len(y)}]"
         )
-        check_classification_targets(y)
-        y = check_array(
-            y, accept_sparse=False, ensure_all_finite=True, dtype=None, ensure_2d=False
-        )
-        names = np.asarray(list(feature_names)) if feature_names is not None else None
+    names = np.asarray(list(feature_names)) if feature_names is not None else None
     _check_limits(
         X,
         max_num_features=max_num_features,
@@ -236,14 +244,7 @@ def validate_Xy_fit(
 
 
 def validate_X_predict(X, estimator):
-    if is_numeric_array(X):
-        X = _check_numeric_X(X)
-    else:
-        from sklearn.utils.validation import check_array
-
-        X = check_array(
-            X, accept_sparse=False, dtype=None, ensure_all_finite="allow-nan"
-        )
+    X = _check_X(np.asarray(X))
     n = getattr(estimator, "n_features_in_", None)
     if n is not None and X.shape[1] != n:
         raise ValueError(

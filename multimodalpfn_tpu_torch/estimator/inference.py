@@ -4,8 +4,9 @@ Reference semantics: `mmpfn/models/mmpfn/inference.py:27-513` (OnDemand /
 CachePreprocessing / CacheKV). As in the JAX package
 (`multimodalpfn_tpu/estimator/inference.py`), members whose preprocessed widths
 match are stacked on the batch axis and run as one forward. Members of
-different widths run as separate groups (the JAX package's cross-width merge
-and its cost model were calibrated on a TPU and are not carried over).
+different widths either run as separate groups or are zero-padded to the
+widest and run as one masked group (cross-width batching), whichever a cost
+rule measured on the H100 predicts to be faster (`_plan_groups`).
 
 A predict splits into `dispatch_outputs`, which transforms the test rows and
 enqueues the device work without waiting for it, and `finalize_outputs`,
@@ -30,7 +31,8 @@ from multimodalpfn_tpu_torch.models.cached import (
     slice_members,
 )
 from multimodalpfn_tpu_torch.models.config import ModelConfig
-from multimodalpfn_tpu_torch.models.transformer import forward
+from multimodalpfn_tpu_torch.models.params import get_subspace_noise
+from multimodalpfn_tpu_torch.models.transformer import forward, member_token_valid
 from multimodalpfn_tpu_torch.preprocess.ensemble import EnsembleConfig, fit_preprocessing
 from multimodalpfn_tpu_torch.utils.memory import split_batch_for_memory
 
@@ -117,6 +119,153 @@ def _mixer_token_count(mx, n_img_patches: int) -> int:
     return mx.mgm_heads * n_img_patches
 
 
+# --- cross-width merge: a device-cost rule measured on the H100 -------------
+# A group of n members of t tokens is predicted to take
+#     _GROUP_OVERHEAD_MS + n · _member_forward_flops(t) / _EFF_TFLOPS
+# and members of different widths merge into one padded group when that is
+# predicted to be cheaper than their split groups. The constants are a least
+# squares fit to ten warm bf16 groups timed by `tools/torch_merge_cost.py` on
+# an H100 80GB HBM3 at 700 W (9.067 ms, 115.22 TFLOP/s; PERF.md). There the
+# split groups were faster at the flagship widths 39/39/22/22 (120.0 against
+# 137.2 ms merged) and the merged group at widths 10/9 on 60 train rows (12.8
+# against 21.3 ms), and the rule picks the same. A KV-cache predict runs only
+# the test rows, whose FLOPs are a small share of a forward's: the rule then
+# merges the flagship widths too, which chip_smoke.py measured faster there
+# over its three requests (PERF.md).
+_GROUP_OVERHEAD_MS = 9.07
+_EFF_TFLOPS = 115.2
+# tests force the decision; None = the cost rule decides
+_FORCE_MERGE: bool | None = None
+
+
+def _member_forward_flops(
+    t_tokens: int, s_tr: int, s_te: int, emsize: int, nhid: int, nlayers: int,
+    cached: bool = False,
+) -> float:
+    """Matmul FLOPs of one member's inference forward (2·M·N·K per matmul):
+    per layer, feature-attention projections and scores, item-attention
+    projections and train-self / test-to-train scores, MLP. ``cached``: a
+    KV-cache predict, which runs only the test rows, their item attention
+    against the cached train keys (q and out projections only). The mixer and
+    the decoder are the same in every plan and leave the decision unchanged."""
+    e = emsize
+    s = s_te if cached else s_tr + s_te  # the rows the layers run
+    N = s * t_tokens
+    item_scores = s_te * s_tr if cached else s_tr * s_tr + s_te * s_tr
+    per_layer = (
+        8 * N * e * e  # feature-attention q, k, v, out projections
+        + 4 * s * t_tokens * t_tokens * e  # feature-attention scores + PV
+        + (4 if cached else 8) * N * e * e  # item-attention projections
+        + 4 * t_tokens * item_scores * e  # item scores + PV
+        + 4 * N * e * nhid  # MLP
+    )
+    return float(nlayers * per_layer)
+
+
+def _est_group_ms(
+    n_members: int, t_tokens: int, s_tr: int, s_te: int, cfg: ModelConfig, cached: bool = False
+) -> float:
+    fl = _member_forward_flops(t_tokens, s_tr, s_te, cfg.emsize, cfg.nhid, cfg.nlayers, cached)
+    return _GROUP_OVERHEAD_MS + n_members * fl / (_EFF_TFLOPS * 1e9)
+
+
+def _merge_width_aux(
+    cfg: ModelConfig, widths: Sequence[int], n_img_tokens: int
+) -> tuple[np.ndarray, np.ndarray | None, int]:
+    """Cross-width batching: members zero-pad their preprocessed features to
+    the widest and run one forward, masking their padded feature tokens out
+    of feature attention as keys (exact: the softmax runs over the valid keys
+    only; the padded tokens' own rows are computed and never read). Zero
+    columns pass the on-device encoder as zeros: a constant column is zeroed,
+    the NaN, outlier and normalization statistics of an all-zero column are 0,
+    and the variance rescale counts only non-constant columns.
+
+    Returns (tab_valid ``(b, g_max)`` bool, feat_pos_noise ``(b, t_x, k)``
+    float32 or None, the widest width). The noise tables hold each member's
+    own draws (the CPU generator's draws are not prefix-stable across token
+    counts) at the padded layout's slots: features at ``[0, g_i)``, image
+    tokens at ``[g_max, g_max + n_img)``."""
+    fpg = cfg.features_per_group
+    wmax = max(widths)
+    g_max = -(-wmax // fpg)
+    b = len(widths)
+    tab_valid = np.zeros((b, g_max), bool)
+    for i, w in enumerate(widths):
+        tab_valid[i, : -(-w // fpg)] = True
+    noise = None
+    if cfg.feature_positional_embedding == "subspace":
+        k = cfg.emsize // 4
+        noise = np.zeros((b, g_max + n_img_tokens, k), np.float32)
+        for i, w in enumerate(widths):
+            gi = -(-w // fpg)
+            nat = get_subspace_noise(cfg.model_seed, gi + n_img_tokens, k).numpy()
+            noise[i, :gi] = nat[:gi]
+            if n_img_tokens:
+                noise[i, g_max:] = nat[gi:]
+    return tab_valid, noise, wmax
+
+
+def _pad_width(a: np.ndarray, wmax: int) -> np.ndarray:
+    """``a`` ``(rows, w)`` as float32, zero-padded to ``wmax`` columns."""
+    if a.shape[1] == wmax:
+        return np.asarray(a, dtype=np.float32)
+    out = np.zeros((a.shape[0], wmax), np.float32)
+    out[:, : a.shape[1]] = a
+    return out
+
+
+def _plan_groups(
+    groups: dict[tuple, list[int]], cfg: ModelConfig, n_img_tokens: int, n_test: int,
+    cached: bool = False,
+) -> list[tuple[list[int], int, np.ndarray | None, np.ndarray | None]]:
+    """Merge the width groups of one train length into one padded, masked
+    group where the cost rule (`_est_group_ms`; ``cached``: of a KV-cache
+    predict) predicts the merged forward to be cheaper than the split ones.
+    Returns ``[(idxs, width, tab_valid, noise)]``: width -1 is image-only,
+    tab_valid None a group of one width."""
+    plans: list[tuple[list[int], int, Any, Any]] = []
+    by_sep: dict[int, list[tuple[int, list[int]]]] = {}
+    for (width, sep), idxs in groups.items():
+        if width < 0:
+            plans.append((idxs, -1, None, None))
+        else:
+            by_sep.setdefault(sep, []).append((width, idxs))
+    fpg = cfg.features_per_group
+
+    def tokens(w: int) -> int:
+        return -(-w // fpg) + n_img_tokens + 1
+
+    for sep, wgroups in by_sep.items():
+        widths_flat: list[int] = []
+        idxs_flat: list[int] = []
+        for w, idxs in wgroups:
+            widths_flat += [w] * len(idxs)
+            idxs_flat += idxs
+        merge = _FORCE_MERGE
+        if merge is None and len(wgroups) > 1:
+            est_merged = _est_group_ms(
+                len(widths_flat), tokens(max(widths_flat)), sep, n_test, cfg, cached
+            )
+            est_split = sum(
+                _est_group_ms(len(idxs), tokens(w), sep, n_test, cfg, cached) for w, idxs in wgroups
+            )
+            merge = est_merged < est_split
+        if len(wgroups) == 1 or not merge:
+            plans.extend((idxs, w, None, None) for w, idxs in wgroups)
+            continue
+        tab_valid, noise, wmax = _merge_width_aux(cfg, widths_flat, n_img_tokens)
+        plans.append((idxs_flat, wmax, tab_valid, noise))
+    return plans
+
+
+def _width_groups(members: Sequence[_Member], widths: Sequence[int]) -> dict[tuple, list[int]]:
+    """Member indices by (feature width, train length); width -1 image-only."""
+    groups: dict[tuple, list[int]] = {}
+    for i, (m, w) in enumerate(zip(members, widths)):
+        groups.setdefault((w, len(m.y_train)), []).append(i)
+    return groups
+
+
 def _group_and_run(
     params: dict,
     cfg: ModelConfig,
@@ -129,7 +278,8 @@ def _group_and_run(
     device: torch.device,
     use_kernels: bool | None = None,
 ) -> list[np.ndarray]:
-    """Stack same-width members into batched forwards; return per-member logits.
+    """Stack members into batched forwards, one per planned group
+    (`_plan_groups`); return per-member logits.
 
     ``use_kernels`` (None = on a CUDA device) runs the item-major kernel path."""
     run_cfg, kernels = _run_config(cfg, autocast, device, use_kernels)
@@ -151,16 +301,15 @@ def _group_and_run(
         ).to(device)
         image_full = torch.cat([image_train, img_te], dim=0)[None]  # shared by members
 
-    groups: dict[tuple, list[int]] = {}
-    for i, (m, Xt) in enumerate(zip(members, X_tests)):
-        width = -1 if Xt is None else Xt.shape[1]
-        groups.setdefault((width, len(m.y_train)), []).append(i)
+    groups = _width_groups(members, [-1 if Xt is None else Xt.shape[1] for Xt in X_tests])
     n_img_tokens = (
         0 if image_full is None else _mixer_token_count(cfg.mixer, image_full.shape[-2])
     )
+    plans = _plan_groups(groups, cfg, n_img_tokens, n_test + pad_rows)
 
     pending: list[tuple[list[int], torch.Tensor]] = []
-    for (width, sep), idxs in groups.items():
+    for idxs, width, tab_valid, noise in plans:
+        sep = len(members[idxs[0]].y_train)
         ys = torch.from_numpy(
             np.stack([members[i].y_train.astype(np.float32) for i in idxs])
         ).to(device)
@@ -169,8 +318,11 @@ def _group_and_run(
             xs = torch.from_numpy(
                 np.stack(
                     [
-                        np.concatenate(
-                            [members[i].X_train, X_tests[i]], axis=0, dtype=np.float32
+                        _pad_width(
+                            np.concatenate(
+                                [members[i].X_train, X_tests[i]], axis=0, dtype=np.float32
+                            ),
+                            width,
                         )
                         for i in idxs
                     ]
@@ -194,6 +346,9 @@ def _group_and_run(
                 ys[sl],
                 image_full,
                 single_eval_pos=sep,
+                # the mask stays on the host: K6a checks it there, no sync
+                tab_valid=None if tab_valid is None else torch.from_numpy(tab_valid[sl]),
+                feat_pos_noise=None if noise is None else _to_device(noise[sl], device),
             )
             pending.append((idxs[sl], logits))
     return _fetch(pending, len(members), pad_rows)  # type: ignore[return-value]
@@ -340,21 +495,30 @@ class InferenceEngineCacheKV(InferenceEngineCachePreprocessing):
         run_cfg, kernels = self._run_cfg()
         img = self._image_train_device()
         n_img_tokens = 0 if img is None else _mixer_token_count(self.cfg.mixer, img.shape[-2])
-        groups: dict[tuple, list[int]] = {}
-        for i, m in enumerate(self.members):
-            width = -1 if m.X_train is None else m.X_train.shape[1]
-            groups.setdefault((width, len(m.y_train)), []).append(i)
+        groups = _width_groups(
+            self.members, [-1 if m.X_train is None else m.X_train.shape[1] for m in self.members]
+        )
+        # the predict size is unknown when the cache is primed: the plan takes
+        # the bucket floor (JAX package `estimator/inference.py:622-625`) and
+        # the cost of the predicts, which the plan serves from then on
+        plans = _plan_groups(groups, self.cfg, n_img_tokens, TEST_SIZE_BUCKET, cached=True)
         caches = []
-        for (width, sep), idxs in groups.items():
+        for idxs, width, tab_valid, noise in plans:
+            sep = len(self.members[idxs[0]].y_train)
             ys = _to_device(np.stack([self.members[i].y_train.astype(np.float32) for i in idxs]),
                             self.device)
             xs = None
             if width >= 0:
                 xs = _to_device(
-                    np.stack([self.members[i].X_train.astype(np.float32) for i in idxs]),
+                    np.stack([_pad_width(self.members[i].X_train, width) for i in idxs]),
                     self.device,
                 )
             n_tokens = (0 if width < 0 else -(-width // self.cfg.features_per_group)) + n_img_tokens
+            token_valid = None
+            if tab_valid is not None:
+                # on the host: K6b checks it there, no sync
+                token_valid = member_token_valid(torch.from_numpy(tab_valid), n_tokens + 1)
+            noise = None if noise is None else _to_device(noise, self.device)
             # the plain path materializes (b, t, h, sep, sep) scores
             for chunk in split_batch_for_memory(
                 len(idxs), run_cfg, seq_len=sep, n_feature_tokens=n_tokens,
@@ -367,6 +531,8 @@ class InferenceEngineCacheKV(InferenceEngineCachePreprocessing):
                     None if xs is None else xs[sl],
                     ys[sl],
                     None if img is None else img[None],  # shared by the members
+                    None if token_valid is None else token_valid[sl],
+                    None if noise is None else noise[sl],
                 )
                 caches.append((cache, idxs[sl], width))
         self.caches, self.primed_cfg = caches, run_cfg
@@ -398,7 +564,7 @@ class InferenceEngineCacheKV(InferenceEngineCachePreprocessing):
             xs = None
             if width >= 0:
                 xs = _to_device(
-                    np.stack([_repeat_last_pad(X_tests[i], pad_rows).astype(np.float32)
+                    np.stack([_pad_width(_repeat_last_pad(X_tests[i], pad_rows), width)
                               for i in idxs]),
                     self.device,
                 )

@@ -14,7 +14,8 @@ full forward computes its constant-column masks over the whole sequence
 determine those masks.
 
 The layers are sample-major ``(b, s, t, e)``, as in the JAX package. With
-``cfg.fused_ops`` feature attention is K5 and the MLP K3; with
+``cfg.fused_ops`` feature attention is K5 (K6b for a cross-width group, whose
+members mask their padded feature tokens) and the MLP K3; with
 ``cfg.use_flash`` the train self-attention in `prime_cache` and the
 multiquery test attention in `forward_cached` run K4.
 """
@@ -34,12 +35,12 @@ from multimodalpfn_tpu_torch.models.encoders import (
     torch_nanstd,
 )
 from multimodalpfn_tpu_torch.models.mixers import apply_mixer
-from multimodalpfn_tpu_torch.models.params import get_subspace_noise
 from multimodalpfn_tpu_torch.models.transformer import (
     DTYPES,
     _group_features,
     _layer,
     _mlp,
+    positional_embedding,
     residual_ln,
 )
 from multimodalpfn_tpu_torch.ops.attention import mha
@@ -72,12 +73,18 @@ class TrainsetCache(NamedTuple):
     stats: EncoderStats
     # (L, b, t, 2, S_tr, d): per layer the item-attention K and V of head 0
     kv0: torch.Tensor
+    # cross-width batching: the (b, t) per-member feature-attention key mask
+    # and the (b, t_x, k) per-member subspace-noise tables the prime used,
+    # which every predict reuses (None for a group of one width)
+    token_valid: torch.Tensor | None = None
+    feat_pos_noise: torch.Tensor | None = None
 
 
 def slice_members(cache: TrainsetCache, sl: slice) -> TrainsetCache:
     """The cache of members ``sl`` (views, no copy)."""
     stats = EncoderStats(*(None if f is None else f[sl] for f in cache.stats))
-    return TrainsetCache(stats, cache.kv0[:, sl])
+    tv, noise = (None if f is None else f[sl] for f in (cache.token_valid, cache.feat_pos_noise))
+    return TrainsetCache(stats, cache.kv0[:, sl], tv, noise)
 
 
 def _compact(xg: torch.Tensor, sel: torch.Tensor, order: torch.Tensor | None) -> torch.Tensor:
@@ -182,9 +189,10 @@ def apply_y_encoder(
     return feats.to(params_y["w"].dtype) @ params_y["w"] + params_y["b"]
 
 
-def _embed(params, cfg, stats, x, image, b, n_feature_tokens=None) -> torch.Tensor:
+def _embed(params, cfg, stats, x, image, b, n_feature_tokens=None, feat_pos_noise=None) -> torch.Tensor:
     """Feature tokens ``(b, s, t_x, e)``: encoded tabular groups, then mixer
-    tokens, plus the subspace positional embedding."""
+    tokens, plus the subspace positional embedding (per-member tables
+    ``feat_pos_noise`` for a cross-width group)."""
     embedded_x = None
     if x is not None:
         xg = _group_features(x.float(), cfg.features_per_group)
@@ -200,22 +208,27 @@ def _embed(params, cfg, stats, x, image, b, n_feature_tokens=None) -> torch.Tens
             f"{embedded_x.shape[-2]} feature tokens, but the cache was primed with {n_feature_tokens}"
         )
     if cfg.feature_positional_embedding == "subspace":
-        noise = get_subspace_noise(
-            cfg.model_seed, embedded_x.shape[-2], cfg.emsize // 4, device=embedded_x.device
+        embedded_x = embedded_x + positional_embedding(
+            params, cfg, embedded_x.shape[-2], feat_pos_noise, embedded_x.device
         )
-        embedded_x = embedded_x + (noise @ params["feat_pos_emb"]["w"] + params["feat_pos_emb"]["b"])
     return embedded_x
 
 
-def _feat_sublayer(st: torch.Tensor, lp: dict, cd: torch.dtype, cfg: ModelConfig) -> torch.Tensor:
-    """Feature attention + residual + post-norm on ``(b, s, t, e)``: K5 under
-    ``cfg.fused_ops`` for up to `MAX_FUSED_ATTN_TOKENS` tokens, else plain
-    (the residual sum in the compute dtype)."""
+def _feat_sublayer(
+    st: torch.Tensor, lp: dict, cd: torch.dtype, cfg: ModelConfig, token_valid=None
+) -> torch.Tensor:
+    """Feature attention + residual + post-norm on ``(b, s, t, e)``: K5 (K6b
+    with the per-member key mask ``token_valid`` ``(b, t)``, broadcast to
+    ``(b, 1, t)`` over the rows) under ``cfg.fused_ops`` for up to
+    `MAX_FUSED_ATTN_TOKENS` tokens, else plain (the residual sum in the
+    compute dtype)."""
     w_qkv, w_out = lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"]
     if cfg.fused_ops and st.shape[-2] <= MAX_FUSED_ATTN_TOKENS:
-        return fused_feature_attention_ln(st.to(cd), w_qkv, w_out)
+        km = None if token_valid is None else token_valid[:, None, :]
+        return fused_feature_attention_ln(st.to(cd), w_qkv, w_out, key_mask=km)
     st = st.to(cd)
-    return residual_ln(st, mha(st, st, w_qkv, w_out, compute_dtype=cd))
+    km = None if token_valid is None else token_valid[:, None, None, None, :]
+    return residual_ln(st, mha(st, st, w_qkv, w_out, compute_dtype=cd, key_mask=km))
 
 
 def _mlp_sublayer(st: torch.Tensor, lp: dict, cd: torch.dtype, cfg: ModelConfig) -> torch.Tensor:
@@ -233,25 +246,30 @@ def prime_cache(
     x_train: torch.Tensor | None,
     y_train: torch.Tensor,
     image_train: torch.Tensor | None = None,
+    token_valid: torch.Tensor | None = None,
+    feat_pos_noise: torch.Tensor | None = None,
 ) -> TrainsetCache:
     """Run the train rows through the stack, recording per layer the item
     attention's K and V of head 0 (the reference caches them inside the train
     self-attention, `layer.py:362-372`).
 
     x_train ``(b, S_tr, F)`` or None, y_train ``(b, S_tr)``, image_train
-    ``(b or 1, S_tr, N_img, in_dim)`` or None."""
+    ``(b or 1, S_tr, N_img, in_dim)`` or None. A cross-width group passes
+    ``token_valid``, the ``(b, t)`` per-member key mask over the whole token
+    axis (`transformer.member_token_valid`), and ``feat_pos_noise``, as in
+    `transformer.forward`; the cache keeps both for its predicts."""
     cd = DTYPES[cfg.compute_dtype]
     b = y_train.shape[0]
     xg = None if x_train is None else _group_features(x_train.float(), cfg.features_per_group)
     stats = fit_encoder_stats(cfg, xg, y_train)
-    embedded_x = _embed(params, cfg, stats, x_train, image_train, b)
+    embedded_x = _embed(params, cfg, stats, x_train, image_train, b, feat_pos_noise=feat_pos_noise)
     embedded_y = apply_y_encoder(params["y_encoder"], cfg, stats, y_train)
     st = torch.cat([embedded_x, embedded_y[:, :, None, :]], dim=2).to(cd)  # (b, s, t, e)
 
     kv0 = []
     for l in range(cfg.nlayers):
         lp = _layer(params, l)
-        st = _feat_sublayer(st, lp, cd, cfg)
+        st = _feat_sublayer(st, lp, cd, cfg, token_valid)
         sti = st.transpose(1, 2)  # (b, t, s, e)
         w_qkv = lp["attn_item"]["w_qkv"].to(cd)
         # K and V of head 0 from the post-feature-attention state, rounded to
@@ -265,7 +283,7 @@ def prime_cache(
                 use_flash=cfg.use_flash)
         st = residual_ln(st, h.transpose(1, 2))
         st = _mlp_sublayer(st, lp, cd, cfg)
-    return TrainsetCache(stats, torch.stack(kv0))
+    return TrainsetCache(stats, torch.stack(kv0), token_valid, feat_pos_noise)
 
 
 def _cached_item_attention(
@@ -310,7 +328,8 @@ def forward_cached(
     cd = DTYPES[cfg.compute_dtype]
     b = cache.kv0.shape[1]
     embedded_x = _embed(params, cfg, cache.stats, x_test, image_test, b,
-                        n_feature_tokens=cache.kv0.shape[2] - 1)
+                        n_feature_tokens=cache.kv0.shape[2] - 1,
+                        feat_pos_noise=cache.feat_pos_noise)
     s_te = embedded_x.shape[1]
     y_nan = torch.full((b, s_te), float("nan"), device=embedded_x.device)
     embedded_y = apply_y_encoder(params["y_encoder"], cfg, cache.stats, y_nan)
@@ -318,7 +337,7 @@ def forward_cached(
 
     for l in range(cfg.nlayers):
         lp = _layer(params, l)
-        st = _feat_sublayer(st, lp, cd, cfg)
+        st = _feat_sublayer(st, lp, cd, cfg, cache.token_valid)
         h = _cached_item_attention(st.transpose(1, 2), cache.kv0[l], lp, cd, cfg)
         # the out-projection is float32 here, so the residual sum is too
         st = ln_rows(st.float() + h.transpose(1, 2)).to(cd)

@@ -10,7 +10,11 @@ Reference semantics: `mmpfn/models/mmpfn/model/transformer.py:182-1039` and
   * with ``cfg.fused_ops`` the stack runs item-major ``(b, t, s, e)`` through
     `encoder_layer_im`, whose three sublayers are the hand-written kernels K1,
     K2a+K2b and K3; otherwise, or for more feature tokens than K1 takes,
-    through the sample-major `encoder_layer`.
+    through the sample-major `encoder_layer`;
+  * members of different widths can share one forward (cross-width
+    batching): zero-padded to the widest, each masks its padded feature
+    tokens out of feature attention as keys (``tab_valid``; K6a in place of
+    K1) and keeps its own positional-embedding draws (``feat_pos_noise``).
 """
 
 from __future__ import annotations
@@ -89,32 +93,46 @@ def _item_sublayer(
 
 
 def encoder_layer_im(
-    state: torch.Tensor, lp: dict, *, single_eval_pos: int, cfg: ModelConfig
+    state: torch.Tensor,
+    lp: dict,
+    *,
+    single_eval_pos: int,
+    cfg: ModelConfig,
+    token_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Item-major PerFeatureEncoderLayer on state ``(b, t, s, e)`` (contiguous):
-    feature attention (K1), item attention (`_item_sublayer`: K2a + K2b), MLP
-    (K3), each with residual and post-norm."""
+    feature attention (K1, or with the per-member key mask ``token_valid``
+    ``(b, t)`` K6a), item attention (`_item_sublayer`: K2a + K2b), MLP (K3),
+    each with residual and post-norm."""
     cd = DTYPES[cfg.compute_dtype]
     state = fused_feature_attention_ln_im(
-        state.to(cd), lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"]
+        state.to(cd), lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"], key_mask=token_valid
     )
     state = _item_sublayer(state, lp, single_eval_pos=single_eval_pos, cfg=cfg)
     return fused_mlp_ln(state, lp["mlp"]["w1"], lp["mlp"]["w2"])
 
 
 def encoder_layer(
-    state: torch.Tensor, lp: dict, *, single_eval_pos: int, cfg: ModelConfig
+    state: torch.Tensor,
+    lp: dict,
+    *,
+    single_eval_pos: int,
+    cfg: ModelConfig,
+    token_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sample-major PerFeatureEncoderLayer (reference `layer.py:272-457`) on
     state ``(b, s, t, e)``: post-norm [feature-attn, item-attn, MLP], each with
     residual. Feature attention is plain: with ``cfg.fused_ops`` this layer runs
     only for more tokens than K1 takes, where the JAX package's feature
-    attention is plain XLA too (`multimodalpfn_tpu/models/transformer.py:210-238`).
-    Item attention follows ``cfg.use_flash`` (`_item_sublayer`) and the MLP
-    runs K3 under ``cfg.fused_ops``, as in the JAX package."""
+    attention is plain XLA too (`multimodalpfn_tpu/models/transformer.py:210-238`);
+    ``token_valid`` ``(b, t)`` masks each member's keys there. Item attention
+    follows ``cfg.use_flash`` (`_item_sublayer`) and the MLP runs K3 under
+    ``cfg.fused_ops``, as in the JAX package."""
     cd = DTYPES[cfg.compute_dtype]
     state = state.to(cd)
-    h = mha(state, state, lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"], compute_dtype=cd)
+    km = None if token_valid is None else token_valid[:, None, None, None, :]  # (b, s, h, q, k)
+    h = mha(state, state, lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"], compute_dtype=cd,
+            key_mask=km)
     state = residual_ln(state, h)
     state = _item_sublayer(
         state.transpose(1, 2), lp, single_eval_pos=single_eval_pos, cfg=cfg
@@ -135,6 +153,33 @@ def _group_features(x: torch.Tensor, fpg: int) -> torch.Tensor:
     return x.reshape(b, s, (F_ + pad) // fpg, fpg)
 
 
+def positional_embedding(
+    params: dict, cfg: ModelConfig, n_tokens: int, feat_pos_noise: torch.Tensor | None, device
+) -> torch.Tensor:
+    """The "subspace" feature positional embedding (`transformer.py:925-933`):
+    ``(1, 1, t_x, e)`` from the shared draw, or ``(b, 1, t_x, e)`` from
+    per-member tables ``feat_pos_noise`` ``(b, t_x, k)``."""
+    w, b = params["feat_pos_emb"]["w"], params["feat_pos_emb"]["b"]
+    if feat_pos_noise is None:
+        noise = get_subspace_noise(cfg.model_seed, n_tokens, cfg.emsize // 4, device=device)
+        return (noise @ w + b)[None, None]
+    if feat_pos_noise.shape[-2] != n_tokens:
+        raise ValueError(f"feat_pos_noise has {feat_pos_noise.shape[-2]} tokens, expected {n_tokens}")
+    return (feat_pos_noise.to(device=device, dtype=w.dtype) @ w + b)[:, None]
+
+
+def member_token_valid(tab_valid: torch.Tensor, t: int) -> torch.Tensor:
+    """The ``(b, t)`` key mask of cross-width batching: ``[tab_valid | image
+    tokens | target]``, image and target tokens always valid (JAX package
+    `models/transformer.py:430-443`), on ``tab_valid``'s device."""
+    tab_valid = torch.as_tensor(tab_valid, dtype=torch.bool)
+    b, f_tab = tab_valid.shape
+    if not 0 < f_tab < t:
+        raise ValueError(f"tab_valid covers {f_tab} tokens of {t}")
+    rest = torch.ones((b, t - f_tab), dtype=torch.bool, device=tab_valid.device)
+    return torch.cat([tab_valid, rest], dim=1)
+
+
 @torch.no_grad()
 def forward(
     params: dict,
@@ -144,6 +189,8 @@ def forward(
     image: torch.Tensor | None = None,
     *,
     single_eval_pos: int,
+    tab_valid: torch.Tensor | None = None,
+    feat_pos_noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Inference forward.
 
@@ -154,6 +201,14 @@ def forward(
       image: frozen-encoder embeddings ``(b, S, N_img, in_dim)`` or ``(1, ...)``
         shared by all members, or None.
       single_eval_pos: the train/test split position ``sep``.
+      tab_valid: ``(b, f_tab)`` bool, cross-width batching: which tabular
+        feature-group tokens of each member are real (members zero-padded to
+        a shared width mask the rest out of feature attention as keys; image
+        and target tokens stay valid). May lie on the CPU, where K6a checks
+        it without a host sync.
+      feat_pos_noise: ``(b, t_x, emsize // 4)`` per-member subspace-noise
+        tables (each member's own draws at the padded layout's slots), or
+        None for the shared draw.
 
     Returns logits ``(b, S - sep, n_out)`` in float32.
     """
@@ -187,14 +242,15 @@ def forward(
 
     # feature positional embedding ("subspace", transformer.py:925-933)
     if cfg.feature_positional_embedding == "subspace":
-        noise = get_subspace_noise(
-            cfg.model_seed, embedded_x.shape[-2], cfg.emsize // 4, device=device
+        embedded_x = embedded_x + positional_embedding(
+            params, cfg, embedded_x.shape[-2], feat_pos_noise, device
         )
-        embs = noise @ params["feat_pos_emb"]["w"] + params["feat_pos_emb"]["b"]
-        embedded_x = embedded_x + embs[None, None]
 
     cd = DTYPES[cfg.compute_dtype]
     state = torch.cat([embedded_x, embedded_y[:, :, None, :]], dim=2).to(cd)
+    token_valid = None
+    if tab_valid is not None:
+        token_valid = member_token_valid(tab_valid, state.shape[2])
 
     # item-major layout whenever the kernel path applies: one transpose before
     # the stack, none per layer
@@ -205,7 +261,9 @@ def forward(
     else:
         layer_fn = encoder_layer
     for l in range(cfg.nlayers):
-        state = layer_fn(state, _layer(params, l), single_eval_pos=sep, cfg=cfg)
+        state = layer_fn(
+            state, _layer(params, l), single_eval_pos=sep, cfg=cfg, token_valid=token_valid
+        )
 
     # decode the target tokens of the test rows (transformer.py:849-864)
     test_targets = (state[:, -1, sep:] if item_major else state[:, sep:, -1]).float()

@@ -58,13 +58,18 @@ def mha(
     kv_head0_only: bool = False,
     compute_dtype: torch.dtype = torch.float32,
     use_flash: bool = False,
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-head attention with stacked qkv weights.
 
     x_q ``(..., Sq, E)``, x_kv ``(..., Sk, E)``, w_qkv ``(3, h, d, E)``,
     w_out ``(h, d, E_out)``. ``kv_head0_only``: multiquery — K/V only from
     head 0, shared across all query heads. ``use_flash``: the attention core
-    runs K4 (the JAX package's flash branch, `ops/attention.py:105-151`)."""
+    runs K4 (the JAX package's flash branch, `ops/attention.py:105-151`).
+    ``key_mask``: bool, broadcastable to the logits ``(..., h, Sq, Sk)``;
+    False keys get -inf logits (plain path only, as in the JAX package)."""
+    if key_mask is not None and use_flash:
+        raise NotImplementedError("key_mask is not supported on the flash path")
     d = w_qkv.shape[2]
     scale = 1.0 / math.sqrt(d)
     cd = compute_dtype
@@ -78,15 +83,22 @@ def mha(
         k = torch.einsum("...si,di->...sd", xkv, wk[0])
         v = torch.einsum("...si,di->...sd", xkv, wv[0])
         logits = torch.einsum("...qhd,...kd->...hqk", q, k) * scale
-        p = torch.softmax(logits.float(), dim=-1).to(cd)
+        p = torch.softmax(_masked(logits, key_mask).float(), dim=-1).to(cd)
         o = torch.einsum("...hqk,...kd->...qhd", p, v)
     else:
         k = torch.einsum("...si,hdi->...shd", xkv, wk)
         v = torch.einsum("...si,hdi->...shd", xkv, wv)
         logits = torch.einsum("...qhd,...khd->...hqk", q, k) * scale
-        p = torch.softmax(logits.float(), dim=-1).to(cd)
+        p = torch.softmax(_masked(logits, key_mask).float(), dim=-1).to(cd)
         o = torch.einsum("...hqk,...khd->...qhd", p, v)
     return torch.einsum("...qhd,hdo->...qo", o, w_out.to(cd))
+
+
+def _masked(logits: torch.Tensor, key_mask: torch.Tensor | None) -> torch.Tensor:
+    if key_mask is None:
+        return logits
+    keep = key_mask.to(device=logits.device, dtype=torch.bool)
+    return logits.masked_fill(~keep, float("-inf"))
 
 
 def _flash_mha(xq, xkv, wq, wk, wv, w_out, kv_head0_only: bool) -> torch.Tensor:

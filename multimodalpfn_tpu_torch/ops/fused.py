@@ -1,6 +1,7 @@
 """Fused row-local encoder sublayers: K1 and K5 (feature attention + residual
-+ LN, item-major and sample-major) and K3 (MLP + residual + LN). The
-counterpart of the JAX package's `multimodalpfn_tpu/ops/pallas_fused.py`,
++ LN, item-major and sample-major), their key-masked forms K6a and K6b (for
+members of different widths padded into one group), and K3 (MLP + residual +
+LN). The counterpart of the JAX package's `multimodalpfn_tpu/ops/pallas_fused.py`,
 forward only.
 
 Each sublayer has a plain PyTorch version (``*_plain``) and a wrapper. The
@@ -73,9 +74,41 @@ def _attn_operands(kernel: str, x: torch.Tensor, w_qkv: torch.Tensor, w_out: tor
     return wqkv_t, wout
 
 
+def _key_mask_words(
+    kernel: str, key_mask: torch.Tensor, lead: tuple[int, ...], t: int
+) -> tuple[torch.Tensor, int]:
+    """K6a's and K6b's mask operand, on the mask's device: one 64-bit word
+    per member, bit j set when token j is a key, and the number of consecutive
+    rows that share a word. ``key_mask`` is a bool mask broadcastable to
+    ``(*lead, t)``; its trailing broadcast axes become the rows a word serves.
+    Every row must keep its last (target) token as a key. A mask on the CPU is
+    checked there; a mask on the card is checked with one host sync."""
+    m = key_mask.to(torch.bool)
+    if m.dim() < 1 or m.shape[-1] != t or m.dim() - 1 > len(lead):
+        raise ValueError(f"{kernel}: key_mask of shape {tuple(m.shape)} for rows {lead} of {t} tokens")
+    mlead = (1,) * (len(lead) - m.dim() + 1) + tuple(m.shape[:-1])
+    k = len(mlead)
+    while k and mlead[k - 1] == 1:
+        k -= 1
+    if any(a not in (1, n) for a, n in zip(mlead[:k], lead)):
+        raise ValueError(f"{kernel}: key_mask of shape {tuple(m.shape)} for rows {lead} of {t} tokens")
+    m = m.reshape(*mlead, t).expand(*lead[:k], *mlead[k:], t).reshape(-1, t)
+    if not bool(m[:, -1].all()):
+        raise ValueError(f"{kernel}: key_mask leaves out the target token (the last) of a row")
+    words = (m.long() << torch.arange(t, device=m.device)).sum(-1)
+    return words, math.prod(lead[k:])
+
+
+def _words_to(words: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The mask words on the kernel's device; from the CPU without blocking."""
+    if words.device.type == "cpu":
+        words = words.pin_memory().to(device, non_blocking=True)
+    return kernels.aligned(words.to(device).contiguous())
+
+
 # ---------------------------------------------------------------------------
 # K5 / K1: feature attention + residual + LN, sample-major (..., t, e) and
-# item-major (b, t, s, e)
+# item-major (b, t, s, e); K6b / K6a: the same with a per-member key mask
 # ---------------------------------------------------------------------------
 
 
@@ -84,11 +117,15 @@ def feature_attention_ln_plain(
     w_qkv: torch.Tensor,
     w_out: torch.Tensor,
     token_valid_count: int | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``LN(x + W_out·attn(x))`` over the t tokens of every row of x
     ``(..., t, e)``; w_qkv ``(3, h, d, e)``, w_out ``(h, d, e)``. Keys at or
-    past ``token_valid_count`` (None: t) get no weight. Returns x's shape and
-    dtype."""
+    past ``token_valid_count`` (None: t) get no weight; so do the keys that
+    ``key_mask``, a bool mask broadcastable to ``(..., t)``, leaves out (their
+    logits are -inf). Returns x's shape and dtype."""
+    if token_valid_count is not None and key_mask is not None:
+        raise ValueError("token_valid_count and key_mask are exclusive")
     cd = x.dtype
     rnd = rounder(cd)
     _, h, d, e = w_qkv.shape
@@ -104,6 +141,9 @@ def feature_attention_ln_plain(
         if not 1 <= token_valid_count <= t:
             raise ValueError(f"token_valid_count={token_valid_count} outside [1, {t}]")
         s = s.masked_fill(torch.arange(t, device=x.device) >= token_valid_count, float("-inf"))
+    if key_mask is not None:
+        keys = key_mask.to(device=x.device, dtype=torch.bool)[..., None, None, :]
+        s = s.masked_fill(~keys, float("-inf"))
     p = rnd(torch.softmax(s, dim=-1))
     o = rnd(p @ v)  # (..., h, t, d)
     o_all = o.transpose(-3, -2).reshape(*xs.shape[:-1], h * d)
@@ -116,58 +156,92 @@ def fused_feature_attention_ln(
     w_qkv: torch.Tensor,
     w_out: torch.Tensor,
     token_valid_count: int | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """K5. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel`
-    (called through `_attn_fwd_call`); kernel in `csrc/feat_attn.cu`, K1's
-    body with contiguous tokens and rows flattened over x's leading axes."""
+    """K5, and with ``key_mask`` (bool, broadcastable to ``(..., t)``; every
+    row's last token a key) K6b. K5 replaces
+    `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel`, K6b
+    `_feat_attn_kernel_masked` (both called through `_attn_fwd_call`); kernel
+    in `csrc/feat_attn.cu`, K1's body with contiguous tokens and rows
+    flattened over x's leading axes."""
     if x.device.type == "cpu":
-        return feature_attention_ln_plain(x, w_qkv, w_out, token_valid_count)
+        return feature_attention_ln_plain(x, w_qkv, w_out, token_valid_count, key_mask)
+    if token_valid_count is not None and key_mask is not None:
+        raise ValueError("token_valid_count and key_mask are exclusive")
+    kid = "K5" if key_mask is None else "K6b"
     t, e = x.shape[-2:]
     _, h, d, _ = w_qkv.shape
     tv = t if token_valid_count is None else token_valid_count
-    wqkv_t, wout = _attn_operands("K5", x, w_qkv, w_out, t, tv)
+    wqkv_t, wout = _attn_operands(kid, x, w_qkv, w_out, t, tv)
+    if key_mask is not None:
+        words, rows_per_member = _key_mask_words(kid, key_mask, tuple(x.shape[:-2]), t)
     x2 = kernels.aligned(x.reshape(-1, t, e).contiguous())
     if x2.shape[0] >= 2**31:
-        raise ValueError(f"K5: {x2.shape[0]} rows exceed the kernel's grid")
-    kernels.require_cuda("K5", x2, wqkv_t, wout)
+        raise ValueError(f"{kid}: {x2.shape[0]} rows exceed the kernel's grid")
+    kernels.require_cuda(kid, x2, wqkv_t, wout)
     out = torch.empty_like(x2)
-    rc = kernels.library().mmpfn_feat_attn_ln(
-        x2.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(),
-        x2.shape[0], t, e, h, d, tv, *kernels.launch_args(x2, "K5"),
-    )
-    kernels.check(rc, "K5")
-    kernels.LAUNCHES["K5"] += 1
+    lib = kernels.library()
+    if key_mask is None:
+        rc = lib.mmpfn_feat_attn_ln(
+            x2.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(),
+            x2.shape[0], t, e, h, d, tv, *kernels.launch_args(x2, kid),
+        )
+    else:
+        words = _words_to(words, x2.device)
+        rc = lib.mmpfn_feat_attn_ln_masked(
+            x2.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(), words.data_ptr(),
+            x2.shape[0], t, e, h, d, rows_per_member, *kernels.launch_args(x2, kid),
+        )
+    kernels.check(rc, kid)
+    kernels.LAUNCHES[kid] += 1
     return out.reshape(x.shape)
 
 
 def feature_attention_ln_im_plain(
-    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor
+    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, key_mask: torch.Tensor | None = None
 ) -> torch.Tensor:
     """`feature_attention_ln_plain` over the t tokens of every (member,
-    sample) row of an item-major x ``(b, t, s, e)``."""
-    return feature_attention_ln_plain(x.transpose(1, 2), w_qkv, w_out).transpose(1, 2).contiguous()
+    sample) row of an item-major x ``(b, t, s, e)``; ``key_mask``, bool
+    broadcastable to ``(b, t)``, masks each member's keys."""
+    if key_mask is not None and key_mask.dim() == 2:
+        key_mask = key_mask[:, None, :]  # (b, 1, t) against the rows (b, s)
+    out = feature_attention_ln_plain(x.transpose(1, 2), w_qkv, w_out, key_mask=key_mask)
+    return out.transpose(1, 2).contiguous()
 
 
 def fused_feature_attention_ln_im(
-    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor
+    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, key_mask: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """K1. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel_im`
-    (called through `_attn_fwd_call_im`); kernel in `csrc/feat_attn.cu`."""
+    """K1, and with ``key_mask`` (bool, broadcastable to ``(b, t)``; every
+    member's last token a key) K6a. K1 replaces
+    `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel_im`, K6a
+    `_feat_attn_kernel_im_masked` (both called through `_attn_fwd_call_im`);
+    kernel in `csrc/feat_attn.cu`."""
     if x.device.type == "cpu":
-        return feature_attention_ln_im_plain(x, w_qkv, w_out)
+        return feature_attention_ln_im_plain(x, w_qkv, w_out, key_mask)
+    kid = "K1" if key_mask is None else "K6a"
     b, t, s, e = x.shape
     _, h, d, _ = w_qkv.shape
-    wqkv_t, wout = _attn_operands("K1", x, w_qkv, w_out, t, t)
+    wqkv_t, wout = _attn_operands(kid, x, w_qkv, w_out, t, t)
+    if key_mask is not None:  # a word per member
+        words, _ = _key_mask_words(kid, key_mask.expand(b, t), (b,), t)
     x = kernels.aligned(x)
-    kernels.require_cuda("K1", x, wqkv_t, wout)
+    kernels.require_cuda(kid, x, wqkv_t, wout)
     out = torch.empty_like(x)
     lib = kernels.library()
-    rc = lib.mmpfn_feat_attn_ln_im(
-        x.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(),
-        b, t, s, e, h, d, *kernels.launch_args(x, "K1"),
-    )
-    kernels.check(rc, "K1")
-    kernels.LAUNCHES["K1"] += 1
+    if key_mask is None:
+        rc = lib.mmpfn_feat_attn_ln_im(
+            x.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(),
+            b, t, s, e, h, d, *kernels.launch_args(x, kid),
+        )
+    else:
+        words = _words_to(words, x.device)
+        rc = lib.mmpfn_feat_attn_ln_im_masked(
+            x.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(), words.data_ptr(),
+            b, t, s, e, h, d, *kernels.launch_args(x, kid),
+        )
+    kernels.check(rc, kid)
+    kernels.LAUNCHES[kid] += 1
     return out
 
 

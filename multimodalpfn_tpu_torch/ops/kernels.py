@@ -39,7 +39,9 @@ NVCC_FLAGS = [
 ]
 
 # kernel id -> launches through its wrapper since the last reset
-LAUNCHES: dict[str, int] = {"K1": 0, "K2a": 0, "K2b": 0, "K3": 0, "K4": 0, "K5": 0}
+LAUNCHES: dict[str, int] = {
+    "K1": 0, "K2a": 0, "K2b": 0, "K3": 0, "K4": 0, "K5": 0, "K6a": 0, "K6b": 0,
+}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -52,6 +54,10 @@ _SIGNATURES = {
     "mmpfn_feat_attn_ln_im": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # (x, wqkv_t, wout, out, rows, t, e, h, d, token_valid, dtype, device, stream)
     "mmpfn_feat_attn_ln": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (x, wqkv_t, wout, out, masks, b, t, s, e, h, d, dtype, device, stream)
+    "mmpfn_feat_attn_ln_im_masked": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (x, wqkv_t, wout, out, masks, rows, t, e, h, d, rows_per_member, dtype, device, stream)
+    "mmpfn_feat_attn_ln_masked": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # (q, k, v, o, lse, G, Sq, Skv, d, scale, dtype, device, stream)
     "mmpfn_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # (x, w1, w2, out, rows, e, nhid, dtype, device, stream)

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 from scipy.stats import norm
 
+from multimodalpfn_tpu_torch.preprocess.numeric import QuantileTransformer
+
 ALPHAS = (0.05, 0.1, 0.2, 0.25, 0.3, 0.4, 0.5, 0.6, 0.8, 1.0, 1.2, 1.5, 1.8, 2.0, 2.5, 3.0, 5.0)
 
 _EPS = 1e-7
@@ -84,8 +86,6 @@ class _FeatureUnion:
 def make_kdi_transformer(name: str, num_examples: int, random_state):
     """Resolve the kdi registry names (reference `preprocessing.py:105-125,756-771`)."""
     if name == "norm_and_kdi":
-        from sklearn.preprocessing import QuantileTransformer
-
         return _FeatureUnion(
             [
                 QuantileTransformer(

@@ -1,4 +1,5 @@
-"""Safe power/standard-scaler pipelines.
+"""Safe power/standard-scaler pipelines, on the numpy/scipy transformers of
+`preprocess.numeric`.
 
 Reference semantics (`mmpfn/models/mmpfn/model/preprocessing.py:128-291`):
   * SafePowerTransformer: yeo-johnson that reverts features whose transformed
@@ -10,15 +11,15 @@ Reference semantics (`mmpfn/models/mmpfn/model/preprocessing.py:128-291`):
 from __future__ import annotations
 
 import warnings
-from typing import Any
 
 import numpy as np
-from sklearn.impute import SimpleImputer
-from sklearn.pipeline import Pipeline
-from sklearn.preprocessing import (
+
+from multimodalpfn_tpu_torch.preprocess.numeric import (
     FunctionTransformer,
     MinMaxScaler,
+    Pipeline,
     PowerTransformer,
+    SimpleImputer,
     StandardScaler,
 )
 
@@ -27,31 +28,10 @@ def _inf_to_nan(x):
     return np.nan_to_num(x, nan=np.nan, neginf=np.nan, posinf=np.nan)
 
 
-def _identity(x):
-    return x
-
-
-class _IdentityInverseImputer(SimpleImputer):
-    """Mean-imputer whose inverse is the identity — the sandwich must be
-    transparent on the inverse path (reference `preprocessing.py:232-240`
-    monkeypatches exactly this)."""
-
-    def inverse_transform(self, X):
-        return X
-
-
 def _finite_steps(tag: str):
     return [
-        (
-            f"inf_to_nan_{tag}",
-            FunctionTransformer(
-                _inf_to_nan, inverse_func=_identity, check_inverse=False
-            ),
-        ),
-        (
-            f"nan_impute_{tag}",
-            _IdentityInverseImputer(strategy="mean", keep_empty_features=True),
-        ),
+        (f"inf_to_nan_{tag}", FunctionTransformer(_inf_to_nan)),
+        (f"nan_impute_{tag}", SimpleImputer()),
     ]
 
 
@@ -68,10 +48,19 @@ def make_safe_scaler(with_mean: bool = True) -> Pipeline:
 
 class SafePowerTransformer(PowerTransformer):
     """Yeo-Johnson/Box-Cox that reverts badly-transformed features
-    (reference `preprocessing.py:128-204`, incl. the NaN-lambda guard)."""
+    (reference `preprocessing.py:128-204`, incl. the NaN-lambda guard).
 
-    def __init__(self, variance_threshold=1e-3, large_value_threshold=100, **kw):
-        super().__init__(**kw)
+    As in the JAX package's subclass of scikit-learn 1.9.0's
+    ``PowerTransformer``: a λ fit that fails (scipy's bracket errors and the
+    like) gives λ = NaN, and the transform of such a column is then scipy's,
+    NaN throughout (scikit-learn 1.9 transforms through
+    ``scipy.stats.yeojohnson`` and no longer consults the subclass's
+    transform hook). The revert runs in `fit` and `transform`; inside a
+    pipeline the step is fitted by ``fit_transform``, which, as in
+    scikit-learn, does not set ``revert_indices_``."""
+
+    def __init__(self, variance_threshold=1e-3, large_value_threshold=100, method="yeo-johnson"):
+        super().__init__(method=method)
         self.variance_threshold = variance_threshold
         self.large_value_threshold = large_value_threshold
         self.revert_indices_ = None
@@ -86,12 +75,7 @@ class SafePowerTransformer(PowerTransformer):
         except Exception:  # scipy BracketError and friends
             return np.nan
 
-    def _yeo_johnson_transform(self, x, lmbda):
-        if np.isnan(lmbda):
-            return x
-        return super()._yeo_johnson_transform(x, lmbda)
-
-    def fit(self, X, y: Any | None = None):
+    def fit(self, X, y=None):
         super().fit(X, y)
         Xt = super().transform(X)
         variances = np.nanvar(Xt, axis=0)
@@ -110,14 +94,8 @@ class SafePowerTransformer(PowerTransformer):
 def make_safe_power_pipeline(*, safe: bool, method: str = "yeo-johnson") -> Pipeline:
     """power/safepower: transformer followed by a safe StandardScaler
     (reference `preprocessing.py:280-291`)."""
-    power = (
-        SafePowerTransformer(standardize=False, method=method)
-        if safe
-        else PowerTransformer(standardize=False, method=method)
-    )
-    return Pipeline(
-        steps=[("input_transformer", power), ("standard", make_safe_scaler())]
-    )
+    power = SafePowerTransformer(method=method) if safe else PowerTransformer(method=method)
+    return Pipeline(steps=[("input_transformer", power), ("standard", make_safe_scaler())])
 
 
 def make_safe_power_box_pipeline(*, safe: bool) -> Pipeline:
@@ -125,7 +103,7 @@ def make_safe_power_box_pipeline(*, safe: bool) -> Pipeline:
     (reference `preprocessing.py:265-277`)."""
     return Pipeline(
         steps=[
-            ("mm", MinMaxScaler(feature_range=(0.1, 1), clip=True)),
+            ("mm", MinMaxScaler()),
             ("box_cox", make_safe_power_pipeline(safe=safe, method="box-cox")),
         ]
     )

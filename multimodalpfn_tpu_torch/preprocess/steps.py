@@ -23,6 +23,12 @@ from typing import NamedTuple
 import numpy as np
 
 from multimodalpfn_tpu_torch import native
+from multimodalpfn_tpu_torch.preprocess import numeric
+from multimodalpfn_tpu_torch.preprocess.safe_power import (
+    make_safe_power_box_pipeline,
+    make_safe_power_pipeline,
+    make_safe_scaler,
+)
 from multimodalpfn_tpu_torch.utils.rng import infer_random_state
 
 
@@ -332,37 +338,6 @@ def _identity_np(x):
     return x
 
 
-class _NumpyFunctionTransformer:
-    """Stateless elementwise transform with sklearn's fit/transform surface
-    (what `FunctionTransformer(func)` does on a numpy array), without
-    importing scikit-learn."""
-
-    def __init__(self, func):
-        self.func = func
-
-    def fit(self, X, y=None):
-        return self
-
-    def transform(self, X):
-        return self.func(np.asarray(X))
-
-    def fit_transform(self, X, y=None):
-        return self.transform(X)
-
-
-def _require_sklearn(config_name: str) -> None:
-    """Raise a clear ImportError when a preprocessing config needs
-    scikit-learn and it is not installed."""
-    try:
-        import sklearn  # noqa: F401
-    except ImportError as e:
-        raise ImportError(
-            f"preprocessing config {config_name!r} needs scikit-learn, which is "
-            "not installed; use PreprocessorConfig('none', ...) for a "
-            "numpy-only pipeline"
-        ) from e
-
-
 def _least_common_count(col: np.ndarray) -> int:
     if len(col) == 0:
         return 0
@@ -379,11 +354,10 @@ class ReshapeFeatureDistributionsStep(PreprocessingStep):
     """Registry-driven per-feature distribution transforms with optional global SVD,
     append-original and feature-subsampling (reference `preprocessing.py:579-995`).
 
-    Uses sklearn transformers under the hood for exact numerics
-    (QuantileTransformer/PowerTransformer/RobustScaler/TruncatedSVD-arpack).
-    scikit-learn is imported only by the transforms that need it: ``"none"``
-    (and the log/exp/kdi families) run on numpy alone, so a machine without
-    scikit-learn can still run a ``PreprocessorConfig("none", ...)`` pipeline."""
+    The transformers are the numpy/scipy versions of scikit-learn's in
+    `preprocess.numeric` (QuantileTransformer, PowerTransformer, RobustScaler,
+    TruncatedSVD with ARPACK), which give scikit-learn's numbers; scikit-learn
+    itself is never imported."""
 
     def __init__(
         self,
@@ -414,36 +388,24 @@ class ReshapeFeatureDistributionsStep(PreprocessingStep):
             "quantile_norm_fine": ("normal", num_examples),
         }
         if name in quantiles:
-            _require_sklearn(name)
-            from sklearn.preprocessing import QuantileTransformer
-
             dist, nq = quantiles[name]
-            return QuantileTransformer(
+            return numeric.QuantileTransformer(
                 output_distribution=dist, n_quantiles=nq, random_state=random_state
             )
-        if name in ("power", "safepower", "power_box", "safepower_box"):
-            _require_sklearn(name)
-            from multimodalpfn_tpu_torch.preprocess.safe_power import (
-                make_safe_power_box_pipeline,
-                make_safe_power_pipeline,
-            )
-
-            if name in ("power", "safepower"):
-                return make_safe_power_pipeline(safe=name == "safepower")
+        if name in ("power", "safepower"):
+            return make_safe_power_pipeline(safe=name == "safepower")
+        if name in ("power_box", "safepower_box"):
             return make_safe_power_box_pipeline(safe=name == "safepower_box")
         if name == "robust":
-            _require_sklearn(name)
-            from sklearn.preprocessing import RobustScaler
-
-            return RobustScaler(unit_variance=True)
+            return numeric.RobustScaler()
         if name == "none":
-            return _NumpyFunctionTransformer(_identity_np)
+            return numeric.FunctionTransformer(_identity_np)
         if name == "log":
-            return _NumpyFunctionTransformer(np.log)
+            return numeric.FunctionTransformer(np.log)
         if name == "1_plus_log":
-            return _NumpyFunctionTransformer(np.log1p)
+            return numeric.FunctionTransformer(np.log1p)
         if name == "exp":
-            return _NumpyFunctionTransformer(np.exp)
+            return numeric.FunctionTransformer(np.exp)
         if name.startswith("kdi") or name == "norm_and_kdi":
             from multimodalpfn_tpu_torch.preprocess.kdi import make_kdi_transformer
 
@@ -553,23 +515,14 @@ class ReshapeFeatureDistributionsStep(PreprocessingStep):
 
     def _fit_global(self, base):
         n_samples, n_features = self.global_n_
-        _require_sklearn(f"global_transformer_name={self.global_transformer_name!r}")
         if self.global_transformer_name == "scaler":
-            from multimodalpfn_tpu_torch.preprocess.safe_power import make_safe_scaler
-
             self.global_ = ("scaler", make_safe_scaler().fit(base))
             return
         # "svd": FeatureUnion[passthrough, scale(no-mean)->TruncatedSVD(arpack)]
         # (reference `preprocessing.py:790-822`)
-        from sklearn.decomposition import TruncatedSVD
-
-        from multimodalpfn_tpu_torch.preprocess.safe_power import make_safe_scaler
-
         n_components = max(1, min(n_samples // 10 + 1, n_features // 2))
         scaler = make_safe_scaler(with_mean=False).fit(base)
-        svd = TruncatedSVD(
-            algorithm="arpack", n_components=n_components, random_state=self.global_seed_
-        )
+        svd = numeric.TruncatedSVD(n_components=n_components, random_state=self.global_seed_)
         svd.fit(scaler.transform(base))
         self.global_ = ("svd", (scaler, svd))
 

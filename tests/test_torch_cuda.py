@@ -95,6 +95,65 @@ def test_k5_bf16_matches_plain(cuda, e, h, d, t, tvc):
     assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
 
 
+def _member_masks(b, t, device):
+    """Ragged per-member key masks: member 0 all keys, member 1 only the
+    target (the last token), the others a prefix of their feature tokens."""
+    m = torch.zeros((b, t), dtype=torch.bool)
+    m[:, -1] = True
+    m[0] = True
+    for i in range(2, b):
+        m[i, : max(1, t - 7 * i)] = True
+    return m.to(device)
+
+
+def _check(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+    else:
+        assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,h,d,t", [(192, 6, 32, 48), (192, 6, 32, 64), (192, 6, 32, 31),
+                                     (64, 4, 16, 45), (32, 4, 8, 13)])
+def test_k6a_matches_plain(cuda, e, h, d, t, dtype):
+    """K6a (item-major, a key mask per member) against its plain version on
+    ragged masks, one member keeping only the target key: the tensor-core body
+    in bf16 at e = 192 and 64, the CUDA-core body otherwise; 37 samples leave a
+    ragged last block."""
+    g = torch.Generator().manual_seed(12)
+    x = _rand(g, 4, t, 37, e, device=cuda).to(dtype)
+    w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
+    w_out = _rand(g, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    mask = _member_masks(4, t, "cpu")
+    before = kernels.LAUNCHES["K6a"]
+    got = fused.fused_feature_attention_ln_im(x, w_qkv, w_out, key_mask=mask)
+    assert kernels.LAUNCHES["K6a"] == before + 1
+    _check(got, fused.feature_attention_ln_im_plain(x, w_qkv, w_out, key_mask=mask), dtype)
+    # a mask on the card takes the same path
+    torch.testing.assert_close(
+        fused.fused_feature_attention_ln_im(x, w_qkv, w_out, key_mask=mask.to(cuda)), got,
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,h,d,t", [(192, 6, 32, 48), (192, 6, 32, 64), (64, 4, 16, 31),
+                                     (32, 4, 8, 13)])
+def test_k6b_matches_plain(cuda, e, h, d, t, dtype):
+    """K6b (sample-major rows, the member's mask broadcast over its 37 rows,
+    so a 4-sample block of the tensor-core body straddles two members)
+    against its plain version."""
+    g = torch.Generator().manual_seed(13)
+    x = _rand(g, 4, 37, t, e, device=cuda).to(dtype)
+    w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
+    w_out = _rand(g, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    mask = _member_masks(4, t, "cpu")[:, None, :]
+    before = kernels.LAUNCHES["K6b"]
+    got = fused.fused_feature_attention_ln(x, w_qkv, w_out, key_mask=mask)
+    assert kernels.LAUNCHES["K6b"] == before + 1
+    _check(got, fused.feature_attention_ln_plain(x, w_qkv, w_out, key_mask=mask), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,Sq,Skv,d", [(3, 37, 45, 16), (2, 130, 200, 32), (4, 200, 1, 32),
                                         (2, 70, 129, 64), (2, 33, 40, 8)])
@@ -221,7 +280,8 @@ def test_forward_many_tokens_runs_item_and_mlp_kernels(cuda):
     got = forward(params, dataclasses.replace(cfg, fused_ops=True, use_flash=True), x, y,
                   single_eval_pos=sep)
     ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-    assert ran == {"K1": 0, "K2a": cfg.nlayers, "K2b": cfg.nlayers, "K3": cfg.nlayers, "K4": 0, "K5": 0}
+    assert ran == {"K1": 0, "K2a": cfg.nlayers, "K2b": cfg.nlayers, "K3": cfg.nlayers, "K4": 0, "K5": 0,
+                   "K6a": 0, "K6b": 0}
     torch.testing.assert_close(got, forward(params, cfg, x, y, single_eval_pos=sep), **FORWARD_TOL)
 
 
@@ -238,7 +298,7 @@ def test_forward_refused_item_attention_runs_k4(cuda, cfg_kw):
     got = forward(params, run, x, y, single_eval_pos=sep)
     ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     assert ran == {"K1": cfg.nlayers, "K2a": 0, "K2b": 0, "K3": cfg.nlayers, "K4": 2 * cfg.nlayers,
-                   "K5": 0}
+                   "K5": 0, "K6a": 0, "K6b": 0}
     plain = forward(params, dataclasses.replace(cfg, **cfg_kw), x, y, single_eval_pos=sep)
     torch.testing.assert_close(got, plain, **FORWARD_TOL)
 
@@ -264,7 +324,41 @@ def test_cached_serving_runs_k4_k5_k3(cuda):
     p_kernel = clf.predict_proba(X[60:])
     layers = clf.config_.nlayers
     assert kernels.LAUNCHES == {"K1": 0, "K2a": 0, "K2b": 0, "K3": 2 * layers * groups,
-                                "K4": 2 * layers * groups, "K5": 2 * layers * groups}
+                                "K4": 2 * layers * groups, "K5": 2 * layers * groups,
+                                "K6a": 0, "K6b": 0}
     clf.executor_.use_kernels = False  # primes again, on the plain path
     p_plain = clf.predict_proba(X[60:])
     assert abs(p_kernel - p_plain).max() <= 1e-4
+
+
+def test_forced_merge_runs_k6a_and_k6b(cuda, monkeypatch):
+    """Members of two widths forced into one padded group: the full forward
+    launches K6a (and no K1) in every layer, the cached prime and predict K6b
+    (and no K5); float32 merged answers equal the split ones."""
+    import numpy as np
+
+    import multimodalpfn_tpu_torch.estimator.inference as inf
+    from multimodalpfn_tpu_torch import TabPFNClassifier
+    from multimodalpfn_tpu_torch.datasets.synthetic import toy_classification
+    from multimodalpfn_tpu_torch.preprocess.ensemble import PreprocessorConfig
+
+    X, y = toy_classification(n=90, n_features=6, n_classes=3, seed=5)
+    X = np.concatenate([X, X[:, :3] ** 2], axis=1)
+    transforms = [PreprocessorConfig("none", categorical_name="numeric"),
+                  PreprocessorConfig("none", categorical_name="numeric", subsample_features=0.5)]
+    answers = {}
+    for fit_mode in ("fit_preprocessors", "fit_with_cache"):
+        for force in (True, False):
+            monkeypatch.setattr(inf, "_FORCE_MERGE", force)
+            clf = TabPFNClassifier(model_path="random:0", n_estimators=2, fit_mode=fit_mode,
+                                   device="cuda", inference_precision="float32",
+                                   inference_config={"PREPROCESS_TRANSFORMS": transforms})
+            kernels.reset_launches()
+            clf.fit(X[:60], y[:60])
+            answers[fit_mode, force] = clf.predict_proba(X[60:])
+            layers = clf.config_.nlayers
+            if force and fit_mode == "fit_preprocessors":
+                assert kernels.LAUNCHES["K6a"] == layers and kernels.LAUNCHES["K1"] == 0
+            if force and fit_mode == "fit_with_cache":
+                assert kernels.LAUNCHES["K6b"] == 2 * layers and kernels.LAUNCHES["K5"] == 0
+        assert abs(answers[fit_mode, True] - answers[fit_mode, False]).max() <= 1e-5
