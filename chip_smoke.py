@@ -55,10 +55,29 @@ Phases, each of which must pass:
    (K6b) and no unmasked one; warm requests of both plans are timed. In
    float32 the merged answers equal the split ones to 1e-5, and the merged
    kernel path matches the merged plain path to 1e-4.
+8. Backward kernels: K7 (item-major), K8, K9 and K10 against their plain
+   versions at the fine-tune shapes (one episode of the flagship: x (1, 30,
+   1838, 192), 1655 train + 183 test rows, nhid 768), in float32 (5e-5) and
+   bf16 (2**-6), each output relative to its own largest magnitude; each run
+   twice on the same inputs must give the same bits. Times, bounds, and for
+   K9 the backward of ``scaled_dot_product_attention`` over both regions.
+9. ``fine_tune_mmpfn`` served: 100 bf16 steps on the PAD-UFES-shaped set (the
+   full 12 layers, validation after every step); the counters, zeroed just
+   before, show K7, K8, K9 and K10 launched 12 times per step; every loss and
+   gradient norm finite, no step skipped, no snapshot write failed; the
+   snapshot on disk differs from the base model exactly when validation
+   improved, and ``MMPFNClassifier`` serves it (rows sum to 1).
+10. Fine-tune kernel path against plain path: three float32 steps from the
+   same seed on the first three layers (the plain path keeps every layer's
+   attention scores): the first step's gradient of every leaf within 1e-5 of
+   that leaf's largest magnitude, loss and gradient norm within 1e-4
+   relative, the params within 1e-5 absolute; the plain path launches no
+   kernel.
 
-``--profile`` adds a phase 8: ``torch.profiler`` around one warm request of
-each size in both modes, printing wall time, device kernel time, the idle
-share and the kernels that took the most device time.
+``--profile`` adds a phase 11: ``torch.profiler`` around one warm request of
+each size in both modes and around one warm training step, printing wall
+time, device kernel time, the idle share and the kernels that took the most
+device time.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
@@ -140,12 +159,52 @@ KERNELS = {
         source="multimodalpfn_tpu_torch/csrc/feat_attn.cu",
         replaces="multimodalpfn_tpu/ops/pallas_fused.py:280",
     ),
+    "K7": dict(
+        name="K7 backward of K1 (item-major): dx, dW_qkv, dW_out",
+        source="multimodalpfn_tpu_torch/csrc/feat_attn_bwd.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_fused.py:1070",
+    ),
+    "K8": dict(
+        name="K8 backward of K3: dx, dW1, dW2",
+        source="multimodalpfn_tpu_torch/csrc/mlp_ln_bwd.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_fused.py:709",
+    ),
+    "K9": dict(
+        name="K9 backward of K2a (self and cross regions, QKV recomputed): dx, dW_qkv",
+        source="multimodalpfn_tpu_torch/csrc/item_attn_bwd.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_item_fused.py:439",
+    ),
+    "K10": dict(
+        name="K10 backward of K2b: du, do, per-head delta, dW_out",
+        source="multimodalpfn_tpu_torch/csrc/item_epilogue_bwd.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_item_fused.py:696",
+    ),
 }
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
 # (K6a, K6b) whatever the rule plans
 PATH_OF = {"K1": "split", "K2a": "preproc", "K2b": "preproc", "K3": "preproc",
-           "K4": "cached", "K5": "split_cached", "K6a": "merged", "K6b": "merged_cached"}
+           "K4": "cached", "K5": "split_cached", "K6a": "merged", "K6b": "merged_cached",
+           "K7": "finetune", "K8": "finetune", "K9": "finetune", "K10": "finetune"}
+
+# The fine-tune flagship: `fine_tune_mmpfn` on `pad_ufes_like(seed=0)` keeps
+# 1838 of the 2298 rows for training; an episode is one fold of a 10-fold
+# split, 1655 train + 183 test rows of 21 + 8 + 1 = 30 tokens, one per step:
+# (b, t, S, sep, e, h, d, nhid) of the backward kernels
+FT_DIMS = (1, 30, 1838, 1655, 192, 6, 32, 768)
+FT_STEPS = 100
+# float32 kernel path against plain path over three training steps: loss and
+# gradient norm relative, params after the steps absolute, and the first
+# step's gradient of every leaf relative to that leaf's largest magnitude (at
+# the default learning rate 1e-5 the params move by about 1e-5 a step, so
+# only the gradients themselves show a wrong backward)
+FT_STEP_REL_BOUND = 1e-4
+FT_PARAM_ABS_BOUND = 1e-5
+FT_GRAD_REL_BOUND = 1e-5
+# the plain path keeps every layer's (30, 6, 1838, 1655) float32 attention
+# scores and weights for its backward (about 6 GB a layer): the comparison
+# runs the first layers of the model
+FT_CMP_LAYERS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -351,6 +410,339 @@ def phase_kernels(device, dims, iters) -> dict:
             check(rel <= rel_bound, f"{kid} {tag}: rel err {rel:.3e} > {rel_bound:.3e}")
         results[kid] = res
     return results
+
+
+def phase_bwd_kernels(device, dims, iters) -> dict:
+    """The backward kernels K7-K10 against their plain versions on the same
+    inputs, at the fine-tune shapes, in float32 and bf16. Each output (dx,
+    each dW, K10's du, do and delta) is held relative to its own largest
+    magnitude; each kernel runs twice on the same inputs, and the two results
+    must be the same bits (the weight gradients are summed in a fixed order)."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodalpfn_tpu_torch.ops import fused, item_fused
+
+    b, t, S, sep, e, h, d, nhid = dims
+    hd, G, R = h * d, b * t, b * t * S
+    gen = torch.Generator().manual_seed(2)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+
+    x, g = rand(b, t, S, e), rand(b, t, S, e)
+    w_qkv = rand(3, h, d, e, scale=(2.0 / (h * d + e)) ** 0.5)
+    w_out = rand(h, d, e, scale=(h * d) ** -0.5)
+    w1, w2 = rand(e, nhid, scale=e**-0.5), rand(nhid, e, scale=nhid**-0.5)
+    item = {}
+
+    def item_inputs(dt):
+        """The item sublayer's saved forward (o, lse) and K10's plain outputs
+        (du, do, delta), which K9 consumes."""
+        if dt not in item:
+            x3, g3 = x.reshape(G, S, e).to(dt), g.reshape(G, S, e).to(dt)
+            o, lse = item_fused.item_attention_core_plain(x3, w_qkv, sep)
+            du, do, delta, _ = item_fused.item_epilogue_bwd_plain(x3, o, w_out, g3)
+            item[dt] = dict(x3=x3, g3=g3, o=o, lse=lse, du=du, do=do, delta=delta)
+        return item[dt]
+
+    def item_sdpa_bwd(dt):
+        """K9's attention-core backward as PyTorch calls: SDPA over the self
+        region (every head) and the cross region (KV head 0 expanded), the
+        projection done before timing; the timed call is the backward."""
+        a = item_inputs(dt)
+        qkv = (a["x3"] @ w_qkv.reshape(3 * hd, e).to(dt).T).reshape(G, S, 3, h, d).permute(2, 0, 3, 1, 4)
+
+        def leaf(t_):
+            return t_.detach().contiguous().requires_grad_(True)
+
+        q, k, v = leaf(qkv[0]), leaf(qkv[1][:, :, :sep]), leaf(qkv[2][:, :, :sep])
+        k0, v0 = leaf(qkv[1][:, :1, :sep]), leaf(qkv[2][:, :1, :sep])
+        dog = a["do"].reshape(G, S, h, d).transpose(1, 2)
+        with torch.enable_grad():
+            outs = [F.scaled_dot_product_attention(q[:, :, :sep], k, v)]
+            cots = [dog[:, :, :sep]]
+            if S > sep:
+                outs.append(F.scaled_dot_product_attention(
+                    q[:, :, sep:], k0.expand(-1, h, -1, -1), v0.expand(-1, h, -1, -1)))
+                cots.append(dog[:, :, sep:])
+        return lambda: torch.autograd.grad(outs, (q, k, v, k0, v0), cots, retain_graph=True,
+                                           allow_unused=True)
+
+    # FLOPs and bytes of the work itself: each input read once, each output
+    # written once; attention FLOPs over the (query, key) pairs of the run
+    cases = {
+        "K7": (fused.feature_attention_ln_im_bwd, fused.feature_attention_ln_im_bwd_plain,
+               lambda dt: (x.to(dt), w_qkv, w_out, g.to(dt)),
+               # QKV and out-projection recomputed, do, dx, dW_qkv, dW_out;
+               # per row and head: scores, p·v, dp, dq, dk, dv over t × t
+               lambda es: (2 * R * e * hd * 12 + 12 * b * S * h * t * t * d,
+                           3 * R * e * es + 4 * hd * e * (es + 4))),
+        "K8": (fused.mlp_ln_bwd, fused.mlp_ln_bwd_plain,
+               lambda dt: (x.to(dt), w1, w2, g.to(dt)),
+               lambda es: (12 * R * e * nhid, 3 * R * e * es + 2 * e * nhid * (es + 4))),
+        "K10": (item_fused.item_epilogue_bwd, item_fused.item_epilogue_bwd_plain,
+                lambda dt: (lambda a: (a["x3"], a["o"], w_out, a["g3"]))(item_inputs(dt)),
+                lambda es: (6 * R * hd * e + 2 * R * hd,
+                            R * (3 * e + 2 * hd) * es + G * h * S * 4 + hd * e * (es + 4))),
+        "K9": (item_fused.item_attention_bwd, item_fused.item_attention_bwd_plain,
+               lambda dt: (lambda a: (a["x3"], w_qkv, a["do"], a["delta"], a["lse"], sep, a["du"]))(
+                   item_inputs(dt)),
+               # Q recomputed on every row, K and V on the train rows only (test
+               # rows are never keys); dx and dW from dq on every row, from
+               # dk, dv on the train rows (the cross region's head-0 dk, dv
+               # folded into head 0); scores, dp, dq, dk, dv per pair
+               lambda es: (2 * R * e * hd + 2 * G * sep * e * 2 * hd + 4 * R * hd * e
+                           + 4 * G * sep * 2 * hd * e + 10 * d * G * h * sep * S,
+                           R * (3 * e + hd) * es + 2 * G * h * S * 4 + 3 * hd * e * (es + 4))),
+    }
+    libraries = {"K9": item_sdpa_bwd}
+    results = {}
+    for kid, (kern, plain, make, work) in cases.items():
+        res = {"shape": list(make(torch.float32)[0].shape)}
+        for dt, tag, rel_bound in (
+            (torch.float32, "f32", F32_REL_BOUND),
+            (torch.bfloat16, "bf16", BF16_REL_BOUND),
+        ):
+            args = make(dt)
+            got, again, want = kern(*args), kern(*args), plain(*args)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
+            rels = [err / max(float(w.float().abs().max()), 1e-30) for err, w in zip(errs, want)]
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+            del got, again, want
+            res[f"max_abs_err_{tag}"] = max(errs)
+            res[f"rel_err_{tag}"] = max(rels)
+            res[f"repeat_bit_equal_{tag}"] = same
+            res[f"ms_{tag}"] = timed(lambda: kern(*args), device, iters)
+            res[f"plain_ms_{tag}"] = timed(lambda: plain(*args), device, max(1, iters // 2))
+            flops, nbytes = work(2 if tag == "bf16" else 4)
+            res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = bound(flops, nbytes, tag)
+            res[f"library_ms_{tag}"] = None
+            if kid in libraries and tag == "bf16":
+                res[f"library_ms_{tag}"] = timed(libraries[kid](dt), device, iters)
+            lib = res[f"library_ms_{tag}"]
+            print(
+                f"  {kid} {tag}: rel errs {', '.join(f'{r:.2e}' for r in rels)} (bound "
+                f"{rel_bound:.3e}), max abs err {max(errs):.3e}, repeat bit-equal {same}, "
+                f"kernel {res[f'ms_{tag}']:.3f} ms, plain {res[f'plain_ms_{tag}']:.3f} ms, "
+                f"bound {res[f'bound_ms_{tag}']:.3f} ms ({res[f'bound_by_{tag}']})"
+                + ("" if tag == "f32" else ", no single library call" if lib is None
+                   else f", library (SDPA backward) {lib:.3f} ms"),
+                flush=True,
+            )
+            check(finite, f"{kid} {tag}: non-finite output")
+            check(same, f"{kid} {tag}: two runs on the same inputs differ")
+            check(max(rels) <= rel_bound, f"{kid} {tag}: rel err {max(rels):.3e} > {rel_bound:.3e}")
+        results[kid] = res
+    return results
+
+
+def device_kernel_rows(prof) -> list[tuple[float, int, str]]:
+    """(device ms, calls, name) of every CUDA kernel in a profile, the
+    longest first. A region annotated on the device (``Optimizer.step``) spans
+    kernels already counted, so it is left out."""
+    import torch
+
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if getattr(ev, "is_user_annotation", False):
+            continue
+        if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dt / 1e3, ev.count, ev.key[:90]))
+    return sorted(rows, reverse=True)
+
+
+def print_profile(tag: str, wall: float, rows, top: int) -> None:
+    busy = sum(r[0] for r in rows)
+    print(f"  {tag}: wall {wall:.2f} ms, device kernel time {busy:.2f} ms, "
+          f"idle share {1 - busy / wall:.3f}", flush=True)
+    for ms, count, key in rows[:top]:
+        print(f"    {ms:9.3f} ms  x{count:4d}  {key}", flush=True)
+
+
+def phase_finetune(device, model_path, data, steps, n_layers, out_path) -> dict:
+    """``fine_tune_mmpfn`` on the flagship in bf16, validation after every
+    step, with the launch counters zeroed just before and read just after:
+    every training step runs K7, K8, K9 and K10 once per layer. Then the best
+    snapshot is served by the classifier."""
+    import numpy as np
+    import torch
+
+    from multimodalpfn_tpu_torch.models.loading import load_model, load_npz
+    from multimodalpfn_tpu_torch.models.params import flatten_params
+    from multimodalpfn_tpu_torch.ops import kernels
+    from multimodalpfn_tpu_torch.train.finetune import fine_tune_mmpfn
+
+    X, img, y = data
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hist = fine_tune_mmpfn(
+        mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8, features_per_group=1,
+        X_train=X, image_train=img, y_train=y, path_to_base_model=str(model_path),
+        save_path_to_fine_tuned_model=str(out_path), finetuning_config={"max_steps": steps},
+        device=str(device), random_seed=0,
+    )
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    loss, gn = hist["train_loss"], hist["grad_norm"]
+    step_ms = [s * 1e3 for s in hist["step_seconds"]]
+    warm = float(np.median(step_ms[1:])) if len(step_ms) > 1 else step_ms[0]
+    print(f"  {hist['steps']} steps in {wall:.1f} s: model init {hist['phase_seconds']['model_init'] * 1e3:.1f}"
+          f" ms, initial validation {hist['phase_seconds']['initial_validation'] * 1e3:.1f} ms, first "
+          f"step {step_ms[0]:.1f} ms, warm median step {warm:.1f} ms (a step with its validation); "
+          f"train loss {loss[0]:.5f} -> {loss[-1]:.5f}, grad norm {gn[0]:.4f} -> {gn[-1]:.4f}, "
+          f"best validation error {hist['best_val_error']:.5f}, skipped {hist['skipped_steps']}",
+          flush=True)
+    print(f"  launches {launches} (K7, K8, K9, K10 = {n_layers} x {steps})", flush=True)
+    check(hist["steps"] == steps, f"fine-tune ran {hist['steps']} of {steps} steps")
+    check(bool(np.isfinite(loss).all() and np.isfinite(gn).all()), "non-finite loss or grad norm")
+    check(hist["skipped_steps"] == 0, f"{hist['skipped_steps']} steps skipped by the non-finite guard")
+    if device.type == "cuda":
+        for kid in ("K7", "K8", "K9", "K10"):
+            check(launches[kid] == n_layers * steps,
+                  f"{kid} launched {launches[kid]} times in {steps} steps, expected {n_layers * steps}")
+        for kid in ("K1", "K2a", "K2b", "K3"):
+            check(launches[kid] >= n_layers * steps, f"{kid} launched {launches[kid]} times")
+
+    check("snapshot_write_errors" not in hist, f"snapshot write failed: {hist.get('snapshot_write_errors')}")
+    # the best snapshot replaces the initial one when validation improved
+    # (a step's error below the initial one is the best error)
+    improved = any(err == hist["best_val_error"] for _, err in hist["val_error"])
+    base = flatten_params(load_npz(model_path).params)
+    snap = flatten_params(load_model(out_path, mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8).params)
+    check(snap.keys() == base.keys(), "the snapshot's leaves differ from the base model's")
+    moved = max(float((snap[k].float() - base[k].float()).abs().max()) for k in base)
+    print(f"  validation improved: {improved}; the snapshot differs from the base model by "
+          f"{moved:.3e} (max abs)", flush=True)
+    check((moved > 0) == improved, "the snapshot on disk is not the best one of the run")
+    n_tr = int(round(0.8 * len(X)))
+    clf = make_classifier(device, out_path)
+    clf.fit(X[:n_tr], img[:n_tr], y[:n_tr])
+    p = clf.predict_proba(X[n_tr:], img[n_tr:])
+    check_proba(p, len(X) - n_tr, clf.n_classes_, "fine-tuned snapshot")
+    print(f"  the best snapshot ({out_path.name}) served by MMPFNClassifier: "
+          f"predict_proba({len(X) - n_tr} rows) rows sum to 1", flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(launches=launches, hist=hist, warm_step_ms=warm, wall_s=wall)
+
+
+def episode_trainer(device, model_path, data, n_layers, compute_dtype, use_kernels, seed=0):
+    """`fine_tune_mmpfn`'s step loop (`train/finetune.make_episode_trainer`)
+    on the flagship's train split: the model cut to its first ``n_layers``,
+    the kernels on or off."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch.train.finetune import create_val_data, make_episode_trainer
+
+    X, img, y = data
+    X_tr, _, i_tr, _, y_tr, _ = create_val_data(X=X, image=img, y=y, rng=np.random.RandomState(seed),
+                                                is_classification=True)
+    return make_episode_trainer(
+        path_to_base_model=str(model_path), mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8,
+        features_per_group=1, X_train=X_tr, image_train=i_tr, y_train=y_tr, device=device,
+        random_seed=seed, compute_dtype=compute_dtype,
+        cfg_override=dict(nlayers=n_layers, fused_ops=use_kernels, use_flash=use_kernels),
+    )
+
+
+def phase_finetune_kernel_vs_plain(device, model_path, data, n_layers, steps=3) -> dict:
+    """Float32 training steps from the same seed on the kernel path and on
+    the plain path: the first step's gradient of every leaf within
+    `FT_GRAD_REL_BOUND` of the plain path's, relative to that leaf's largest
+    magnitude; train loss and gradient norm within `FT_STEP_REL_BOUND`
+    relative, the params after the steps within `FT_PARAM_ABS_BOUND`. As a
+    control, the same per-leaf measure between the first and the second
+    step's gradients (another episode) is printed. The counters show the
+    kernel path ran K7-K10 once per layer and step, and the plain path no
+    kernel."""
+    import torch
+
+    from multimodalpfn_tpu_torch.models.params import flatten_params
+    from multimodalpfn_tpu_torch.ops import kernels
+
+    def leaf_rel(got: dict, want: dict) -> dict:
+        """Per leaf: max |got - want| over max |want| (0 where both are 0)."""
+        out = {}
+        for k, w in want.items():
+            err, ref = float((got[k] - w).abs().max()), float(w.abs().max())
+            out[k] = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
+        return out
+
+    runs = {}
+    for use_kernels in (True, False):
+        kernels.reset_launches()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        trainer = episode_trainer(device, model_path, data, n_layers, "float32", use_kernels)
+        metrics, grads = [], []
+        for _ in range(steps):
+            m = trainer.step()
+            metrics.append((float(m["loss"]), float(m["grad_norm"]), bool(m["applied"])))
+            grads.append({k: v.grad.detach().clone() for k, v in flatten_params(trainer.state.params).items()
+                          if v.grad is not None})
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else float("nan")
+        params = {k: v.detach() for k, v in flatten_params(trainer.state.params).items()}
+        runs[use_kernels] = (metrics, grads, params, dict(kernels.LAUNCHES), peak)
+        del trainer
+    (mk, gk, pk, lk, peak_k), (mp, gp, pp, lp, peak_p) = runs[True], runs[False]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mk, mp))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(mk, mp))
+    param_err = max(float((pk[k] - pp[k]).abs().max()) for k in pp)
+    check(gk[0].keys() == gp[0].keys(), "the two paths give gradients to different leaves")
+    grad_rel = leaf_rel(gk[0], gp[0])
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])
+    control = sorted(leaf_rel(gk[0], gp[1]).values()) if steps > 1 else [float("nan")]
+    print(f"  {steps} float32 steps, {n_layers} layers: losses kernel {[m[0] for m in mk]} plain "
+          f"{[m[0] for m in mp]}; grad norms kernel {[m[1] for m in mk]} plain {[m[1] for m in mp]}",
+          flush=True)
+    print(f"  first step's gradients, {len(grad_rel)} leaves: largest per-leaf rel err "
+          f"{worst[0][1]:.3e} (bound {FT_GRAD_REL_BOUND}), worst leaves "
+          f"{[(k, f'{v:.2e}') for k, v in worst[:4]]}; control (kernel path step 1 against plain "
+          f"path step 2, another episode): per-leaf min {control[0]:.3e}, median "
+          f"{control[len(control) // 2]:.3e}", flush=True)
+    print(f"  loss rel err {loss_rel:.3e}, grad norm rel err {gn_rel:.3e} (bound {FT_STEP_REL_BOUND}); "
+          f"params max abs err {param_err:.3e} (bound {FT_PARAM_ABS_BOUND}); peak memory kernel "
+          f"path {peak_k:.2f} GiB, plain path {peak_p:.2f} GiB; launches kernel path "
+          f"{ {k: v for k, v in lk.items() if v} }", flush=True)
+    check(all(m[2] for m in mk + mp), "a float32 step was skipped by the non-finite guard")
+    check(worst[0][1] <= FT_GRAD_REL_BOUND,
+          f"first step's gradient of {worst[0][0]} differs from the plain path by {worst[0][1]:.3e}")
+    check(loss_rel <= FT_STEP_REL_BOUND and gn_rel <= FT_STEP_REL_BOUND,
+          f"kernel path loss / grad norm differ from the plain path by {loss_rel:.3e} / {gn_rel:.3e}")
+    check(param_err <= FT_PARAM_ABS_BOUND, f"params after {steps} steps differ by {param_err:.3e}")
+    if device.type == "cuda":
+        for kid in ("K7", "K8", "K9", "K10"):
+            check(lk[kid] == n_layers * steps, f"{kid} launched {lk[kid]} times on the kernel path")
+        check(not any(lp.values()), f"the plain path launched kernels: {lp}")
+    return dict(loss_rel=loss_rel, gn_rel=gn_rel, param_err=param_err, grad_rel=worst[0][1],
+                control_median=control[len(control) // 2])
+
+
+def phase_profile_step(device, model_path, data, n_layers, top: int = 16) -> None:
+    """torch.profiler around one warm bf16 training step on the kernel path
+    (two steps before it): wall time (host clock, ended by a device
+    synchronise), the sum of device kernel times, the idle share and the
+    kernels that took the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = episode_trainer(device, model_path, data, n_layers, "bfloat16", True)
+    for _ in range(2):
+        trainer.step()
+    batch = trainer.next_batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, m = trainer.train_step(trainer.state, batch, trainer.generator)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    print_profile(f"one warm training step ({n_layers} layers, bf16)", wall, device_kernel_rows(prof), top)
 
 
 def make_classifier(device, model_path, **kw):
@@ -563,7 +955,6 @@ def phase_profile(device, model_path, data, request_sizes, top: int = 14) -> Non
     wall time (host clock around ``predict_proba``), the sum of device kernel
     times, the idle share ``1 - kernel / wall`` and the kernels that took the
     most time."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     X_tr, img_tr, y_tr, X_te, img_te = data
@@ -577,17 +968,7 @@ def phase_profile(device, model_path, data, request_sizes, top: int = 14) -> Non
                 t0 = time.perf_counter()
                 clf.predict_proba(X_te[:n], img_te[:n])
                 wall = (time.perf_counter() - t0) * 1e3
-            rows = []
-            for ev in prof.key_averages():
-                dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-                if dt and ev.device_type == torch.autograd.DeviceType.CUDA:
-                    rows.append((dt / 1e3, ev.count, ev.key[:90]))
-            rows.sort(reverse=True)
-            busy = sum(r[0] for r in rows)
-            print(f"  {fit_mode} request of {n} rows: wall {wall:.2f} ms, device kernel time "
-                  f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}", flush=True)
-            for ms, count, key in rows[:top]:
-                print(f"    {ms:9.3f} ms  x{count:4d}  {key}", flush=True)
+            print_profile(f"{fit_mode} request of {n} rows", wall, device_kernel_rows(prof), top)
 
 
 def kernel_rows(kres: dict, launches: dict) -> list[dict]:
@@ -616,7 +997,7 @@ def main() -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase at a tiny size on the CPU; exits 1")
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 7: profile one warm request of each size")
+                    help="add phase 11: profile one warm request of each size and a training step")
     args = ap.parse_args()
 
     if not (ROOT / "multimodalpfn_tpu_torch" / "csrc").is_dir():
@@ -693,18 +1074,35 @@ def main() -> int:
         print(f"  {mode} warm requests (ms): split {forced[mode, 'split']['warm']}, merged "
               f"{forced[mode, 'merged']['warm']}", flush=True)
 
-    if args.profile:
-        print("== phase 8: profile of warm requests", flush=True)
-        phase_profile(device, model_path, data, sizes)
+    print("== phase 8: backward kernels against their plain versions (fine-tune shapes)", flush=True)
+    ft_dims = (1, 5, 37, 21, 32, 4, 8, 64) if args.rehearse else FT_DIMS
+    kres |= phase_bwd_kernels(device, ft_dims, iters)
 
-    rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"]}
+    ft_data = (X, img, y)
+    ft_steps, ft_layers = (2, 12) if args.rehearse else (FT_STEPS, 12)
+    print(f"== phase 9: fine_tune_mmpfn, {ft_steps} bf16 steps, then the snapshot served", flush=True)
+    ft = phase_finetune(device, model_path, ft_data, ft_steps, ft_layers,
+                        ROOT / "build" / "chip_smoke_finetuned.ckpt")
+    print("== phase 10: fine-tune kernel path against plain path (float32)", flush=True)
+    ft_cmp = phase_finetune_kernel_vs_plain(device, model_path, ft_data,
+                                            1 if args.rehearse else FT_CMP_LAYERS)
+
+    if args.profile:
+        print("== phase 11: profile of warm requests and of a warm training step", flush=True)
+        phase_profile(device, model_path, data, sizes)
+        phase_profile_step(device, model_path, ft_data, ft_layers)
+
+    rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"],
+                              "finetune": ft["launches"]}
                        | {f"{plan}{'_cached' if mode == 'fit_with_cache' else ''}": run["launches"]
                           for (mode, plan), run in forced.items()})
     print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
           f"warm {pre['warm']}; fit_with_cache: fit {kv['fit_ms']:.1f} ms, requests ms "
           f"{kv['times']}, warm {kv['warm']}, "
           f"predict_proba_many {kv['many_ms']:.1f} ms; f32 proba err {proba_err:.3e} "
-          f"(cached {kv_err:.3e}); total {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"(cached {kv_err:.3e}); fine-tune {ft['hist']['steps']} steps in {ft['wall_s']:.1f} s, "
+          f"warm step {ft['warm_step_ms']:.1f} ms, f32 kernel vs plain loss {ft_cmp['loss_rel']:.2e} "
+          f"grads {ft_cmp['grad_rel']:.2e} params {ft_cmp['param_err']:.2e}; total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.rehearse:
         print("rehearsal on the CPU passed; no result is reported without CUDA", file=sys.stderr)
         return 1

@@ -8,6 +8,9 @@ Three sources of classifier weights:
     architecture from a seeded ``torch.Generator``;
   * an ``.npz`` of numpy params plus the model config (`save_npz`), which is how
     the JAX package's weights reach this package (`params_from_jax`).
+
+`save_model` writes the reference torch format (what fine-tuning saves), the
+inverse of `convert_reference_state_dict`, so `load_model` reads it back.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from multimodalpfn_tpu_torch.models.config import MixerConfig, ModelConfig
 from multimodalpfn_tpu_torch.models.params import (
     convert_reference_state_dict,
+    export_reference_state_dict,
     flatten_params,
     init_params,
     params_from_jax,
@@ -33,6 +37,7 @@ from multimodalpfn_tpu_torch.models.params import (
 class LoadedModel:
     params: dict
     config: ModelConfig
+    ckpt_config: dict | None = None  # a reference checkpoint's config dict
 
 
 # The published TabPFN-v2 classifier architecture (reference
@@ -89,7 +94,61 @@ def load_model(
     params = convert_reference_state_dict(
         ckpt["state_dict"], cfg, model_seed=model_seed, device=device
     )
-    return LoadedModel(params=params, config=cfg)
+    return LoadedModel(params=params, config=cfg, ckpt_config=ckpt_config)
+
+
+def model_config_to_ckpt_config(cfg: ModelConfig, base: dict | None = None) -> dict:
+    """A reference-compatible ``config`` dict (fields of `model/config.py:19-84`;
+    the JAX package's `model_config_to_ckpt_config`). ``base``, the dict of
+    the checkpoint the model came from, is passed through, so training-era
+    fields survive."""
+    out = dict(base) if base else {}
+    out.update(
+        {
+            "emsize": cfg.emsize,
+            "nhead": cfg.nhead,
+            "nhid_factor": cfg.nhid_factor,
+            "nlayers": cfg.nlayers,
+            "features_per_group": cfg.features_per_group,
+            "max_num_classes": cfg.max_num_classes,
+            "remove_duplicate_features": cfg.remove_duplicate_features,
+            "remove_empty_features": cfg.remove_empty_features,
+            "nan_handling_enabled": cfg.nan_handling_enabled,
+            "nan_handling_y_encoder": cfg.nan_handling_y_encoder,
+            "normalize_on_train_only": cfg.normalize_on_train_only,
+            "normalize_x": cfg.normalize_x,
+            "remove_outliers": False,
+            "normalize_by_used_features": cfg.normalize_by_used_features,
+            "encoder_use_bias": cfg.encoder_use_bias,
+            "feature_positional_embedding": (
+                None if cfg.feature_positional_embedding == "none" else cfg.feature_positional_embedding
+            ),
+            "multiquery_item_attention": False,
+            "multiquery_item_attention_for_test_set": cfg.multiquery_item_attention_for_test_set,
+            "seq_len": cfg.seq_len,
+            "max_num_features": cfg.max_num_features,
+            "num_buckets": cfg.num_buckets,
+            "use_separate_decoder": False,
+            "recompute_attn": False,
+            "recompute_layer": True,
+            "batch_size": out.get("batch_size", 8),
+            "aggregate_k_gradients": out.get("aggregate_k_gradients", 1),
+            "task_type": "multiclass" if cfg.max_num_classes > 0 else "regression",
+            "adaptive_max_seq_len_to_max_full_table_size": out.get(
+                "adaptive_max_seq_len_to_max_full_table_size", 75000
+            ),
+            "two_sets_of_queries": False,
+        }
+    )
+    return out
+
+
+def save_model(path: str | Path, params: dict, cfg: ModelConfig, *, ckpt_config: dict | None = None) -> None:
+    """Save in the reference's torch checkpoint format (`loading.py:546-567`;
+    the JAX package's `save_model`): ``{"state_dict", "config"}`` with the
+    mixer's weights when the params have them."""
+    state = {k: torch.from_numpy(np.array(v, copy=True)) for k, v in export_reference_state_dict(params, cfg).items()}
+    torch.save({"state_dict": state, "config": model_config_to_ckpt_config(cfg, ckpt_config)}, Path(path))
 
 
 def save_npz(path: str | Path, params: dict, cfg: ModelConfig) -> None:

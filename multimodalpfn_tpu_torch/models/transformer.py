@@ -1,4 +1,5 @@
-"""PerFeatureTransformer forward (inference) as a function of (params, inputs).
+"""PerFeatureTransformer forward as a function of (params, inputs): `forward`
+for inference, `forward_train_test` for fine-tuning (differentiable).
 
 Reference semantics: `mmpfn/models/mmpfn/model/transformer.py:182-1039` and
 `layer.py:95-466`; the structure follows the JAX package
@@ -14,7 +15,10 @@ Reference semantics: `mmpfn/models/mmpfn/model/transformer.py:182-1039` and
   * members of different widths can share one forward (cross-width
     batching): zero-padded to the widest, each masks its padded feature
     tokens out of feature attention as keys (``tab_valid``; K6a in place of
-    K1) and keeps its own positional-embedding draws (``feat_pos_noise``).
+    K1) and keeps its own positional-embedding draws (``feat_pos_noise``);
+  * under autograd the kernel sublayers run their backward kernels (K7 for
+    K1, K10 + K9 for K2a + K2b, K8 for K3) and the plain residual-LN saves
+    its compute-dtype sum (`_ResidualLN`).
 """
 
 from __future__ import annotations
@@ -32,16 +36,39 @@ from multimodalpfn_tpu_torch.ops.fused import (
     fused_feature_attention_ln_im,
     fused_mlp_ln,
     ln_rows,
+    ln_rows_bwd,
 )
 from multimodalpfn_tpu_torch.ops.item_fused import fused_item_sublayer
+from multimodalpfn_tpu_torch.ops.kernels import needs_grad
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _ResidualLN(torch.autograd.Function):
+    """``LN(x + h)`` saving only the compute-dtype sum u, whose LN statistics
+    the backward recomputes exactly (the JAX package's `_residual_ln_vjp`,
+    `models/transformer.py:43-93`); both cotangents are du in u's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, h):
+        u = x + h
+        ctx.save_for_backward(u)
+        return ln_rows(u.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        du = ln_rows_bwd(u.float(), g.float()).to(u.dtype)
+        return du, du
 
 
 def residual_ln(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """``LN(x + h)``: the sum is formed in x's dtype, the LN in float32, the
     result is returned in x's dtype (reference post-norm, `layer.py:437-455`)."""
-    return ln_rows((x + h.to(x.dtype)).float()).to(x.dtype)
+    h = h.to(x.dtype)
+    if needs_grad(x, h):
+        return _ResidualLN.apply(x, h)
+    return ln_rows((x + h).float()).to(x.dtype)
 
 
 def _mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
@@ -192,7 +219,55 @@ def forward(
     tab_valid: torch.Tensor | None = None,
     feat_pos_noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Inference forward.
+    """Inference forward (`_forward_impl` without autograd)."""
+    return _forward_impl(
+        params, cfg, x, y_train, image, single_eval_pos=single_eval_pos,
+        tab_valid=tab_valid, feat_pos_noise=feat_pos_noise,
+    )
+
+
+def forward_train_test(
+    params: dict,
+    cfg: ModelConfig,
+    train_x: torch.Tensor | None,
+    train_y: torch.Tensor,
+    test_x: torch.Tensor | None,
+    train_image: torch.Tensor | None = None,
+    test_image: torch.Tensor | None = None,
+    *,
+    train: bool = False,
+    generator: torch.Generator | None = None,
+    feat_pos_noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The fine-tuning calling convention (reference `transformer.py:518-530`,
+    the JAX package's `forward_train_test`): train and test rows are
+    concatenated and ``single_eval_pos`` is the train row count. Runs with
+    autograd as the caller has it enabled; ``train`` with a ``generator``
+    turns the mixers' dropout on."""
+    x = None if train_x is None else torch.cat([train_x, test_x], dim=1)
+    image = None
+    if train_image is not None and test_image is not None:
+        image = torch.cat([train_image, test_image], dim=1)
+    return _forward_impl(
+        params, cfg, x, train_y, image, single_eval_pos=train_y.shape[1],
+        feat_pos_noise=feat_pos_noise, train=train, generator=generator,
+    )
+
+
+def _forward_impl(
+    params: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor | None,
+    y_train: torch.Tensor,
+    image: torch.Tensor | None = None,
+    *,
+    single_eval_pos: int,
+    tab_valid: torch.Tensor | None = None,
+    feat_pos_noise: torch.Tensor | None = None,
+    train: bool = False,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """The forward.
 
     Args:
       x: tabular features ``(b, S, F)`` float32 (NaN/inf allowed), or None for
@@ -209,6 +284,7 @@ def forward(
       feat_pos_noise: ``(b, t_x, emsize // 4)`` per-member subspace-noise
         tables (each member's own draws at the padded layout's slots), or
         None for the shared draw.
+      train, generator: mixer dropout (training only).
 
     Returns logits ``(b, S - sep, n_out)`` in float32.
     """
@@ -234,7 +310,8 @@ def forward(
 
     # multimodal mixer tokens appended on the feature axis (transformer.py:755-768)
     if image is not None:
-        tokens = apply_mixer(params["mixer"], cfg.mixer, image.float())
+        tokens = apply_mixer(params["mixer"], cfg.mixer, image.float(), train=train,
+                             generator=generator)
         if tokens.shape[0] == 1 and b > 1:
             # members share the image: the mixer runs once and its tokens broadcast
             tokens = tokens.expand(b, *tokens.shape[1:])

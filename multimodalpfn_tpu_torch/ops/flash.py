@@ -58,9 +58,11 @@ def flash_attention(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4. Replaces `multimodalpfn_tpu/ops/pallas_attention.py:_fwd_kernel`
     (called through `_fwd_impl`); kernel in `csrc/flash_fwd.cu`. Shapes and
-    results as `flash_attention_plain`."""
+    results as `flash_attention_plain`. Its backward, K11, is not ported: on
+    the card it raises under autograd."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale)
+    kernels.forbid_autograd("K4", q, k, v)
     G, Sq, d = q.shape
     Skv = k.shape[1]
     kernels.require_shape("K4", "k", k, (G, Skv, d))

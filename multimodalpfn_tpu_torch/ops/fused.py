@@ -1,16 +1,24 @@
 """Fused row-local encoder sublayers: K1 and K5 (feature attention + residual
 + LN, item-major and sample-major), their key-masked forms K6a and K6b (for
 members of different widths padded into one group), and K3 (MLP + residual +
-LN). The counterpart of the JAX package's `multimodalpfn_tpu/ops/pallas_fused.py`,
-forward only.
+LN), with the backward kernels K7 (of K1) and K8 (of K3). The counterpart of
+the JAX package's `multimodalpfn_tpu/ops/pallas_fused.py`.
 
 Each sublayer has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper runs the plain version for a tensor on the CPU; for a CUDA tensor it
-launches the hand-written kernel (`csrc/feat_attn.cu`, `csrc/mlp_ln.cu`) or
-raises. The plain versions round to the compute dtype at the points where the
-Pallas kernels do (projections, scaled q, softmax weights, head outputs, the
-MLP hidden) and keep every sum in float32, so in float32 they are the same
-function as the kernels and in bfloat16 they differ only by summation order.
+launches the hand-written kernel (`csrc/feat_attn.cu`, `csrc/mlp_ln.cu`,
+`csrc/feat_attn_bwd.cu`, `csrc/mlp_ln_bwd.cu`) or raises. The plain versions
+round to the compute dtype at the points where the Pallas kernels do
+(projections, scaled q, softmax weights, head outputs, the MLP hidden; in the
+backwards the LN cotangent, the gelu-scaled hidden cotangent and the
+attention's dq, dk, dv and ds) and keep every sum in float32, so in float32
+they are the same function as the kernels and in bfloat16 they differ only by
+summation order.
+
+K1 and K3 are differentiable like the JAX package's custom VJPs: under
+autograd, `fused_feature_attention_ln_im` and `fused_mlp_ln` save only x and
+the weights, and their backward recomputes the rest (K7, K8). K5, K6a and K6b
+serve inference only: on the card they raise under autograd.
 """
 
 from __future__ import annotations
@@ -39,6 +47,16 @@ def ln_rows(u32: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     mean = u32.mean(dim=-1, keepdim=True)
     var = ((u32 - mean) ** 2).mean(dim=-1, keepdim=True)
     return (u32 - mean) * torch.rsqrt(var + eps)
+
+
+def ln_rows_bwd(u32: torch.Tensor, g32: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
+    """Cotangent of `ln_rows` at its input ``u32`` given the output cotangent
+    ``g32``, float32 (`pallas_fused.py:_ln_rows_bwd`)."""
+    mean = u32.mean(dim=-1, keepdim=True)
+    c = u32 - mean
+    r = torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps)
+    n = c * r
+    return r * (g32 - g32.mean(dim=-1, keepdim=True) - n * (g32 * n).mean(dim=-1, keepdim=True))
 
 
 def rounder(cd: torch.dtype):
@@ -169,6 +187,7 @@ def fused_feature_attention_ln(
     if token_valid_count is not None and key_mask is not None:
         raise ValueError("token_valid_count and key_mask are exclusive")
     kid = "K5" if key_mask is None else "K6b"
+    kernels.forbid_autograd(kid, x, w_qkv, w_out)
     t, e = x.shape[-2:]
     _, h, d, _ = w_qkv.shape
     tv = t if token_valid_count is None else token_valid_count
@@ -216,10 +235,14 @@ def fused_feature_attention_ln_im(
     member's last token a key) K6a. K1 replaces
     `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel_im`, K6a
     `_feat_attn_kernel_im_masked` (both called through `_attn_fwd_call_im`);
-    kernel in `csrc/feat_attn.cu`."""
+    kernel in `csrc/feat_attn.cu`. Without a mask it is differentiable, with
+    K7 as its backward (`_FeatAttnLnIm`)."""
+    if key_mask is None and kernels.needs_grad(x, w_qkv, w_out):
+        return _FeatAttnLnIm.apply(x, w_qkv, w_out)
     if x.device.type == "cpu":
         return feature_attention_ln_im_plain(x, w_qkv, w_out, key_mask)
     kid = "K1" if key_mask is None else "K6a"
+    kernels.forbid_autograd(kid, x, w_qkv, w_out)
     b, t, s, e = x.shape
     _, h, d, _ = w_qkv.shape
     wqkv_t, wout = _attn_operands(kid, x, w_qkv, w_out, t, t)
@@ -261,7 +284,10 @@ def mlp_ln_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.T
 
 def fused_mlp_ln(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """K3. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_mlp_kernel_g`
-    (called through `_mlp_fwd_call`); kernel in `csrc/mlp_ln.cu`."""
+    (called through `_mlp_fwd_call`); kernel in `csrc/mlp_ln.cu`.
+    Differentiable, with K8 as its backward (`_MlpLn`)."""
+    if kernels.needs_grad(x, w1, w2):
+        return _MlpLn.apply(x, w1, w2)
     if x.device.type == "cpu":
         return mlp_ln_plain(x, w1, w2)
     e = x.shape[-1]
@@ -283,3 +309,211 @@ def fused_mlp_ln(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.T
     kernels.LAUNCHES["K3"] += 1
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# K7: backward of K1 (feature attention + residual + LN, item-major)
+# ---------------------------------------------------------------------------
+
+
+def feature_attention_ln_bwd_plain(
+    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cotangents of `feature_attention_ln_plain` (no key mask) at x
+    ``(..., t, e)`` given the output cotangent g: dx in x's dtype, dw_qkv
+    ``(3, h, d, e)`` and dw_out ``(h, d, e)`` in float32. Recomputes the
+    forward from x (`pallas_fused.py:_feat_attn_bwd_core`)."""
+    cd = x.dtype
+    rnd = rounder(cd)
+    _, h, d, e = w_qkv.shape
+    hd = h * d
+    scale = 1.0 / math.sqrt(d)
+    xs, g32 = x.float(), g.float()
+    w = w_qkv.to(cd).float()
+    wo = w_out.reshape(hd, e).to(cd).float()
+    q = rnd(rnd(torch.einsum("...te,hde->...htd", xs, w[0])) * scale)
+    k = rnd(torch.einsum("...te,hde->...htd", xs, w[1]))
+    v = rnd(torch.einsum("...te,hde->...htd", xs, w[2]))
+    p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)  # (..., h, t, t) float32
+    pc = rnd(p)
+    o = rnd(pc @ v)
+
+    def heads_last(a):  # (..., h, t, d) -> (..., t, h·d)
+        return a.transpose(-3, -2).reshape(*xs.shape[:-1], hd)
+
+    o_all = heads_last(o)
+    du = ln_rows_bwd(xs + o_all @ wo, g32)
+    du_c = rnd(du)
+    do = rnd(du_c @ wo.T).reshape(*xs.shape[:-1], h, d).transpose(-3, -2)  # (..., h, t, d)
+    dp = do @ v.transpose(-1, -2)
+    ds = rnd(p * (dp - (p * dp).sum(dim=-1, keepdim=True)))
+    dq = rnd((ds @ k) * scale)
+    dk = rnd(ds.transpose(-1, -2) @ q)
+    dv = rnd(pc.transpose(-1, -2) @ do)
+    dqkv = torch.cat([heads_last(dq), heads_last(dk), heads_last(dv)], dim=-1)  # (..., t, 3·h·d)
+    dx = du + dqkv @ w.reshape(3 * hd, e)
+    dwqkv = dqkv.reshape(-1, 3 * hd).T @ xs.reshape(-1, e)
+    dwout = o_all.reshape(-1, hd).T @ du_c.reshape(-1, e)
+    return dx.to(cd), dwqkv.reshape(3, h, d, e), dwout.reshape(h, d, e)
+
+
+def feature_attention_ln_im_bwd_plain(
+    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`feature_attention_ln_bwd_plain` for item-major x and g ``(b, t, s, e)``."""
+    dx, dwqkv, dwout = feature_attention_ln_bwd_plain(
+        x.transpose(1, 2), w_qkv, w_out, g.transpose(1, 2)
+    )
+    return dx.transpose(1, 2).contiguous(), dwqkv, dwout
+
+
+def feature_attention_ln_im_bwd(
+    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7 (item-major). Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_attn_bwd_kernel_im`
+    (called through `_attn_bwd_call_im`); kernel in `csrc/feat_attn_bwd.cu`.
+    Results as `feature_attention_ln_im_bwd_plain`."""
+    if x.device.type == "cpu":
+        return feature_attention_ln_im_bwd_plain(x, w_qkv, w_out, g)
+    b, t, s, e = x.shape
+    _, h, d, _ = w_qkv.shape
+    hd = h * d
+    kernels.require_shape("K7", "w_qkv", w_qkv, (3, h, d, e))
+    kernels.require_shape("K7", "w_out", w_out, (h, d, e))
+    kernels.require_shape("K7", "g", g, tuple(x.shape))
+    if t > MAX_FUSED_ATTN_TOKENS or d not in (8, 16, 32, 64) or s * b > 2**31 - 1:
+        raise ValueError(f"K7: unsupported shape t={t}, d={d}, rows={b * s}")
+    cd = x.dtype
+    wqkv = kernels.aligned(w_qkv.reshape(3 * hd, e).to(cd).contiguous())
+    wout = kernels.aligned(w_out.reshape(hd, e).to(cd).contiguous())
+    x = kernels.aligned(x.contiguous())
+    g = kernels.aligned(g.to(cd).contiguous())
+    kernels.require_cuda("K7", x, g, wqkv, wout)
+    rows, dev = b * t * s, x.device
+
+    def ws(n, dtype):
+        return torch.empty((rows, n), dtype=dtype, device=dev)
+
+    qkv, o, u, du, du_c, do, dqkv = (
+        ws(3 * hd, cd), ws(hd, cd), ws(e, torch.float32), ws(e, torch.float32), ws(e, cd),
+        ws(hd, cd), ws(3 * hd, cd),
+    )
+    dx = torch.empty_like(x)
+    dwqkv = torch.empty((3 * hd, e), dtype=torch.float32, device=dev)
+    dwout = torch.empty((hd, e), dtype=torch.float32, device=dev)
+    work = kernels.wgrad_workspace(rows, 3 * hd, e, dev)
+    rc = kernels.library().mmpfn_feat_attn_bwd_im(
+        x.data_ptr(), wqkv.data_ptr(), wout.data_ptr(), g.data_ptr(), qkv.data_ptr(),
+        o.data_ptr(), u.data_ptr(), du.data_ptr(), du_c.data_ptr(), do.data_ptr(),
+        dqkv.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dwout.data_ptr(), work.data_ptr(),
+        b, t, s, e, h, d, kernels.WGRAD_ROWS, *kernels.launch_args(x, "K7"),
+    )
+    kernels.check(rc, "K7")
+    kernels.LAUNCHES["K7"] += 1
+    return dx, dwqkv.reshape(3, h, d, e), dwout.reshape(h, d, e)
+
+
+class _FeatAttnLnIm(torch.autograd.Function):
+    """K1 forward, K7 backward; saves x and the weights only (the JAX
+    package's `_fused_attn_ln_im_vjp`). Weight cotangents come back in the
+    weights' dtype (float32 master weights)."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, w_out):
+        ctx.save_for_backward(x, w_qkv, w_out)
+        return fused_feature_attention_ln_im(x, w_qkv, w_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_qkv, w_out = ctx.saved_tensors
+        dx, dwqkv, dwout = feature_attention_ln_im_bwd(x, w_qkv, w_out, g.to(x.dtype))
+        return dx, dwqkv.to(w_qkv.dtype), dwout.to(w_out.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K8: backward of K3 (MLP + residual + LN)
+# ---------------------------------------------------------------------------
+
+
+def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d gelu(z) / dz for the exact-erf gelu: Φ(z) + z·φ(z)."""
+    return 0.5 * (1.0 + torch.erf(z * (1.0 / math.sqrt(2.0)))) + z * torch.exp(
+        -0.5 * z * z
+    ) * (1.0 / math.sqrt(2.0 * math.pi))
+
+
+def mlp_ln_bwd_plain(
+    x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cotangents of `mlp_ln_plain` at x ``(..., e)`` given g: dx in x's
+    dtype, dw1 ``(e, nhid)`` and dw2 ``(nhid, e)`` in float32. Recomputes
+    the hidden layer (`pallas_fused.py:_mlp_bwd_kernel`)."""
+    cd = x.dtype
+    rnd = rounder(cd)
+    e = x.shape[-1]
+    x32, g32 = x.reshape(-1, e).float(), g.reshape(-1, e).float()
+    w1c, w2c = w1.to(cd).float(), w2.to(cd).float()
+    z = x32 @ w1c
+    gz = rnd(F.gelu(z, approximate="none"))
+    du = ln_rows_bwd(x32 + gz @ w2c, g32)
+    du_c = rnd(du)
+    dz = rnd((du_c @ w2c.T) * _gelu_grad(z))
+    dx = du + dz @ w1c.T
+    return dx.to(cd).reshape(x.shape), x32.T @ dz, gz.T @ du_c
+
+
+def mlp_ln_bwd(
+    x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_mlp_bwd_kernel_g` /
+    `_mlp_bwd_kernel` (called through `_mlp_bwd_call`); kernel in
+    `csrc/mlp_ln_bwd.cu`. Results as `mlp_ln_bwd_plain`."""
+    if x.device.type == "cpu":
+        return mlp_ln_bwd_plain(x, w1, w2, g)
+    e = x.shape[-1]
+    nhid = w1.shape[1]
+    kernels.require_shape("K8", "w1", w1, (e, nhid))
+    kernels.require_shape("K8", "w2", w2, (nhid, e))
+    kernels.require_shape("K8", "g", g, tuple(x.shape))
+    cd = x.dtype
+    w1c = kernels.aligned(w1.to(cd).contiguous())
+    w2c = kernels.aligned(w2.to(cd).contiguous())
+    x = kernels.aligned(x.contiguous())
+    g = kernels.aligned(g.to(cd).contiguous())
+    kernels.require_cuda("K8", x, g, w1c, w2c)
+    rows, dev = x.numel() // e, x.device
+
+    def ws(n, dtype):
+        return torch.empty((rows, n), dtype=dtype, device=dev)
+
+    gz, gzg, dz = ws(nhid, cd), ws(nhid, torch.float32), ws(nhid, cd)
+    u, du, du_c = ws(e, torch.float32), ws(e, torch.float32), ws(e, cd)
+    dx = torch.empty_like(x)
+    dw1 = torch.empty((e, nhid), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((nhid, e), dtype=torch.float32, device=dev)
+    work = kernels.wgrad_workspace(rows, e, nhid, dev)
+    rc = kernels.library().mmpfn_mlp_ln_bwd(
+        x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), g.data_ptr(), gz.data_ptr(),
+        gzg.data_ptr(), u.data_ptr(), du.data_ptr(), du_c.data_ptr(), dz.data_ptr(),
+        dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), work.data_ptr(),
+        rows, e, nhid, kernels.WGRAD_ROWS, *kernels.launch_args(x, "K8"),
+    )
+    kernels.check(rc, "K8")
+    kernels.LAUNCHES["K8"] += 1
+    return dx, dw1, dw2
+
+
+class _MlpLn(torch.autograd.Function):
+    """K3 forward, K8 backward; saves x and the weights only (the JAX
+    package's `_fused_mlp_ln_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2):
+        ctx.save_for_backward(x, w1, w2)
+        return fused_mlp_ln(x, w1, w2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, w2 = ctx.saved_tensors
+        dx, dw1, dw2 = mlp_ln_bwd(x, w1, w2, g.to(x.dtype))
+        return dx, dw1.to(w1.dtype), dw2.to(w2.dtype)

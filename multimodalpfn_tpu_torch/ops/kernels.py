@@ -35,13 +35,19 @@ BUILD_DIR = Path(
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 # kernel id -> launches through its wrapper since the last reset
 LAUNCHES: dict[str, int] = {
     "K1": 0, "K2a": 0, "K2b": 0, "K3": 0, "K4": 0, "K5": 0, "K6a": 0, "K6b": 0,
+    "K7": 0, "K8": 0, "K9": 0, "K10": 0,
 }
+
+# Rows of the weight-gradient contractions per block: each chunk's float32
+# partial sums land in their own slab of a workspace, and a second kernel adds
+# the slabs in order, so the sums are the same bits on every run (no atomics).
+WGRAD_ROWS = 2048
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,6 +74,18 @@ _SIGNATURES = {
     "mmpfn_item_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # (x, o, wout, out, rows, e, hd, dtype, device, stream)
     "mmpfn_item_epilogue_ln": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # (x, wqkv, wout, g, qkv, o, u, du, du_c, do, dqkv, dx, dwqkv, dwout, work,
+    #  b, t, s, e, h, d, wgrad_rows, dtype, device, stream)
+    "mmpfn_feat_attn_bwd_im": [_P] * 15 + [_I] * 7 + [_I, _I, _P],
+    # (x, w1, w2, g, gz, gzg, u, du, du_c, dz, dx, dw1, dw2, work,
+    #  rows, e, nhid, wgrad_rows, dtype, device, stream)
+    "mmpfn_mlp_ln_bwd": [_P] * 14 + [_L, _I, _I, _I, _I, _I, _P],
+    # (x, wext, do, lse, delta, dx_epi, qkv, dqkv, dx, dwext, work,
+    #  G, S, sep, h, d, e, wgrad_rows, dtype, device, stream)
+    "mmpfn_item_attn_bwd": [_P] * 11 + [_I] * 7 + [_I, _I, _P],
+    # (x, o, wout, g, u, du_c, do32, do, delta, dw, work,
+    #  rows, s, e, h, d, wgrad_rows, dtype, device, stream)
+    "mmpfn_item_epilogue_bwd": [_P] * 11 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -102,7 +120,8 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels into `library_path()` unless it exists. The library
+    """Compile the kernels into `library_path()` unless it exists: one
+    ``nvcc -c`` per source, all started together, then one link. The library
     is written to a temporary name and renamed, so concurrent builders never
     load a half-written file. ``verbose`` prints ptxas' per-kernel registers
     and shared memory."""
@@ -110,18 +129,32 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp, *map(str, _sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        procs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(Path(objdir) / f"{src.stem}.o"), str(src)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors, logs = [], []
+        for src, proc in procs:
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        if verbose:
+            print("".join(logs))
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        objs = sorted(str(o) for o in Path(objdir).glob("*.o"))
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 
@@ -170,6 +203,29 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 def require_shape(kernel: str, name: str, t: torch.Tensor, shape: tuple) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def wgrad_workspace(rows: int, m: int, n: int, device) -> torch.Tensor:
+    """The float32 partial sums of an (m, n) weight gradient over ``rows``
+    rows: one slab per `WGRAD_ROWS` rows."""
+    slabs = max(1, -(-rows // WGRAD_ROWS))
+    return torch.empty((slabs, m, n), dtype=torch.float32, device=device)
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def forbid_autograd(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel without a backward kernel would be differentiated:
+    on the card its result carries no gradient, and its plain version is not
+    differentiated in its place."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward kernel: it serves inference only (run it under "
+            "torch.no_grad(), or on CPU tensors, where its plain version is differentiable)"
+        )
 
 
 def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:

@@ -1,0 +1,217 @@
+"""Fine-tuning step: loss + gradients + clip + schedule-free AdamW.
+
+Reference semantics: `scripts_finetune_mm/finetune_mmpfn_main.py:589-708` and
+the JAX package's `multimodalpfn_tpu/train/step.py`: forward on a K-fold
+episode, loss on the test fold, global gradient norm clipped to 1.0,
+schedule-free AdamW, optional frozen input encoders (`:204-206`). bf16
+compute with float32 master weights needs no loss scaling.
+
+No schedule-free package is installed for PyTorch, so `ScheduleFreeAdamW` is
+written here, pinned step for step to the optax chain the JAX package builds
+(`make_optimizer`: ``apply_if_finite(multi_transform({train:
+chain(clip_by_global_norm, schedule_free_adamw), frozen: set_to_zero}))``)
+and to the NumPy spec of `tests/test_optimizer_spec.py`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from multimodalpfn_tpu_torch.models.config import ModelConfig
+from multimodalpfn_tpu_torch.models.params import flatten_params, unflatten_params
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: dict  # the y-iterate: nested dict of float32 leaves that require grad
+    optimizer: "ScheduleFreeAdamW"
+    step: int = 0
+
+
+def frozen_input_mask(params: dict, freeze_input: bool) -> dict:
+    """True = trainable. The reference freezes ``encoder`` and ``y_encoder``
+    (`finetune_mmpfn_main.py:204-206`)."""
+    return unflatten_params({
+        k: not (freeze_input and k.split("/")[0] in ("encoder", "y_encoder"))
+        for k in flatten_params(params)
+    })
+
+
+# The JAX package's chain: optax's schedule-free AdamW defaults, the clip of
+# `finetune.py` and `apply_if_finite`'s patience
+B1, B2, EPS, WEIGHT_LR_POWER = 0.9, 0.999, 1e-8, 2.0
+MAX_GRAD_NORM = 1.0
+MAX_CONSECUTIVE_NONFINITE = 100
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(Σ ||t||²) over the tensors, float32 (``optax.global_norm``)."""
+    tensors = list(tensors)
+    if not tensors:
+        return torch.zeros(())
+    return torch.sqrt(torch.stack([(t.float() ** 2).sum() for t in tensors]).sum())
+
+
+class ScheduleFreeAdamW(torch.optim.Optimizer):
+    """Schedule-free AdamW (Defazio et al. 2024) as optax composes it for the
+    JAX package (optax 0.2.6 ``contrib.schedule_free_adamw``, weight decay 0,
+    no warmup, inside ``clip_by_global_norm`` and ``apply_if_finite``).
+
+    The params are the gradient-evaluation point y; the state holds the base
+    iterate z and Adam's second moment ν. Per applied step, with the
+    trainable gradients g clipped to a global norm of `MAX_GRAD_NORM`:
+
+        ν ← b2·ν + (1−b2)·g²,   u = g / (sqrt(ν / (1 − b2^t)) + eps)
+        z' = z − lr·u
+        c = lr_max² / Σ lr_max²                    (weight_lr_power 2)
+        x = (y − (1−b1)·z) / b1,  x' = (1−c)·x + c·z'
+        y ← y + (b1·x' + (1−b1)·z' − y)
+
+    Evaluation uses `eval_params`: x = (y − (1−b1)·z) / b1. Param groups with
+    ``trainable=False`` are the frozen leaves: never updated, no state, left
+    out of the clip (optax ``multi_transform`` partitions before the clip).
+    A step whose gradients (frozen ones included) hold a NaN or an inf is
+    skipped with no state change, up to `MAX_CONSECUTIVE_NONFINITE` in a
+    row; then it is applied (optax ``apply_if_finite``).
+    """
+
+    def __init__(self, params, lr: float = 1e-5):
+        super().__init__(params, dict(lr=lr, trainable=True))
+        self.count = 0  # applied steps (Adam's bias-correction count)
+        self.max_lr = 0.0
+        self.weight_sum = 0.0
+        self.notfinite_count = 0
+        self.total_notfinite = 0
+        for p in self._trainable():
+            self.state[p] = {"z": p.detach().clone(), "nu": torch.zeros_like(p)}
+
+    def _trainable(self) -> list[torch.Tensor]:
+        return [p for g in self.param_groups if g["trainable"] for p in g["params"]]
+
+    def _all(self) -> list[torch.Tensor]:
+        return [p for g in self.param_groups for p in g["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None) -> bool:
+        """One update from the params' ``.grad`` (a missing one counts as
+        zero). Returns whether it was applied."""
+        if closure is not None:
+            raise ValueError("ScheduleFreeAdamW.step takes no closure")
+        grads = [p.grad for p in self._all() if p.grad is not None]
+        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()) if grads else True
+        self.notfinite_count = 0 if finite else self.notfinite_count + 1
+        if not finite:
+            self.total_notfinite += 1
+            if self.notfinite_count <= MAX_CONSECUTIVE_NONFINITE:
+                return False
+        params = self._trainable()
+        if not params:
+            return True
+        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p) for p in params]
+        gnorm = global_norm(grads)
+        if not bool(gnorm < MAX_GRAD_NORM):  # optax: (g / ‖g‖) · max_norm
+            grads = torch._foreach_mul(torch._foreach_div(grads, gnorm), MAX_GRAD_NORM)
+
+        lr = float(self.param_groups[0]["lr"])
+        self.count += 1
+        self.max_lr = max(self.max_lr, lr)
+        weight = self.max_lr**WEIGHT_LR_POWER
+        self.weight_sum += weight
+        ck = weight / self.weight_sum if self.weight_sum > 0 else 0.0
+        b1, b2 = B1, B2
+        bc = 1.0 - b2**self.count
+        zs = [self.state[p]["z"] for p in params]
+        nus = [self.state[p]["nu"] for p in params]
+        # ν ← (1 − b2)·g² + b2·ν; u = g / (sqrt(ν / bc) + eps)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nus, bc)), EPS)
+        z_new = torch._foreach_sub(zs, torch._foreach_mul(torch._foreach_div(grads, denom), lr))
+        ys = [p.data for p in params]
+        # x = (y − (1−b1)·z) / b1 ; x' = (1−c)·x + c·z' ; y' = b1·x' + (1−b1)·z'
+        x = torch._foreach_div(torch._foreach_sub(ys, torch._foreach_mul(zs, 1.0 - b1)), b1)
+        x = torch._foreach_add(torch._foreach_mul(x, 1.0 - ck), torch._foreach_mul(z_new, ck))
+        y_new = torch._foreach_add(torch._foreach_mul(x, b1), torch._foreach_mul(z_new, 1.0 - b1))
+        torch._foreach_add_(ys, torch._foreach_sub(y_new, ys))
+        for z, zn in zip(zs, z_new):
+            z.copy_(zn)
+        return True
+
+    @torch.no_grad()
+    def eval_point(self, p: torch.Tensor) -> torch.Tensor:
+        """The evaluation sequence x = (y − (1−b1)·z) / b1 for one param (the
+        param itself when frozen)."""
+        st = self.state.get(p)
+        if st is None:
+            return p.detach()
+        b1 = torch.tensor(B1, dtype=torch.float32).item()  # b1 as the state stores it
+        return (p.detach() - (1.0 - b1) * st["z"]) / b1
+
+
+def make_optimizer(
+    params: dict,
+    learning_rate: float = 1e-5,
+    *,
+    optimizer: str = "schedule_free_adamw",
+    freeze_mask: dict | None = None,
+) -> ScheduleFreeAdamW:
+    """The JAX package's optimizer chain over the leaves of ``params``, as
+    `fine_tune_mmpfn` builds it: no warmup (the reference's torch
+    ``AdamWScheduleFree`` default, `finetune_mmpfn_main.py:731`)."""
+    if optimizer != "schedule_free_adamw":
+        raise NotImplementedError(f"optimizer {optimizer!r} is not ported; use 'schedule_free_adamw'")
+    flat = flatten_params(params)
+    mask = flatten_params(freeze_mask) if freeze_mask is not None else {k: True for k in flat}
+    groups = [
+        {"params": [flat[k] for k in flat if mask[k]], "trainable": True},
+        {"params": [flat[k] for k in flat if not mask[k]], "trainable": False},
+    ]
+    return ScheduleFreeAdamW([g for g in groups if g["params"]], learning_rate)
+
+
+def eval_params(state: TrainState) -> dict:
+    """Schedule-free optimizers evaluate at the x-sequence, not at the params
+    (the reference calls ``optimizer.eval()`` before every validation and
+    save). New tensors; the params are untouched."""
+    flat = flatten_params(state.params)
+    return unflatten_params({k: state.optimizer.eval_point(v) for k, v in flat.items()})
+
+
+def init_train_state(params: dict, optimizer_fn: Callable[[dict], ScheduleFreeAdamW]) -> TrainState:
+    """Leaves as float32 tensors that require grad, and their optimizer."""
+    flat = {k: v.detach().float().clone().requires_grad_(True) for k, v in flatten_params(params).items()}
+    params = unflatten_params(flat)
+    return TrainState(params=params, optimizer=optimizer_fn(params), step=0)
+
+
+def make_train_step(cfg: ModelConfig, loss_fn: Callable):
+    """The step: ``batch`` holds ``x_train (b, s_tr, F) | None``, ``y_train
+    (b, s_tr)``, ``x_test | None``, ``y_test (b, s_te)``, optional
+    ``image_train/image_test (b, s, N, D)`` and ``feat_pos_noise``, as
+    tensors on the params' device. ``generator`` draws the mixers' dropout.
+    Returns the state and ``{"loss", "grad_norm", "applied"}``: the loss and
+    the global norm of ALL gradients (frozen ones included, `step.py:186` of
+    the JAX package) as 0-d tensors, and whether the update was applied."""
+    from multimodalpfn_tpu_torch.models.transformer import forward_train_test
+
+    def step_fn(state: TrainState, batch: dict, generator: torch.Generator | None):
+        leaves = list(flatten_params(state.params).values())
+        for p in leaves:
+            p.grad = None
+        logits = forward_train_test(
+            state.params, cfg, batch.get("x_train"), batch["y_train"], batch.get("x_test"),
+            batch.get("image_train"), batch.get("image_test"),
+            train=True, generator=generator, feat_pos_noise=batch.get("feat_pos_noise"),
+        )
+        loss = loss_fn(logits, batch["y_test"])
+        loss.backward()
+        with torch.no_grad():
+            grad_norm = global_norm(p.grad for p in leaves if p.grad is not None)
+        applied = state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm, "applied": applied}
+
+    return step_fn

@@ -21,6 +21,9 @@ F32_TOL = dict(rtol=5e-5, atol=5e-5)
 # (tests/test_forward_parity.py:28)
 FORWARD_TOL = dict(rtol=2e-4, atol=2e-5)
 
+# an inference path launches no backward kernel
+NO_BACKWARD = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
+
 pytestmark = pytest.mark.cuda
 
 
@@ -281,7 +284,7 @@ def test_forward_many_tokens_runs_item_and_mlp_kernels(cuda):
                   single_eval_pos=sep)
     ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     assert ran == {"K1": 0, "K2a": cfg.nlayers, "K2b": cfg.nlayers, "K3": cfg.nlayers, "K4": 0, "K5": 0,
-                   "K6a": 0, "K6b": 0}
+                   "K6a": 0, "K6b": 0} | NO_BACKWARD
     torch.testing.assert_close(got, forward(params, cfg, x, y, single_eval_pos=sep), **FORWARD_TOL)
 
 
@@ -298,7 +301,7 @@ def test_forward_refused_item_attention_runs_k4(cuda, cfg_kw):
     got = forward(params, run, x, y, single_eval_pos=sep)
     ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     assert ran == {"K1": cfg.nlayers, "K2a": 0, "K2b": 0, "K3": cfg.nlayers, "K4": 2 * cfg.nlayers,
-                   "K5": 0, "K6a": 0, "K6b": 0}
+                   "K5": 0, "K6a": 0, "K6b": 0} | NO_BACKWARD
     plain = forward(params, dataclasses.replace(cfg, **cfg_kw), x, y, single_eval_pos=sep)
     torch.testing.assert_close(got, plain, **FORWARD_TOL)
 
@@ -325,7 +328,7 @@ def test_cached_serving_runs_k4_k5_k3(cuda):
     layers = clf.config_.nlayers
     assert kernels.LAUNCHES == {"K1": 0, "K2a": 0, "K2b": 0, "K3": 2 * layers * groups,
                                 "K4": 2 * layers * groups, "K5": 2 * layers * groups,
-                                "K6a": 0, "K6b": 0}
+                                "K6a": 0, "K6b": 0} | NO_BACKWARD
     clf.executor_.use_kernels = False  # primes again, on the plain path
     p_plain = clf.predict_proba(X[60:])
     assert abs(p_kernel - p_plain).max() <= 1e-4
@@ -362,3 +365,115 @@ def test_forced_merge_runs_k6a_and_k6b(cuda, monkeypatch):
             if force and fit_mode == "fit_with_cache":
                 assert kernels.LAUNCHES["K6b"] == 2 * layers and kernels.LAUNCHES["K5"] == 0
         assert abs(answers[fit_mode, True] - answers[fit_mode, False]).max() <= 1e-5
+
+
+# ---- backward kernels (fine-tuning) -----------------------------------------
+
+
+def _bwd_cases(gen, device, dtype, b, t, S, sep, e, h, d, nhid):
+    """The backward kernels' operands at one shape: K9's do, delta and du
+    come from the plain item forward and K10's plain version."""
+    x, g = _rand(gen, b, t, S, e, device=device), _rand(gen, b, t, S, e, device=device)
+    w_qkv = _rand(gen, 3, h, d, e, scale=e**-0.5, device=device)
+    w_out = _rand(gen, h, d, e, scale=(h * d) ** -0.5, device=device)
+    w1 = _rand(gen, e, nhid, scale=e**-0.5, device=device)
+    w2 = _rand(gen, nhid, e, scale=nhid**-0.5, device=device)
+    x, g = x.to(dtype), g.to(dtype)
+    x3, g3 = x.reshape(b * t, S, e), g.reshape(b * t, S, e)
+    o, lse = item_fused.item_attention_core_plain(x3, w_qkv, sep)
+    du, do, delta, _ = item_fused.item_epilogue_bwd_plain(x3, o, w_out, g3)
+    return {
+        "K7": (fused.feature_attention_ln_im_bwd, fused.feature_attention_ln_im_bwd_plain,
+               (x, w_qkv, w_out, g)),
+        "K8": (fused.mlp_ln_bwd, fused.mlp_ln_bwd_plain, (x, w1, w2, g)),
+        "K10": (item_fused.item_epilogue_bwd, item_fused.item_epilogue_bwd_plain, (x3, o, w_out, g3)),
+        "K9": (item_fused.item_attention_bwd, item_fused.item_attention_bwd_plain,
+               (x3, w_qkv, do, delta, lse, sep, du)),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,t,S,sep,e,h,d,nhid",
+    [(1, 5, 37, 21, 48, 3, 16, 96),     # ragged rows, tokens and regions
+     (2, 7, 70, 48, 64, 2, 32, 128),    # two members
+     (1, 3, 9, 1, 32, 4, 8, 64),        # one train row, d = 8
+     (1, 4, 40, 40, 64, 2, 32, 128),    # no test rows
+     (1, 30, 150, 131, 192, 6, 32, 768)],  # the flagship's widths and tokens
+)
+def test_backward_kernels_match_plain(cuda, dtype, b, t, S, sep, e, h, d, nhid):
+    """K7, K8, K10 and K9 against their plain versions, every output
+    relative to its own largest magnitude (float32 5e-5, bf16 two bf16 ulps);
+    a second run on the same inputs gives the same bits (the weight gradients
+    are summed in a fixed order, without atomics)."""
+    gen = torch.Generator().manual_seed(14)
+    bound = 5e-5 if dtype == torch.float32 else 2.0**-6
+    for kid, (kern, plain, args) in _bwd_cases(gen, cuda, dtype, b, t, S, sep, e, h, d, nhid).items():
+        before = kernels.LAUNCHES[kid]
+        got, again = kern(*args), kern(*args)
+        assert kernels.LAUNCHES[kid] == before + 2
+        for i, (a, c, w) in enumerate(zip(got, again, plain(*args))):
+            assert a.dtype == w.dtype and a.shape == w.shape, (kid, i)
+            assert torch.equal(a, c), f"{kid} output {i} differs between runs"
+            assert torch.isfinite(a.float()).all(), (kid, i)
+            rel = (a.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)
+            assert rel <= bound, f"{kid} output {i}: rel err {float(rel):.3e}"
+
+
+def test_inference_only_kernels_raise_under_autograd(cuda):
+    """K4, K5, K6a and K6b have no backward kernel: on the card their wrappers
+    refuse inputs that require grad, and run under no_grad."""
+    gen = torch.Generator().manual_seed(15)
+    q = _rand(gen, 2, 9, 16, device=cuda).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="K4"):
+        flash.flash_attention(q, q, q)
+    x = _rand(gen, 2, 5, 7, 32, device=cuda).requires_grad_(True)
+    w_qkv, w_out = _rand(gen, 3, 4, 8, 32, device=cuda), _rand(gen, 4, 8, 32, device=cuda)
+    mask = torch.ones((2, 7), dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="K5"):
+        fused.fused_feature_attention_ln(x, w_qkv, w_out)
+    with pytest.raises(NotImplementedError, match="K6b"):
+        fused.fused_feature_attention_ln(x, w_qkv, w_out, key_mask=mask[:, None])
+    xi = x.detach().transpose(1, 2).contiguous().requires_grad_(True)  # (b, t, s, e)
+    with pytest.raises(NotImplementedError, match="K6a"):
+        fused.fused_feature_attention_ln_im(xi, w_qkv, w_out, key_mask=mask)
+    with torch.no_grad():
+        flash.flash_attention(q, q, q)
+        fused.fused_feature_attention_ln(x, w_qkv, w_out)
+
+
+def test_finetune_three_steps_on_the_card(cuda, tmp_path):
+    """``fine_tune_mmpfn`` on the card (bf16, the default): three steps run
+    K7, K8, K9 and K10 once per layer each, every loss and gradient norm is
+    finite, and the classifier serves the snapshot."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch import MMPFNClassifier
+    from multimodalpfn_tpu_torch.datasets.synthetic import toy_classification
+    from multimodalpfn_tpu_torch.models.config import MixerConfig
+    from multimodalpfn_tpu_torch.models.loading import save_model
+    from multimodalpfn_tpu_torch.train.finetune import fine_tune_mmpfn
+
+    cfg = ModelConfig(emsize=64, nhead=4, nhid_factor=2, nlayers=2, n_out=10, max_num_classes=10,
+                      mixer=MixerConfig("MGM+CAP", mgm_heads=2, cap_heads=2, in_dim=96))
+    base = tmp_path / "base.ckpt"
+    save_model(base, tparams.init_params(torch.Generator().manual_seed(0), cfg), cfg)
+    X, y = toy_classification(n=120, n_classes=3, seed=6)
+    img = np.random.default_rng(6).standard_normal((120, 1, 96)).astype(np.float32)
+    out = tmp_path / "ft.ckpt"
+    kernels.reset_launches()
+    hist = fine_tune_mmpfn(
+        mixer_type="MGM+CAP", mgm_heads=2, cap_heads=2, features_per_group=1,
+        path_to_base_model=base, save_path_to_fine_tuned_model=out,
+        finetuning_config={"max_steps": 3, "learning_rate": 1e-3},
+        X_train=X, image_train=img, y_train=y, random_seed=0,
+    )
+    assert hist["steps"] == 3 and hist["skipped_steps"] == 0
+    assert np.isfinite(hist["train_loss"]).all() and np.isfinite(hist["grad_norm"]).all()
+    assert {k: kernels.LAUNCHES[k] for k in NO_BACKWARD} == {k: 3 * cfg.nlayers for k in NO_BACKWARD}
+    clf = MMPFNClassifier(model_path=out, mixer_type="MGM+CAP", mgm_heads=2, cap_heads=2,
+                          n_estimators=2, device="cuda")
+    clf.fit(X[:90], img[:90], y[:90])
+    proba = clf.predict_proba(X[90:], img[90:])
+    assert proba.shape == (30, 3)
+    np.testing.assert_allclose(proba.sum(axis=1), 1.0, atol=1e-5)
