@@ -73,11 +73,32 @@ Phases, each of which must pass:
    that leaf's largest magnitude, loss and gradient norm within 1e-4
    relative, the params within 1e-5 absolute; the plain path launches no
    kernel.
+11. Fine-tuning with the fused item gate refused: the same random weights
+   saved with ``multiquery_item_attention_for_test_set: false``,
+   ``fine_tune_mmpfn`` for 100 bf16 steps; the counters show K4 forward and
+   K11 backward in both item blocks of every layer (K11 24 times a step) and
+   no K2a, K2b, K9 or K10; the snapshot keeps the key, is the best one, and
+   ``MMPFNClassifier`` serves it through K4. Before it, in the same zeroed
+   count, the public sample-major sublayer ``fused_feature_attention_ln`` is
+   differentiated once at the flagship episode's shape (K5 forward, K7s
+   backward): no served or training path of either package reaches K7s.
+12. Its kernel path against the plain path, float32, as phase 10: on the
+   checkpoint without the multiquery test block, and on the multiquery one
+   with ``fused_item=False`` (the folded K11).
+13. Resume: 6 bf16 steps with the state written every 4 (before step 4, so
+   the file holds the state after step 3), restored bit for bit into a fresh
+   state, then ``resume=True`` goes on from step 4 to step 6.
 
-``--profile`` adds a phase 11: ``torch.profiler`` around one warm request of
-each size in both modes and around one warm training step, printing wall
-time, device kernel time, the idle share and the kernels that took the most
-device time.
+Phase 8 also holds K7s at x (1, 1838, 30, 192) and K11 at the flash path's
+three blocks (train G = 180, Sq = Skv = 1655; test G = 180, Sq = 183; the
+folded test block G = 30, Sq = 6·183 = 1098; d = 32) to their plain
+versions, with SDPA's backward as K11's yardstick.
+
+``--profile`` adds a phase 14: ``torch.profiler`` around one warm request of
+each size in both modes and around one warm training step of each item path
+(the fused item sublayer and the flash path), printing wall time, device
+kernel time, the idle share and the kernels that took the most device
+time.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
@@ -179,13 +200,24 @@ KERNELS = {
         source="multimodalpfn_tpu_torch/csrc/item_epilogue_bwd.cu",
         replaces="multimodalpfn_tpu/ops/pallas_item_fused.py:696",
     ),
+    "K7s": dict(
+        name="K7s backward of K5 (sample-major): dx, dW_qkv, dW_out",
+        source="multimodalpfn_tpu_torch/csrc/feat_attn_bwd.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_fused.py:1024",
+    ),
+    "K11": dict(
+        name="K11 flash attention backward from the saved o, lse: dq, dk, dv (folded heads summed)",
+        source="multimodalpfn_tpu_torch/csrc/flash_bwd.cu",
+        replaces="multimodalpfn_tpu/ops/pallas_attention.py:333",
+    ),
 }
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
 # (K6a, K6b) whatever the rule plans
 PATH_OF = {"K1": "split", "K2a": "preproc", "K2b": "preproc", "K3": "preproc",
            "K4": "cached", "K5": "split_cached", "K6a": "merged", "K6b": "merged_cached",
-           "K7": "finetune", "K8": "finetune", "K9": "finetune", "K10": "finetune"}
+           "K7": "finetune", "K8": "finetune", "K9": "finetune", "K10": "finetune",
+           "K7s": "flash_finetune", "K11": "flash_finetune"}
 
 # The fine-tune flagship: `fine_tune_mmpfn` on `pad_ufes_like(seed=0)` keeps
 # 1838 of the 2298 rows for training; an episode is one fold of a 10-fold
@@ -205,6 +237,10 @@ FT_GRAD_REL_BOUND = 1e-5
 # scores and weights for its backward (about 6 GB a layer): the comparison
 # runs the first layers of the model
 FT_CMP_LAYERS = 3
+# resume: the first call's steps and state cadence (the state is written
+# before step 4, so it holds the state after step 3; the resumed call runs
+# steps 4 to 6)
+RESUME_STEPS, RESUME_EVERY = 6, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -256,15 +292,20 @@ def densify(params: dict, seed: int) -> None:
         w.copy_(torch.randn(w.shape, generator=gen) * (1.0 / w.shape[-2] ** 0.5))
 
 
-def write_model(path: Path) -> None:
+def write_model(path: Path, multiquery: bool = True) -> None:
     """The served model: the published architecture with MGM+CAP 16/8, random
-    weights from seed 0, densified from seed 1, as an ``.npz``."""
+    weights from seed 0, densified from seed 1, as an ``.npz``; with
+    ``multiquery=False`` the same weights without the multiquery test block
+    (``multiquery_item_attention_for_test_set: false``)."""
+    import dataclasses
+
     from multimodalpfn_tpu_torch.models.loading import load_model, save_npz
 
     loaded = load_model("random:0", mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8)
     densify(loaded.params, seed=1)
     path.parent.mkdir(parents=True, exist_ok=True)
-    save_npz(path, loaded.params, loaded.config)
+    cfg = dataclasses.replace(loaded.config, multiquery_item_attention_for_test_set=multiquery)
+    save_npz(path, loaded.params, cfg)
 
 
 def phase_kernels(device, dims, iters) -> dict:
@@ -413,15 +454,18 @@ def phase_kernels(device, dims, iters) -> dict:
 
 
 def phase_bwd_kernels(device, dims, iters) -> dict:
-    """The backward kernels K7-K10 against their plain versions on the same
-    inputs, at the fine-tune shapes, in float32 and bf16. Each output (dx,
-    each dW, K10's du, do and delta) is held relative to its own largest
-    magnitude; each kernel runs twice on the same inputs, and the two results
-    must be the same bits (the weight gradients are summed in a fixed order)."""
+    """The backward kernels K7-K10, K7s and K11 against their plain versions
+    on the same inputs, at the fine-tune shapes, in float32 and bf16. Each
+    output (dx, each dW, K10's du, do and delta, K11's dq, dk, dv) is held
+    relative to its own largest magnitude; each kernel runs twice on the same
+    inputs, and the two results must be the same bits (the weight gradients
+    are summed in a fixed order, and no kernel uses atomics). K11 runs at the
+    flash path's three blocks: the train block (every head), the test block
+    unfolded (no multiquery) and folded (the heads against KV head 0)."""
     import torch
     import torch.nn.functional as F
 
-    from multimodalpfn_tpu_torch.ops import fused, item_fused
+    from multimodalpfn_tpu_torch.ops import flash, fused, item_fused
 
     b, t, S, sep, e, h, d, nhid = dims
     hd, G, R = h * d, b * t, b * t * S
@@ -469,6 +513,39 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
         return lambda: torch.autograd.grad(outs, (q, k, v, k0, v0), cots, retain_graph=True,
                                            allow_unused=True)
 
+    flash_in = {}
+
+    def flash_inputs(G_, Sq, dt):
+        """K11's operands at one block: q, k, v in the compute dtype, K4's
+        float32 o and lse, and a float32 cotangent of o."""
+        key = (G_, Sq, dt)
+        if key not in flash_in:
+            q, k, v = rand(G_, Sq, d).to(dt), rand(G_, sep, d).to(dt), rand(G_, sep, d).to(dt)
+            with torch.no_grad():
+                o, lse = flash.flash_attention(q, k, v)
+            flash_in[key] = (q, k, v, o, lse, rand(G_, Sq, d))
+        return flash_in[key]
+
+    def flash_work(G_, Sq):
+        """Five products of 2·d FLOPs per (query, key) pair; q, k, v and dq,
+        dk, dv in the compute dtype, o, do (float32) and lse read once."""
+        return lambda es: (10 * d * G_ * Sq * sep,
+                           2 * (G_ * Sq + 2 * G_ * sep) * d * es + G_ * Sq * (2 * d + 1) * 4)
+
+    def flash_sdpa_bwd(G_, Sq):
+        """K11's yardstick: the backward of one SDPA call over the same bf16
+        q, k, v (the G groups as heads), forward done before timing."""
+        def make(dt):
+            q, k, v, _, _, do = flash_inputs(G_, Sq, dt)
+            leaves = [a.detach().clone().requires_grad_(True) for a in (q, k, v)]
+            with torch.enable_grad():
+                out = F.scaled_dot_product_attention(*(a[None] for a in leaves))
+            cot = do.to(dt)[None]
+            return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+        return make
+
+    hS = S - sep
+    blocks = {"K11": (G * h, sep), "K11@test": (G * h, hS), "K11@folded": (G, h * hS)}
     # FLOPs and bytes of the work itself: each input read once, each output
     # written once; attention FLOPs over the (query, key) pairs of the run
     cases = {
@@ -495,8 +572,17 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
                lambda es: (2 * R * e * hd + 2 * G * sep * e * 2 * hd + 4 * R * hd * e
                            + 4 * G * sep * 2 * hd * e + 10 * d * G * h * sep * S,
                            R * (3 * e + hd) * es + 2 * G * h * S * 4 + 3 * hd * e * (es + 4))),
+        # the sample-major layout of K7's work: the episode's rows (b, S, t, e)
+        "K7s": (fused.feature_attention_ln_bwd, fused.feature_attention_ln_bwd_plain,
+                lambda dt: (x.transpose(1, 2).contiguous().to(dt), w_qkv, w_out,
+                            g.transpose(1, 2).contiguous().to(dt)),
+                lambda es: (2 * R * e * hd * 12 + 12 * b * S * h * t * t * d,
+                            3 * R * e * es + 4 * hd * e * (es + 4))),
     }
-    libraries = {"K9": item_sdpa_bwd}
+    for kid, (G_, Sq) in blocks.items():
+        cases[kid] = (flash.flash_attention_bwd, flash.flash_attention_bwd_plain,
+                      lambda dt, G_=G_, Sq=Sq: flash_inputs(G_, Sq, dt), flash_work(G_, Sq))
+    libraries = {"K9": item_sdpa_bwd} | {kid: flash_sdpa_bwd(*blk) for kid, blk in blocks.items()}
     results = {}
     for kid, (kern, plain, make, work) in cases.items():
         res = {"shape": list(make(torch.float32)[0].shape)}
@@ -537,6 +623,7 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
             check(same, f"{kid} {tag}: two runs on the same inputs differ")
             check(max(rels) <= rel_bound, f"{kid} {tag}: rel err {max(rels):.3e} > {rel_bound:.3e}")
         results[kid] = res
+        flash_in.clear()
     return results
 
 
@@ -564,11 +651,42 @@ def print_profile(tag: str, wall: float, rows, top: int) -> None:
         print(f"    {ms:9.3f} ms  x{count:4d}  {key}", flush=True)
 
 
-def phase_finetune(device, model_path, data, steps, n_layers, out_path) -> dict:
+def sample_major_grad(device, dims) -> None:
+    """One differentiable call of the public sample-major sublayer
+    ``fused_feature_attention_ln`` (K5 forward, K7s backward) on x
+    ``(b, S, t, e)`` of the fine-tune episode, bf16, with a sum of squares as
+    the loss: the entry point through which K7s is reached (the JAX
+    package's grad tests call it so; no served or training path does)."""
+    import torch
+
+    from multimodalpfn_tpu_torch.ops import fused
+
+    b, t, S, _, e, h, d, _ = dims
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((b, S, t, e), generator=gen).to(device=device, dtype=torch.bfloat16)
+    w_qkv = (torch.randn((3, h, d, e), generator=gen) * e**-0.5).to(device).requires_grad_(True)
+    w_out = (torch.randn((h, d, e), generator=gen) * (h * d) ** -0.5).to(device).requires_grad_(True)
+    x.requires_grad_(True)
+    out = fused.fused_feature_attention_ln(x, w_qkv, w_out)
+    (out.float() ** 2).sum().backward()
+    grads = (x.grad, w_qkv.grad, w_out.grad)
+    check(all(gr is not None and bool(torch.isfinite(gr.float()).all()) for gr in grads),
+          "the sample-major sublayer's gradients are missing or not finite")
+    print(f"  fused_feature_attention_ln differentiated at x {tuple(x.shape)} bf16: dx, dW_qkv, "
+          "dW_out finite", flush=True)
+
+
+def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_dims=None) -> dict:
     """``fine_tune_mmpfn`` on the flagship in bf16, validation after every
     step, with the launch counters zeroed just before and read just after:
-    every training step runs K7, K8, K9 and K10 once per layer. Then the best
-    snapshot is served by the classifier."""
+    every training step runs K7, K8, K9 and K10 once per layer. With
+    ``flash_dims`` (the episode's dimensions, `FT_DIMS`) the model has no
+    multiquery test block, so the K2 gate refuses
+    it: every step runs K4 and K11 in both item blocks of every layer (and
+    each validation K4 in both), and no K2a, K2b, K9 or K10; before the
+    fine-tune, in the same count, the public sample-major sublayer is
+    differentiated once (K5, K7s). Then the best snapshot is served by the
+    classifier."""
     import numpy as np
     import torch
 
@@ -578,7 +696,10 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path) -> dict:
     from multimodalpfn_tpu_torch.train.finetune import fine_tune_mmpfn
 
     X, img, y = data
+    flash = flash_dims is not None
     kernels.reset_launches()
+    if flash:
+        sample_major_grad(device, flash_dims)
     t0 = time.perf_counter()
     hist = fine_tune_mmpfn(
         mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8, features_per_group=1,
@@ -597,23 +718,35 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path) -> dict:
           f"train loss {loss[0]:.5f} -> {loss[-1]:.5f}, grad norm {gn[0]:.4f} -> {gn[-1]:.4f}, "
           f"best validation error {hist['best_val_error']:.5f}, skipped {hist['skipped_steps']}",
           flush=True)
-    print(f"  launches {launches} (K7, K8, K9, K10 = {n_layers} x {steps})", flush=True)
+    L = n_layers
+    if flash:  # K4: both blocks of every layer in each step and each of steps + 1 validations
+        exact = {"K7": L * steps, "K8": L * steps, "K11": 2 * L * steps, "K4": 2 * L * (2 * steps + 1),
+                 "K2a": 0, "K2b": 0, "K9": 0, "K10": 0, "K5": 1, "K7s": 1}
+        print(f"  launches {launches} (K7, K8 = {L} x {steps}; K11 = 2 x {L} x {steps}; K4 = 2 x {L}"
+              f" x ({steps} steps + {steps + 1} validations); K5, K7s 1 from the sample-major call)",
+              flush=True)
+    else:
+        exact = {kid: L * steps for kid in ("K7", "K8", "K9", "K10")} | {"K11": 0, "K7s": 0}
+        print(f"  launches {launches} (K7, K8, K9, K10 = {L} x {steps})", flush=True)
     check(hist["steps"] == steps, f"fine-tune ran {hist['steps']} of {steps} steps")
     check(bool(np.isfinite(loss).all() and np.isfinite(gn).all()), "non-finite loss or grad norm")
     check(hist["skipped_steps"] == 0, f"{hist['skipped_steps']} steps skipped by the non-finite guard")
     if device.type == "cuda":
-        for kid in ("K7", "K8", "K9", "K10"):
-            check(launches[kid] == n_layers * steps,
-                  f"{kid} launched {launches[kid]} times in {steps} steps, expected {n_layers * steps}")
-        for kid in ("K1", "K2a", "K2b", "K3"):
-            check(launches[kid] >= n_layers * steps, f"{kid} launched {launches[kid]} times")
+        for kid, n in exact.items():
+            check(launches[kid] == n, f"{kid} launched {launches[kid]} times in {steps} steps, expected {n}")
+        for kid in ("K1", "K3") if flash else ("K1", "K2a", "K2b", "K3"):
+            check(launches[kid] >= L * steps, f"{kid} launched {launches[kid]} times")
 
     check("snapshot_write_errors" not in hist, f"snapshot write failed: {hist.get('snapshot_write_errors')}")
     # the best snapshot replaces the initial one when validation improved
     # (a step's error below the initial one is the best error)
     improved = any(err == hist["best_val_error"] for _, err in hist["val_error"])
-    base = flatten_params(load_npz(model_path).params)
-    snap = flatten_params(load_model(out_path, mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8).params)
+    base_model = load_npz(model_path)
+    snap_model = load_model(out_path, mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8)
+    mq = base_model.config.multiquery_item_attention_for_test_set
+    check(snap_model.config.multiquery_item_attention_for_test_set == mq,
+          "the snapshot lost the base model's multiquery_item_attention_for_test_set")
+    base, snap = flatten_params(base_model.params), flatten_params(snap_model.params)
     check(snap.keys() == base.keys(), "the snapshot's leaves differ from the base model's")
     moved = max(float((snap[k].float() - base[k].float()).abs().max()) for k in base)
     print(f"  validation improved: {improved}; the snapshot differs from the base model by "
@@ -622,19 +755,26 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path) -> dict:
     n_tr = int(round(0.8 * len(X)))
     clf = make_classifier(device, out_path)
     clf.fit(X[:n_tr], img[:n_tr], y[:n_tr])
+    kernels.reset_launches()
     p = clf.predict_proba(X[n_tr:], img[n_tr:])
+    served = dict(kernels.LAUNCHES)
     check_proba(p, len(X) - n_tr, clf.n_classes_, "fine-tuned snapshot")
-    print(f"  the best snapshot ({out_path.name}) served by MMPFNClassifier: "
-          f"predict_proba({len(X) - n_tr} rows) rows sum to 1", flush=True)
+    if device.type == "cuda" and flash:
+        check(served["K4"] >= 2 * L and served["K2a"] == 0,
+              f"the snapshot was not served through K4: {served}")
+    print(f"  the best snapshot ({out_path.name}, multiquery test block {mq}) served by "
+          f"MMPFNClassifier: predict_proba({len(X) - n_tr} rows) rows sum to 1"
+          + (f", K4 launched {served['K4']} times, K2a {served['K2a']}" if flash else ""), flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize()
     return dict(launches=launches, hist=hist, warm_step_ms=warm, wall_s=wall)
 
 
-def episode_trainer(device, model_path, data, n_layers, compute_dtype, use_kernels, seed=0):
+def episode_trainer(device, model_path, data, n_layers, compute_dtype, use_kernels, seed=0,
+                    override=None):
     """`fine_tune_mmpfn`'s step loop (`train/finetune.make_episode_trainer`)
     on the flagship's train split: the model cut to its first ``n_layers``,
-    the kernels on or off."""
+    the kernels on or off, and ``override``'s config fields."""
     import numpy as np
 
     from multimodalpfn_tpu_torch.train.finetune import create_val_data, make_episode_trainer
@@ -646,20 +786,23 @@ def episode_trainer(device, model_path, data, n_layers, compute_dtype, use_kerne
         path_to_base_model=str(model_path), mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8,
         features_per_group=1, X_train=X_tr, image_train=i_tr, y_train=y_tr, device=device,
         random_seed=seed, compute_dtype=compute_dtype,
-        cfg_override=dict(nlayers=n_layers, fused_ops=use_kernels, use_flash=use_kernels),
+        cfg_override=dict(nlayers=n_layers, fused_ops=use_kernels, use_flash=use_kernels)
+        | (override or {}),
     )
 
 
-def phase_finetune_kernel_vs_plain(device, model_path, data, n_layers, steps=3) -> dict:
-    """Float32 training steps from the same seed on the kernel path and on
-    the plain path: the first step's gradient of every leaf within
-    `FT_GRAD_REL_BOUND` of the plain path's, relative to that leaf's largest
-    magnitude; train loss and gradient norm within `FT_STEP_REL_BOUND`
-    relative, the params after the steps within `FT_PARAM_ABS_BOUND`. As a
-    control, the same per-leaf measure between the first and the second
-    step's gradients (another episode) is printed. The counters show the
-    kernel path ran K7-K10 once per layer and step, and the plain path no
-    kernel."""
+def phase_finetune_kernel_vs_plain(device, model_path, data, n_layers, steps=3, override=None,
+                                   expect=None) -> dict:
+    """Float32 training steps from the same seed on the kernel path (with
+    ``override``'s config fields) and on the plain path: the first step's
+    gradient of every leaf within `FT_GRAD_REL_BOUND` of the plain path's,
+    relative to that leaf's largest magnitude; train loss and gradient norm
+    within `FT_STEP_REL_BOUND` relative, the params after the steps within
+    `FT_PARAM_ABS_BOUND`. As a control, the same per-leaf measure between the
+    first and the second step's gradients (another episode) is printed. The
+    counters show the kernel path ran each kernel of ``expect`` (default:
+    K7-K10 once per layer and step) as often as it says, and the plain path
+    no kernel."""
     import torch
 
     from multimodalpfn_tpu_torch.models.params import flatten_params
@@ -678,7 +821,8 @@ def phase_finetune_kernel_vs_plain(device, model_path, data, n_layers, steps=3) 
         kernels.reset_launches()
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        trainer = episode_trainer(device, model_path, data, n_layers, "float32", use_kernels)
+        trainer = episode_trainer(device, model_path, data, n_layers, "float32", use_kernels,
+                                  override=override if use_kernels else None)
         metrics, grads = [], []
         for _ in range(steps):
             m = trainer.step()
@@ -715,15 +859,17 @@ def phase_finetune_kernel_vs_plain(device, model_path, data, n_layers, steps=3) 
     check(loss_rel <= FT_STEP_REL_BOUND and gn_rel <= FT_STEP_REL_BOUND,
           f"kernel path loss / grad norm differ from the plain path by {loss_rel:.3e} / {gn_rel:.3e}")
     check(param_err <= FT_PARAM_ABS_BOUND, f"params after {steps} steps differ by {param_err:.3e}")
+    if expect is None:
+        expect = {kid: n_layers * steps for kid in ("K7", "K8", "K9", "K10")}
     if device.type == "cuda":
-        for kid in ("K7", "K8", "K9", "K10"):
-            check(lk[kid] == n_layers * steps, f"{kid} launched {lk[kid]} times on the kernel path")
+        for kid, n in expect.items():
+            check(lk[kid] == n, f"{kid} launched {lk[kid]} times on the kernel path, expected {n}")
         check(not any(lp.values()), f"the plain path launched kernels: {lp}")
     return dict(loss_rel=loss_rel, gn_rel=gn_rel, param_err=param_err, grad_rel=worst[0][1],
                 control_median=control[len(control) // 2])
 
 
-def phase_profile_step(device, model_path, data, n_layers, top: int = 16) -> None:
+def phase_profile_step(device, model_path, data, n_layers, top: int = 16, label="") -> None:
     """torch.profiler around one warm bf16 training step on the kernel path
     (two steps before it): wall time (host clock, ended by a device
     synchronise), the sum of device kernel times, the idle share and the
@@ -742,7 +888,71 @@ def phase_profile_step(device, model_path, data, n_layers, top: int = 16) -> Non
         float(m["loss"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    print_profile(f"one warm training step ({n_layers} layers, bf16)", wall, device_kernel_rows(prof), top)
+    print_profile(f"one warm training step{label} ({n_layers} layers, bf16)", wall,
+                  device_kernel_rows(prof), top)
+
+
+def phase_resume(device, model_path, data, out_path, steps, every) -> dict:
+    """``fine_tune_mmpfn`` for ``steps`` bf16 steps writing its state every
+    ``every`` (before step ``every``, so the file holds the state after step
+    ``every - 1``), then: the state restored into a fresh train state equals
+    the file bit for bit (params, the optimizer's z and ν, its counters, the
+    step); the same state recomputed by the episode loop from the same seed
+    is printed beside it; and a second call with ``resume=True`` starts at
+    step ``every`` and ends at step ``steps`` with finite losses."""
+    import numpy as np
+    import torch
+
+    from multimodalpfn_tpu_torch.train.finetune import fine_tune_mmpfn
+    from multimodalpfn_tpu_torch.train.step import restore_train_state, train_state_arrays
+
+    X, img, y = data
+    state_path = Path(str(out_path) + ".state.npz")
+    state_path.unlink(missing_ok=True)
+    kw = dict(mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8, features_per_group=1, X_train=X,
+              image_train=img, y_train=y, path_to_base_model=str(model_path),
+              save_path_to_fine_tuned_model=str(out_path), device=str(device), random_seed=0,
+              state_checkpoint_every=every, finetuning_config={"max_steps": steps})
+    first = fine_tune_mmpfn(**kw)
+    check(first["steps"] == steps and "snapshot_write_errors" not in first,
+          f"the first call ran {first['steps']} steps, write errors {first.get('snapshot_write_errors')}")
+    with np.load(state_path) as f:
+        saved = {k: f[k] for k in f.files}
+    saved_step = int(saved["step"])
+    check(saved_step == every - 1, f"the state file holds step {saved_step}, expected {every - 1}")
+    # restore into a fresh state of the same model, optimizer and freeze mask
+    fresh = episode_trainer(device, model_path, data, 12, "bfloat16", True)
+    restore_train_state(state_path, fresh.state)
+    restored = {k: v.cpu().numpy() for k, v in train_state_arrays(fresh.state).items()}
+    same = restored.keys() == saved.keys() and all(
+        restored[k].dtype == saved[k].dtype and np.array_equal(restored[k], saved[k]) for k in saved)
+    del fresh
+    # the state after `saved_step` steps of the same loop, recomputed
+    again = episode_trainer(device, model_path, data, 12, "bfloat16", True)
+    for _ in range(saved_step):
+        again.step()
+    recomputed = {k: v.cpu().numpy() for k, v in train_state_arrays(again.state).items()}
+    drift = max(float(np.abs(recomputed[k].astype(np.float64) - saved[k]).max()) for k in saved)
+    del again
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    resumed = fine_tune_mmpfn(**kw, resume=True)
+    starts = resumed["val_error"][0][0] if resumed["val_error"] else None
+    loss = resumed["train_loss"]
+    print(f"  {steps} steps with the state written every {every}: the file holds step {saved_step} "
+          f"({len(saved)} arrays); restored bit for bit: {same}; the loop's own state after "
+          f"{saved_step} steps, recomputed, differs from the file by {drift:.3e} (max abs, not "
+          f"gated); resumed at step {starts}, ended at step {resumed['steps']}, train loss "
+          f"{[round(v, 5) for v in loss]} (the first run's {[round(v, 5) for v in first['train_loss']]})",
+          flush=True)
+    check(same, "the restored train state differs from the saved one")
+    check(starts == saved_step + 1 and resumed["steps"] == steps
+          and len(loss) == steps - saved_step,
+          f"the resumed run covered steps {starts}..{resumed['steps']} ({len(loss)} steps)")
+    check(bool(np.isfinite(loss).all()) and resumed["skipped_steps"] == 0,
+          "the resumed run has a non-finite loss or a skipped step")
+    return dict(saved_step=saved_step, restored_bit_equal=same, recompute_drift=drift,
+                resumed_from=starts, resumed_loss=loss)
 
 
 def make_classifier(device, model_path, **kw):
@@ -977,7 +1187,7 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
     rows = []
     for kid, meta in KERNELS.items():
         r = dict(kres[kid])
-        for sub in ("t48", "predict"):
+        for sub in ("t48", "predict", "test", "folded"):
             r.update({f"{k}_{sub}": v for k, v in kres.get(f"{kid}@{sub}", {}).items()})
         main = {"max_abs_err": "max_abs_err_f32", "ms": "ms_bf16", "plain_ms": "plain_ms_bf16",
                 "bound_ms": "bound_ms_bf16", "bound_by": "bound_by_bf16",
@@ -987,6 +1197,8 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
         row.update({k: r[v] for k, v in main.items()})
         if kid == "K3":
             row["launches_cached"] = launches["cached"]["K3"]
+        if kid == "K4":
+            row["launches_flash_finetune"] = launches["flash_finetune"]["K4"]
         row.update({k: v for k, v in r.items() if k not in main.values()})
         rows.append(row)
     return rows
@@ -997,7 +1209,8 @@ def main() -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase at a tiny size on the CPU; exits 1")
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 11: profile one warm request of each size and a training step")
+                    help="add phase 14: profile one warm request of each size and a training step "
+                         "of each item path")
     args = ap.parse_args()
 
     if not (ROOT / "multimodalpfn_tpu_torch" / "csrc").is_dir():
@@ -1031,6 +1244,8 @@ def main() -> int:
               f"({kernels.library_path().name})", flush=True)
     model_path = ROOT / "build" / "chip_smoke_model.npz"
     write_model(model_path)
+    nmq_path = ROOT / "build" / "chip_smoke_model_no_multiquery.npz"
+    write_model(nmq_path, multiquery=False)
 
     print("== phase 2: kernels against their plain versions", flush=True)
     if args.rehearse:
@@ -1084,16 +1299,34 @@ def main() -> int:
     ft = phase_finetune(device, model_path, ft_data, ft_steps, ft_layers,
                         ROOT / "build" / "chip_smoke_finetuned.ckpt")
     print("== phase 10: fine-tune kernel path against plain path (float32)", flush=True)
-    ft_cmp = phase_finetune_kernel_vs_plain(device, model_path, ft_data,
-                                            1 if args.rehearse else FT_CMP_LAYERS)
+    cmp_layers = 1 if args.rehearse else FT_CMP_LAYERS
+    ft_cmp = phase_finetune_kernel_vs_plain(device, model_path, ft_data, cmp_layers)
+
+    print(f"== phase 11: fine_tune_mmpfn with the fused item gate refused (no multiquery test "
+          f"block), {ft_steps} bf16 steps, then the snapshot served", flush=True)
+    fl = phase_finetune(device, nmq_path, ft_data, ft_steps, ft_layers,
+                        ROOT / "build" / "chip_smoke_finetuned_flash.ckpt", flash_dims=ft_dims)
+    print("== phase 12: flash-path fine-tune kernel path against plain path (float32)", flush=True)
+    flash_expect = {"K7": 3 * cmp_layers, "K8": 3 * cmp_layers, "K11": 2 * 3 * cmp_layers,
+                    "K9": 0, "K10": 0, "K2a": 0, "K2b": 0}
+    print("  the checkpoint without the multiquery test block:", flush=True)
+    fl_cmp = phase_finetune_kernel_vs_plain(device, nmq_path, ft_data, cmp_layers, expect=flash_expect)
+    print("  the multiquery checkpoint with fused_item=False (the folded K11):", flush=True)
+    fold_cmp = phase_finetune_kernel_vs_plain(device, model_path, ft_data, cmp_layers,
+                                              override={"fused_item": False}, expect=flash_expect)
+    print(f"== phase 13: resume ({RESUME_STEPS} bf16 steps, state every {RESUME_EVERY})", flush=True)
+    res = phase_resume(device, nmq_path, ft_data, ROOT / "build" / "chip_smoke_resume.ckpt",
+                       RESUME_STEPS, RESUME_EVERY)
 
     if args.profile:
-        print("== phase 11: profile of warm requests and of a warm training step", flush=True)
+        print("== phase 14: profile of warm requests and of a warm training step of each item "
+              "path", flush=True)
         phase_profile(device, model_path, data, sizes)
         phase_profile_step(device, model_path, ft_data, ft_layers)
+        phase_profile_step(device, nmq_path, ft_data, ft_layers, label=" of the flash path")
 
     rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"],
-                              "finetune": ft["launches"]}
+                              "finetune": ft["launches"], "flash_finetune": fl["launches"]}
                        | {f"{plan}{'_cached' if mode == 'fit_with_cache' else ''}": run["launches"]
                           for (mode, plan), run in forced.items()})
     print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
@@ -1102,7 +1335,11 @@ def main() -> int:
           f"predict_proba_many {kv['many_ms']:.1f} ms; f32 proba err {proba_err:.3e} "
           f"(cached {kv_err:.3e}); fine-tune {ft['hist']['steps']} steps in {ft['wall_s']:.1f} s, "
           f"warm step {ft['warm_step_ms']:.1f} ms, f32 kernel vs plain loss {ft_cmp['loss_rel']:.2e} "
-          f"grads {ft_cmp['grad_rel']:.2e} params {ft_cmp['param_err']:.2e}; total {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"grads {ft_cmp['grad_rel']:.2e} params {ft_cmp['param_err']:.2e}; flash-path fine-tune "
+          f"{fl['hist']['steps']} steps in {fl['wall_s']:.1f} s, warm step {fl['warm_step_ms']:.1f} ms, "
+          f"f32 kernel vs plain grads {fl_cmp['grad_rel']:.2e} (folded {fold_cmp['grad_rel']:.2e}); "
+          f"resumed at step {res['resumed_from']}; total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     if args.rehearse:
         print("rehearsal on the CPU passed; no result is reported without CUDA", file=sys.stderr)
         return 1

@@ -44,11 +44,18 @@
 // out-of-range value reaches a sum. float32 operands (and d = 8) run both
 // passes on the CUDA cores, a thread per row; bf16 operands with d a multiple
 // of 16 run them on the tensor cores (mma.sync m16n8k16), a warp per 16 rows.
+// Steps 2 and 3 are the passes of attn_bwd.cuh, shared with K11
+// (flash_bwd.cu); `ItemGeo` below tells them where the rows of each region
+// lie in the packed qkv.
+#include "attn_bwd.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int BR = 64;  // rows of a block's own tile and of a streamed tile
+using attn_bwd::BR;
+using attn_bwd::KVRows;
+using attn_bwd::OutRows;
+using attn_bwd::QRows;
 
 // Region bookkeeping shared by both passes: the query tiles of the self
 // region come first, then those of the test rows.
@@ -57,354 +64,69 @@ struct Layout {
   __device__ __forceinline__ int n_train_tiles() const { return (sep + BR - 1) / BR; }
 };
 
-// ---- CUDA cores (any T, d in 8..64) -----------------------------------------
-
+// Where the rows of the passes of attn_bwd.cuh lie in the packed qkv
+// (G·S, 3·h·d), do (G·S, h·d), lse and delta (G, h, S) and dqkv
+// (G·S, 3·h·d + 2·d).
+//  dq pass, grid (query tiles of both regions, h, G): a self-region tile
+//   attends to the train keys of its own head, a test tile to KV head 0;
+//  dk/dv pass, grid (train key tiles, h + 1, G): y < h owns the keys of head
+//   y against that head's train queries; y = h owns KV head 0 of the cross
+//   region against all h heads' test queries, and writes the two extra
+//   column blocks of dqkv.
 template <typename T, int D>
-__global__ void __launch_bounds__(BR)
-dq_cc_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ lse,
-             const float* __restrict__ delta, T* __restrict__ dqkv, Layout L, float scale) {
-  __shared__ __align__(16) float Ks[BR][D];
-  __shared__ __align__(16) float Vs[BR][D];
-  const int tile = blockIdx.x, hh = blockIdx.y, gi = blockIdx.z, tid = threadIdx.x;
-  const int ntr = L.n_train_tiles();
-  const bool cross = tile >= ntr;
-  const int q0 = cross ? L.sep + (tile - ntr) * BR : tile * BR;
-  const int qend = cross ? L.S : L.sep;
-  const int kvh = cross ? 0 : hh;
-  const int qi = q0 + tid;
-  const bool active = qi < qend;
-  const long long base = (long long)gi * L.S;
-  float q[D], g[D], dq[D];
-  float lse_i = 0.f, delta_i = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; ++c) q[c] = g[c] = dq[c] = 0.f;
-  if (active) {
-    const T* qr = qkv + (base + qi) * 3 * L.hd + hh * D;
-    const T* gr = dout + (base + qi) * L.hd + hh * D;
-#pragma unroll
-    for (int c = 0; c < D; ++c) q[c] = to_f<T>(qr[c]), g[c] = to_f<T>(gr[c]);
-    lse_i = lse[((long long)gi * L.h + hh) * L.S + qi];
-    delta_i = delta[((long long)gi * L.h + hh) * L.S + qi];
+struct ItemGeo {
+  const T* qkv;
+  const T* dout;
+  const float* lse;
+  const float* delta;
+  T* dqkv;
+  Layout L;
+
+  __device__ __forceinline__ long long base() const { return (long long)blockIdx.z * L.S; }
+  __device__ __forceinline__ bool cross_q() const { return (int)blockIdx.x >= L.n_train_tiles(); }
+  __device__ __forceinline__ int q0() const {
+    const int tile = blockIdx.x, ntr = L.n_train_tiles();
+    return tile >= ntr ? L.sep + (tile - ntr) * BR : tile * BR;
   }
-  for (int k0 = 0; k0 < L.sep; k0 += BR) {
-    for (int i = tid; i < BR * D; i += BR) {
-      const int r = i / D, c = i - r * D, kr = k0 + r;
-      const bool ok = kr < L.sep;
-      const T* row = qkv + (base + kr) * 3 * L.hd + kvh * D + c;
-      Ks[r][c] = ok ? to_f<T>(row[L.hd]) : 0.f;
-      Vs[r][c] = ok ? to_f<T>(row[2 * L.hd]) : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-      const int nk = min(BR, L.sep - k0);
-      for (int j = 0; j < nk; ++j) {
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < D; c += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(&Ks[j][c]);
-          const float4 vv = *reinterpret_cast<const float4*>(&Vs[j][c]);
-          s = fmaf(q[c], kv.x, fmaf(q[c + 1], kv.y, fmaf(q[c + 2], kv.z, fmaf(q[c + 3], kv.w, s))));
-          dp = fmaf(g[c], vv.x, fmaf(g[c + 1], vv.y, fmaf(g[c + 2], vv.z, fmaf(g[c + 3], vv.w, dp))));
-        }
-        const float p = expf(s * scale - lse_i);
-        const float ds = round_t<T>(p * (dp - delta_i) * scale);
-#pragma unroll
-        for (int c = 0; c < D; ++c) dq[c] = fmaf(ds, Ks[j][c], dq[c]);
-      }
-    }
-    __syncthreads();
+  __device__ __forceinline__ QRows<T> dq_rows() const {
+    const int q0_ = q0(), hh = blockIdx.y, qend = cross_q() ? L.S : L.sep;
+    const long long hi = ((long long)blockIdx.z * L.h + hh) * L.S + q0_;
+    return {qkv + (base() + q0_) * 3 * L.hd + hh * D, dout + (base() + q0_) * L.hd + hh * D,
+            3LL * L.hd, (long long)L.hd, lse + hi, delta + hi, min(BR, qend - q0_)};
   }
-  if (active) {
-    T* dst = dqkv + (base + qi) * L.ld_ext + hh * D;
-#pragma unroll
-    for (int c = 0; c < D; ++c) dst[c] = from_f<T>(dq[c]);
+  __device__ __forceinline__ KVRows<T> dq_keys() const {
+    const int kvh = cross_q() ? 0 : blockIdx.y;
+    const T* k = qkv + base() * 3 * L.hd + L.hd + kvh * D;
+    return {k, k + L.hd, 3LL * L.hd, L.sep};
   }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(BR)
-dkv_cc_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dqkv, Layout L, float scale) {
-  __shared__ __align__(16) float Qs[BR][D];
-  __shared__ __align__(16) float Gs[BR][D];
-  __shared__ float LSE[BR], DL[BR];
-  const int tile = blockIdx.x, gi = blockIdx.z, tid = threadIdx.x;
-  const bool cross = (int)blockIdx.y == L.h;
-  const int kvh = cross ? 0 : blockIdx.y;
-  const int kj = tile * BR + tid;
-  const bool active = kj < L.sep;
-  const long long base = (long long)gi * L.S;
-  float k[D], v[D], dk[D], dv[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) k[c] = v[c] = dk[c] = dv[c] = 0.f;
-  if (active) {
-    const T* row = qkv + (base + kj) * 3 * L.hd + kvh * D;
-#pragma unroll
-    for (int c = 0; c < D; ++c) k[c] = to_f<T>(row[L.hd + c]), v[c] = to_f<T>(row[2 * L.hd + c]);
+  __device__ __forceinline__ OutRows<T> dq_out() const {
+    return {dqkv + (base() + q0()) * L.ld_ext + blockIdx.y * D, (long long)L.ld_ext};
   }
-  const int qbeg = cross ? L.sep : 0, qend = cross ? L.S : L.sep;
-  const int h_lo = cross ? 0 : kvh, h_hi = cross ? L.h : kvh + 1;
-  for (int hq = h_lo; hq < h_hi; ++hq) {
-    const float* lse_h = lse + ((long long)gi * L.h + hq) * L.S;
-    const float* dl_h = delta + ((long long)gi * L.h + hq) * L.S;
-    for (int q0 = qbeg; q0 < qend; q0 += BR) {
-      for (int i = tid; i < BR * D; i += BR) {
-        const int r = i / D, c = i - r * D, qr = q0 + r;
-        const bool ok = qr < qend;
-        Qs[r][c] = ok ? to_f<T>(qkv[(base + qr) * 3 * L.hd + hq * D + c]) : 0.f;
-        Gs[r][c] = ok ? to_f<T>(dout[(base + qr) * L.hd + hq * D + c]) : 0.f;
-      }
-      {
-        const int qr = q0 + tid;
-        LSE[tid] = qr < qend ? lse_h[qr] : INFINITY;  // weight 0 past the region
-        DL[tid] = qr < qend ? dl_h[qr] : 0.f;
-      }
-      __syncthreads();
-      const int nq = min(BR, qend - q0);
-      for (int i = 0; i < nq; ++i) {
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < D; c += 4) {
-          const float4 qv = *reinterpret_cast<const float4*>(&Qs[i][c]);
-          const float4 gv = *reinterpret_cast<const float4*>(&Gs[i][c]);
-          s = fmaf(k[c], qv.x, fmaf(k[c + 1], qv.y, fmaf(k[c + 2], qv.z, fmaf(k[c + 3], qv.w, s))));
-          dp = fmaf(v[c], gv.x, fmaf(v[c + 1], gv.y, fmaf(v[c + 2], gv.z, fmaf(v[c + 3], gv.w, dp))));
-        }
-        const float p = expf(s * scale - LSE[i]);
-        const float pr = round_t<T>(p);
-        const float ds = round_t<T>(p * (dp - DL[i]) * scale);
-#pragma unroll
-        for (int c = 0; c < D; ++c) {
-          dv[c] = fmaf(pr, Gs[i][c], dv[c]);
-          dk[c] = fmaf(ds, Qs[i][c], dk[c]);
-        }
-      }
-      __syncthreads();
-    }
+
+  __device__ __forceinline__ bool cross_kv() const { return (int)blockIdx.y == L.h; }
+  __device__ __forceinline__ int kvh() const { return cross_kv() ? 0 : blockIdx.y; }
+  __device__ __forceinline__ KVRows<T> dkv_keys() const {
+    const int k0 = blockIdx.x * BR;
+    const T* k = qkv + (base() + k0) * 3 * L.hd + L.hd + kvh() * D;
+    return {k, k + L.hd, 3LL * L.hd, min(BR, L.sep - k0)};
   }
-  if (active) {
-    T* dst = dqkv + (base + kj) * L.ld_ext + (cross ? 3 * L.hd : L.hd + kvh * D);
-    const int vo = cross ? D : L.hd;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      dst[c] = from_f<T>(dk[c]);
-      dst[vo + c] = from_f<T>(dv[c]);
-    }
+  __device__ __forceinline__ int dkv_segments() const { return cross_kv() ? L.h : 1; }
+  __device__ __forceinline__ QRows<T> dkv_segment(int i) const {
+    const bool cross = cross_kv();
+    const int hq = cross ? i : kvh(), qbeg = cross ? L.sep : 0, qend = cross ? L.S : L.sep;
+    const long long hi = ((long long)blockIdx.z * L.h + hq) * L.S + qbeg;
+    return {qkv + (base() + qbeg) * 3 * L.hd + hq * D, dout + (base() + qbeg) * L.hd + hq * D,
+            3LL * L.hd, (long long)L.hd, lse + hi, delta + hi, qend - qbeg};
   }
-}
-
-// ---- tensor cores (bf16, d a multiple of 16) ---------------------------------
-// A warp owns 16 rows of the block's tile, whose operands it holds as mma a
-// fragments; the streamed tile of 64 rows is staged row-major in shared
-// memory (rows padded by 8 elements), where its rows serve directly as b
-// fragments (B^T products) or through ldmatrix.trans (B products). Score and
-// weight fragments never leave registers: each row lives in a quad of lanes.
-constexpr int MTHREADS = 128;  // 4 warps x 16 rows = BR
-constexpr int PAD = 8;
-
-// Stage `rows` rows of D bf16 (16-byte loads, zero past `valid`) at `dst`.
-template <int D>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, long long ld,
-                                      int valid) {
-  constexpr int KP = D + PAD;
-  for (int i = threadIdx.x; i < BR * D / 8; i += MTHREADS) {
-    const int r = i / (D / 8), c = 8 * (i - r * (D / 8));
-    *reinterpret_cast<uint4*>(dst + r * KP + c) =
-        r < valid ? *reinterpret_cast<const uint4*>(src + r * ld + c) : make_uint4(0, 0, 0, 0);
+  __device__ __forceinline__ OutRows<T> dk_out() const {
+    const int col = cross_kv() ? 3 * L.hd : L.hd + kvh() * D;
+    return {dqkv + (base() + blockIdx.x * BR) * L.ld_ext + col, (long long)L.ld_ext};
   }
-}
-
-// this warp's 16 rows of a staged tile as a fragments, one per 16 columns
-template <int D>
-__device__ __forceinline__ void frags(uint32_t (&a)[D / 16][4], const __nv_bfloat16* tile) {
-  const int wr = 16 * (threadIdx.x >> 5);
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) lds_a(a[ks], tile + wr * (D + PAD) + ks * 16, D + PAD);
-}
-
-// acc[nb] += A(16×D, fragments a) · Bt^T for the 64 staged rows of Bt (as the
-// n axis, 8 per tile): scores against a staged tile.
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[BR / 8][4], const uint32_t (&a)[D / 16][4],
-                                        const __nv_bfloat16* bt) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
-#pragma unroll
-  for (int nb = 0; nb < BR / 8; ++nb) {
-    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const __nv_bfloat16* br = bt + (nb * 8 + g) * (D + PAD) + ks * 16 + 2 * q4;
-      mma_bf16_16816(acc[nb], a[ks], *reinterpret_cast<const uint32_t*>(br),
-                     *reinterpret_cast<const uint32_t*>(br + 8));
-    }
+  __device__ __forceinline__ OutRows<T> dv_out() const {
+    const OutRows<T> k = dk_out();
+    return {k.p + (cross_kv() ? D : L.hd), k.ld};
   }
-}
-
-// acc[nd] += P(16×64, fragments pa) · B (the 64 staged rows, D columns)
-template <int D>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const uint32_t (&pa)[BR / 16][4],
-                                       const __nv_bfloat16* b) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int j = 0; j < BR / 16; ++j) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, b + (j * 16 + (lane & 15)) * (D + PAD) + nd * 8);
-      mma_bf16_16816(acc[nd], pa[j], b0, b1);
-    }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ld, int valid,
-                                           const float (&acc)[D / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3, wr = 16 * (threadIdx.x >> 5);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wr + g + 8 * r;
-    if (row >= valid) continue;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      store2(dst + row * ld + nd * 8 + 2 * q4, acc[nd][2 * r], acc[nd][2 * r + 1]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MTHREADS)
-dq_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dqkv, Layout L, float scale) {
-  constexpr int KP = D + PAD;
-  __shared__ __align__(16) __nv_bfloat16 Ks[BR * KP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BR * KP];
-  const int tile = blockIdx.x, hh = blockIdx.y, gi = blockIdx.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3, wr = 16 * (threadIdx.x >> 5);
-  const int ntr = L.n_train_tiles();
-  const bool cross = tile >= ntr;
-  const int q0 = cross ? L.sep + (tile - ntr) * BR : tile * BR;
-  const int nq = min(BR, (cross ? L.S : L.sep) - q0);
-  const int kvh = cross ? 0 : hh;
-  const long long base = (long long)gi * L.S;
-  const long long ld = 3LL * L.hd;
-
-  uint32_t qa[D / 16][4], ga[D / 16][4];
-  stage<D>(Ks, qkv + (base + q0) * ld + hh * D, ld, nq);
-  stage<D>(Vs, dout + (base + q0) * L.hd + hh * D, L.hd, nq);
-  __syncthreads();
-  frags<D>(qa, Ks);
-  frags<D>(ga, Vs);
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wr + g + 8 * r;
-    const long long hi = ((long long)gi * L.h + hh) * L.S + q0 + row;
-    lse_r[r] = row < nq ? lse[hi] : INFINITY;
-    dl_r[r] = row < nq ? delta[hi] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-
-  for (int k0 = 0; k0 < L.sep; k0 += BR) {
-    __syncthreads();  // the previous tile (or the query staging) is consumed
-    const int nk = min(BR, L.sep - k0);
-    stage<D>(Ks, qkv + (base + k0) * ld + L.hd + kvh * D, ld, nk);
-    stage<D>(Vs, qkv + (base + k0) * ld + 2 * L.hd + kvh * D, ld, nk);
-    __syncthreads();
-    float sc[BR / 8][4], dp[BR / 8][4];
-    mma_abt<D>(sc, qa, Ks);
-    mma_abt<D>(dp, ga, Vs);
-    uint32_t dsa[BR / 16][4];
-#pragma unroll
-    for (int nb = 0; nb < BR / 8; ++nb)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float ds[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int key = nb * 8 + 2 * q4 + c;
-          const float p = key < nk ? expf(sc[nb][2 * r + c] * scale - lse_r[r]) : 0.f;
-          ds[c] = p * (dp[nb][2 * r + c] - dl_r[r]) * scale;
-        }
-        dsa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(ds[0], ds[1]);
-      }
-    mma_pb<D>(dq, dsa, Ks);
-  }
-  store_rows<D>(dqkv + (base + q0) * L.ld_ext + hh * D, L.ld_ext, nq, dq);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MTHREADS)
-dkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               __nv_bfloat16* __restrict__ dqkv, Layout L, float scale) {
-  constexpr int KP = D + PAD;
-  __shared__ __align__(16) __nv_bfloat16 Qs[BR * KP];
-  __shared__ __align__(16) __nv_bfloat16 Gs[BR * KP];
-  __shared__ float LSE[BR], DL[BR];
-  const int tile = blockIdx.x, gi = blockIdx.z, tid = threadIdx.x;
-  const int lane = tid & 31, q4 = lane & 3;
-  const bool cross = (int)blockIdx.y == L.h;
-  const int kvh = cross ? 0 : blockIdx.y;
-  const int k0 = tile * BR, nk = min(BR, L.sep - k0);
-  const long long base = (long long)gi * L.S;
-  const long long ld = 3LL * L.hd;
-
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  stage<D>(Qs, qkv + (base + k0) * ld + L.hd + kvh * D, ld, nk);
-  stage<D>(Gs, qkv + (base + k0) * ld + 2 * L.hd + kvh * D, ld, nk);
-  __syncthreads();
-  frags<D>(ka, Qs);
-  frags<D>(va, Gs);
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[nd][i] = dv[nd][i] = 0.f;
-
-  const int qbeg = cross ? L.sep : 0, qend = cross ? L.S : L.sep;
-  const int h_lo = cross ? 0 : kvh, h_hi = cross ? L.h : kvh + 1;
-  for (int hq = h_lo; hq < h_hi; ++hq) {
-    const float* lse_h = lse + ((long long)gi * L.h + hq) * L.S;
-    const float* dl_h = delta + ((long long)gi * L.h + hq) * L.S;
-    for (int q0 = qbeg; q0 < qend; q0 += BR) {
-      const int nq = min(BR, qend - q0);
-      __syncthreads();  // the previous tile (or the key staging) is consumed
-      stage<D>(Qs, qkv + (base + q0) * ld + hq * D, ld, nq);
-      stage<D>(Gs, dout + (base + q0) * L.hd + hq * D, L.hd, nq);
-      if (tid < BR) {
-        LSE[tid] = tid < nq ? lse_h[q0 + tid] : INFINITY;  // weight 0 past the region
-        DL[tid] = tid < nq ? dl_h[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float st[BR / 8][4], dpt[BR / 8][4];
-      mma_abt<D>(st, ka, Qs);  // keys × queries
-      mma_abt<D>(dpt, va, Gs);
-      uint32_t pa[BR / 16][4], dsa[BR / 16][4];
-#pragma unroll
-      for (int nb = 0; nb < BR / 8; ++nb)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float p[2], ds[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int qc = nb * 8 + 2 * q4 + c;
-            p[c] = expf(st[nb][2 * r + c] * scale - LSE[qc]);
-            ds[c] = p[c] * (dpt[nb][2 * r + c] - DL[qc]) * scale;
-          }
-          pa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(p[0], p[1]);
-          dsa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(ds[0], ds[1]);
-        }
-      mma_pb<D>(dv, pa, Gs);
-      mma_pb<D>(dk, dsa, Qs);
-    }
-  }
-  const int col = cross ? 3 * L.hd : L.hd + kvh * D;
-  const int vo = cross ? D : L.hd;
-  store_rows<D>(dqkv + (base + k0) * L.ld_ext + col, L.ld_ext, nk, dk);
-  store_rows<D>(dqkv + (base + k0) * L.ld_ext + col + vo, L.ld_ext, nk, dv);
-}
+};
 
 template <typename T, int D>
 int passes(const T* qkv, const T* dout, const float* lse, const float* delta, T* dqkv, int G,
@@ -412,18 +134,7 @@ int passes(const T* qkv, const T* dout, const float* lse, const float* delta, T*
   const float scale = 1.f / sqrtf((float)D);
   const int n_q_tiles = (L.sep + BR - 1) / BR + (L.S - L.sep + BR - 1) / BR;
   const dim3 gq(n_q_tiles, L.h, G), gkv((L.sep + BR - 1) / BR, L.h + 1, G);
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D % 16 == 0) {
-    dq_mma_kernel<D><<<gq, MTHREADS, 0, st>>>(qkv, dout, lse, delta, dqkv, L, scale);
-    int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    dkv_mma_kernel<D><<<gkv, MTHREADS, 0, st>>>(qkv, dout, lse, delta, dqkv, L, scale);
-  } else {
-    dq_cc_kernel<T, D><<<gq, BR, 0, st>>>(qkv, dout, lse, delta, dqkv, L, scale);
-    int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    dkv_cc_kernel<T, D><<<gkv, BR, 0, st>>>(qkv, dout, lse, delta, dqkv, L, scale);
-  }
-  return (int)cudaGetLastError();
+  return attn_bwd::passes<T, D>(ItemGeo<T, D>{qkv, dout, lse, delta, dqkv, L}, gq, gkv, scale, st);
 }
 
 }  // namespace

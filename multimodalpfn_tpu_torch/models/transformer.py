@@ -17,8 +17,9 @@ Reference semantics: `mmpfn/models/mmpfn/model/transformer.py:182-1039` and
     tokens out of feature attention as keys (``tab_valid``; K6a in place of
     K1) and keeps its own positional-embedding draws (``feat_pos_noise``);
   * under autograd the kernel sublayers run their backward kernels (K7 for
-    K1, K10 + K9 for K2a + K2b, K8 for K3) and the plain residual-LN saves
-    its compute-dtype sum (`_ResidualLN`).
+    K1, K10 + K9 for K2a + K2b, K8 for K3; with the K2 gate refused, K11 for
+    K4 in both item blocks) and the plain residual-LN saves its
+    compute-dtype sum (`_ResidualLN`).
 """
 
 from __future__ import annotations
@@ -88,8 +89,9 @@ def _item_sublayer(
     item-major state ``(b, t, s, e)``, in the compute dtype. With
     ``cfg.use_flash`` it runs the kernels K2a + K2b where the gate admits the
     configuration, and otherwise (no multiquery test block, a ring axis, or
-    ``fused_item`` off) the flash kernel K4 inside `item_attention`, as the JAX
-    package does; with ``use_flash`` off, the plain path."""
+    ``fused_item`` off) the flash kernel K4 inside `item_attention` (K11 its
+    backward) and `residual_ln`, as the JAX package does; with ``use_flash``
+    off, the plain path."""
     cd = DTYPES[cfg.compute_dtype]
     sep, S = single_eval_pos, state.shape[-2]
     multiquery = cfg.multiquery_item_attention_for_test_set

@@ -14,7 +14,7 @@ with the stacked ``w_qkv (3,h,d,in)`` / ``w_out (h,d,out)`` weight layout
 Matmuls take and emit the compute dtype (the JAX package's
 ``preferred_element_type=compute_dtype``); the softmax runs in float32. With
 ``use_flash`` the attention core is the flash kernel K4 (`ops/flash.py`), whose
-plain version serves CPU tensors.
+plain version serves CPU tensors; under autograd its backward is K11.
 """
 
 from __future__ import annotations
@@ -105,7 +105,11 @@ def _flash_mha(xq, xkv, wq, wk, wv, w_out, kv_head0_only: bool) -> torch.Tensor:
     """`mha` through K4 on compute-dtype operands: the projections emit the
     compute dtype, the heads (or, multiquery, the query heads folded into the
     query axis, head-major, against KV head 0) fold into K4's groups, and K4's
-    float32 output is rounded to the compute dtype for the out-projection."""
+    float32 output is rounded to the compute dtype for the out-projection.
+    Under autograd K4's o goes through `flash.flash_attention`'s autograd
+    Function, whose backward is K11 (the folded heads' dk, dv sum into KV
+    head 0); the projections and the out-projection are einsums, as the JAX
+    package computes them in XLA outside the Pallas call."""
     lead, Sq, Skv = xq.shape[:-2], xq.shape[-2], xkv.shape[-2]
     h, d = wq.shape[:2]
     q = torch.einsum("...si,hdi->...hsd", xq, wq)

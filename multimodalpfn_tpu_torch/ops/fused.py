@@ -1,8 +1,8 @@
 """Fused row-local encoder sublayers: K1 and K5 (feature attention + residual
 + LN, item-major and sample-major), their key-masked forms K6a and K6b (for
 members of different widths padded into one group), and K3 (MLP + residual +
-LN), with the backward kernels K7 (of K1) and K8 (of K3). The counterpart of
-the JAX package's `multimodalpfn_tpu/ops/pallas_fused.py`.
+LN), with the backward kernels K7 (of K1), K7s (of K5) and K8 (of K3). The
+counterpart of the JAX package's `multimodalpfn_tpu/ops/pallas_fused.py`.
 
 Each sublayer has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper runs the plain version for a tensor on the CPU; for a CUDA tensor it
@@ -15,10 +15,13 @@ attention's dq, dk, dv and ds) and keep every sum in float32, so in float32
 they are the same function as the kernels and in bfloat16 they differ only by
 summation order.
 
-K1 and K3 are differentiable like the JAX package's custom VJPs: under
-autograd, `fused_feature_attention_ln_im` and `fused_mlp_ln` save only x and
-the weights, and their backward recomputes the rest (K7, K8). K5, K6a and K6b
-serve inference only: on the card they raise under autograd.
+K1, K5 and K3 are differentiable like the JAX package's custom VJPs: under
+autograd, `fused_feature_attention_ln_im`, `fused_feature_attention_ln`
+(without a mask) and `fused_mlp_ln` save only x and the weights, and their
+backward recomputes the rest (K7, K7s, K8). K5 with ``token_valid_count``, K6a
+and K6b have no VJP in the JAX package either (`pallas_fused.py:1181-1187`,
+`:1203-1212`): they serve inference only, and on the card they raise under
+autograd.
 """
 
 from __future__ import annotations
@@ -181,7 +184,11 @@ def fused_feature_attention_ln(
     `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel`, K6b
     `_feat_attn_kernel_masked` (both called through `_attn_fwd_call`); kernel
     in `csrc/feat_attn.cu`, K1's body with contiguous tokens and rows
-    flattened over x's leading axes."""
+    flattened over x's leading axes. Without a mask (no ``token_valid_count``,
+    no ``key_mask``) it is differentiable, with K7s as its backward
+    (`_FeatAttnLn`)."""
+    if token_valid_count is None and key_mask is None and kernels.needs_grad(x, w_qkv, w_out):
+        return _FeatAttnLn.apply(x, w_qkv, w_out)
     if x.device.type == "cpu":
         return feature_attention_ln_plain(x, w_qkv, w_out, token_valid_count, key_mask)
     if token_valid_count is not None and key_mask is not None:
@@ -312,7 +319,8 @@ def fused_mlp_ln(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# K7: backward of K1 (feature attention + residual + LN, item-major)
+# K7 / K7s: backward of K1 / K5 (feature attention + residual + LN,
+# item-major and sample-major)
 # ---------------------------------------------------------------------------
 
 
@@ -367,6 +375,87 @@ def feature_attention_ln_im_bwd_plain(
     return dx.transpose(1, 2).contiguous(), dwqkv, dwout
 
 
+def _attn_bwd_buffers(x, rows: int, hd: int) -> tuple[torch.Tensor, ...]:
+    """The outputs and scratch of K7's and K7s' C entries over ``rows``
+    tokens of x, in the entries' order: qkv, o, u, du, du_c, do, dqkv, dx,
+    dW_qkv, dW_out (float32) and the weight gradients' slabs."""
+    e, cd, dev = x.shape[-1], x.dtype, x.device
+
+    def ws(n, dtype):
+        return torch.empty((rows, n), dtype=dtype, device=dev)
+
+    return (
+        ws(3 * hd, cd), ws(hd, cd), ws(e, torch.float32), ws(e, torch.float32), ws(e, cd),
+        ws(hd, cd), ws(3 * hd, cd), torch.empty_like(x),
+        torch.empty((3 * hd, e), dtype=torch.float32, device=dev),
+        torch.empty((hd, e), dtype=torch.float32, device=dev),
+        kernels.wgrad_workspace(rows, 3 * hd, e, dev),
+    )
+
+
+def _attn_bwd_operands(kid: str, x, w_qkv, w_out, g, t: int, rows: int):
+    """K7's and K7s' checks and operands, in their C entries' order: x,
+    W_qkv ``(3·h·d, e)`` and W_out ``(h·d, e)`` in x's dtype, g; ``rows``
+    (K7: the (member, sample) rows; K7s: the tokens, which it indexes in 32
+    bits) below 2**31."""
+    e = x.shape[-1]
+    _, h, d, _ = w_qkv.shape
+    hd = h * d
+    kernels.require_shape(kid, "w_qkv", w_qkv, (3, h, d, e))
+    kernels.require_shape(kid, "w_out", w_out, (h, d, e))
+    kernels.require_shape(kid, "g", g, tuple(x.shape))
+    if t > MAX_FUSED_ATTN_TOKENS or d not in (8, 16, 32, 64) or rows > 2**31 - 1:
+        raise ValueError(f"{kid}: unsupported shape t={t}, d={d}, rows={rows}")
+    cd = x.dtype
+    wqkv = kernels.aligned(w_qkv.reshape(3 * hd, e).to(cd).contiguous())
+    wout = kernels.aligned(w_out.reshape(hd, e).to(cd).contiguous())
+    x = kernels.aligned(x.contiguous())
+    g = kernels.aligned(g.to(cd).contiguous())
+    kernels.require_cuda(kid, x, g, wqkv, wout)
+    return x, wqkv, wout, g
+
+
+def feature_attention_ln_bwd(
+    x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7s (sample-major). Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_attn_bwd_kernel`
+    (called through `_attn_bwd_call`); kernel in `csrc/feat_attn_bwd.cu`, K7's
+    launches with contiguous tokens and rows flattened over x's leading axes.
+    Results as `feature_attention_ln_bwd_plain`."""
+    if x.device.type == "cpu":
+        return feature_attention_ln_bwd_plain(x, w_qkv, w_out, g)
+    t, e = x.shape[-2:]
+    _, h, d, _ = w_qkv.shape
+    rows = x.numel() // (t * e)
+    operands = _attn_bwd_operands("K7s", x, w_qkv, w_out, g, t, rows * t)
+    bufs = _attn_bwd_buffers(operands[0], rows * t, h * d)
+    rc = kernels.library().mmpfn_feat_attn_bwd(
+        *(a.data_ptr() for a in operands + bufs),
+        rows, t, e, h, d, kernels.WGRAD_ROWS, *kernels.launch_args(operands[0], "K7s"),
+    )
+    kernels.check(rc, "K7s")
+    kernels.LAUNCHES["K7s"] += 1
+    dx, dwqkv, dwout = bufs[7:10]
+    return dx.reshape(x.shape), dwqkv.reshape(3, h, d, e), dwout.reshape(h, d, e)
+
+
+class _FeatAttnLn(torch.autograd.Function):
+    """K5 forward, K7s backward; saves x and the weights only (the JAX
+    package's `_fused_attn_ln_vjp`). Weight cotangents come back in the
+    weights' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, w_out):
+        ctx.save_for_backward(x, w_qkv, w_out)
+        return fused_feature_attention_ln(x, w_qkv, w_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_qkv, w_out = ctx.saved_tensors
+        dx, dwqkv, dwout = feature_attention_ln_bwd(x, w_qkv, w_out, g.to(x.dtype))
+        return dx, dwqkv.to(w_qkv.dtype), dwout.to(w_out.dtype)
+
+
 def feature_attention_ln_im_bwd(
     x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -377,39 +466,15 @@ def feature_attention_ln_im_bwd(
         return feature_attention_ln_im_bwd_plain(x, w_qkv, w_out, g)
     b, t, s, e = x.shape
     _, h, d, _ = w_qkv.shape
-    hd = h * d
-    kernels.require_shape("K7", "w_qkv", w_qkv, (3, h, d, e))
-    kernels.require_shape("K7", "w_out", w_out, (h, d, e))
-    kernels.require_shape("K7", "g", g, tuple(x.shape))
-    if t > MAX_FUSED_ATTN_TOKENS or d not in (8, 16, 32, 64) or s * b > 2**31 - 1:
-        raise ValueError(f"K7: unsupported shape t={t}, d={d}, rows={b * s}")
-    cd = x.dtype
-    wqkv = kernels.aligned(w_qkv.reshape(3 * hd, e).to(cd).contiguous())
-    wout = kernels.aligned(w_out.reshape(hd, e).to(cd).contiguous())
-    x = kernels.aligned(x.contiguous())
-    g = kernels.aligned(g.to(cd).contiguous())
-    kernels.require_cuda("K7", x, g, wqkv, wout)
-    rows, dev = b * t * s, x.device
-
-    def ws(n, dtype):
-        return torch.empty((rows, n), dtype=dtype, device=dev)
-
-    qkv, o, u, du, du_c, do, dqkv = (
-        ws(3 * hd, cd), ws(hd, cd), ws(e, torch.float32), ws(e, torch.float32), ws(e, cd),
-        ws(hd, cd), ws(3 * hd, cd),
-    )
-    dx = torch.empty_like(x)
-    dwqkv = torch.empty((3 * hd, e), dtype=torch.float32, device=dev)
-    dwout = torch.empty((hd, e), dtype=torch.float32, device=dev)
-    work = kernels.wgrad_workspace(rows, 3 * hd, e, dev)
+    operands = _attn_bwd_operands("K7", x, w_qkv, w_out, g, t, b * s)
+    bufs = _attn_bwd_buffers(operands[0], b * t * s, h * d)
     rc = kernels.library().mmpfn_feat_attn_bwd_im(
-        x.data_ptr(), wqkv.data_ptr(), wout.data_ptr(), g.data_ptr(), qkv.data_ptr(),
-        o.data_ptr(), u.data_ptr(), du.data_ptr(), du_c.data_ptr(), do.data_ptr(),
-        dqkv.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dwout.data_ptr(), work.data_ptr(),
-        b, t, s, e, h, d, kernels.WGRAD_ROWS, *kernels.launch_args(x, "K7"),
+        *(a.data_ptr() for a in operands + bufs),
+        b, t, s, e, h, d, kernels.WGRAD_ROWS, *kernels.launch_args(operands[0], "K7"),
     )
     kernels.check(rc, "K7")
     kernels.LAUNCHES["K7"] += 1
+    dx, dwqkv, dwout = bufs[7:10]
     return dx, dwqkv.reshape(3, h, d, e), dwout.reshape(h, d, e)
 
 

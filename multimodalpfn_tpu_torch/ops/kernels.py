@@ -41,7 +41,7 @@ NVCC_FLAGS = [
 # kernel id -> launches through its wrapper since the last reset
 LAUNCHES: dict[str, int] = {
     "K1": 0, "K2a": 0, "K2b": 0, "K3": 0, "K4": 0, "K5": 0, "K6a": 0, "K6b": 0,
-    "K7": 0, "K8": 0, "K9": 0, "K10": 0,
+    "K7": 0, "K7s": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0,
 }
 
 # Rows of the weight-gradient contractions per block: each chunk's float32
@@ -77,6 +77,12 @@ _SIGNATURES = {
     # (x, wqkv, wout, g, qkv, o, u, du, du_c, do, dqkv, dx, dwqkv, dwout, work,
     #  b, t, s, e, h, d, wgrad_rows, dtype, device, stream)
     "mmpfn_feat_attn_bwd_im": [_P] * 15 + [_I] * 7 + [_I, _I, _P],
+    # (x, wqkv, wout, g, qkv, o, u, du, du_c, do, dqkv, dx, dwqkv, dwout, work,
+    #  rows, t, e, h, d, wgrad_rows, dtype, device, stream)
+    "mmpfn_feat_attn_bwd": [_P] * 15 + [_I] * 6 + [_I, _I, _P],
+    # (q, k, v, o, lse, do, do_c, delta, dq, dk, dv, G, Sq, Skv, d, scale,
+    #  dtype, device, stream)
+    "mmpfn_flash_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _P],
     # (x, w1, w2, g, gz, gzg, u, du, du_c, dz, dx, dw1, dw2, work,
     #  rows, e, nhid, wgrad_rows, dtype, device, stream)
     "mmpfn_mlp_ln_bwd": [_P] * 14 + [_L, _I, _I, _I, _I, _I, _P],

@@ -12,10 +12,21 @@ reference torch format (`models.loading.save_model`) so the port's
 
 On the card the step runs bf16 compute with float32 master weights, and the
 encoder layers run the hand-written kernels forward (K1, K2a + K2b, K3) and
-backward (K7, K10 + K9, K8); validation is the inference forward. The JAX
-package's XLA-specific parts (compile effort, program cache, prewarm thread,
-remat threshold) have no counterpart; its orbax final snapshot and exact
-resume (``save_train_state``) are not ported yet.
+backward (K7, K10 + K9, K8); a model whose item attention the K2 gate refuses
+(a checkpoint without the multiquery test block, or ``fused_item`` off) runs
+K4 forward and K11 backward in both item blocks instead. Validation is the
+inference forward.
+
+``resume`` continues an interrupted fine-tune exactly, as the JAX package
+does: every ``state_checkpoint_every`` steps the params, the optimizer state
+and the step go to ``<save path>.state.npz`` (`train/step.py`), written by a
+background thread before that step runs; a resumed call restores them and
+goes on from the step after. Like the JAX package's, the episode sampler and
+the dropout generator restart from their seeds. The JAX package's
+XLA-specific parts (compile effort, program cache, prewarm thread, remat
+threshold) have no counterpart, nor has its orbax snapshot of the final
+state: the port's snapshot is the reference-format best one, which
+`MMPFNClassifier` serves.
 """
 
 from __future__ import annotations
@@ -46,6 +57,9 @@ from multimodalpfn_tpu_torch.train.step import (
     init_train_state,
     make_optimizer,
     make_train_step,
+    restore_train_state,
+    train_state_arrays,
+    write_train_state,
 )
 
 logger = logging.getLogger(__name__)
@@ -218,13 +232,17 @@ def fine_tune_mmpfn(
     episode_batch_size: int = 1,
     use_early_stopping: bool = False,
     compute_dtype: str | None = None,
+    resume: bool = False,
+    state_checkpoint_every: int = 25,
 ) -> dict[str, Any]:
     """Fine-tune and save the best-by-validation snapshot. Returns the JAX
     package's history: ``train_loss``, ``grad_norm``, ``val_error`` (step,
     error), ``best_val_error``, ``steps``, ``step_seconds``, ``wall_s``,
     ``phase_seconds``, and ``skipped_steps``, the updates the non-finite
     guard skipped. Runs on the card unless ``device="cpu"``; without CUDA it
-    raises."""
+    raises. With ``resume`` and a state file from an earlier call, training
+    continues from the step after the saved one (module docstring);
+    ``state_checkpoint_every=0`` writes no state."""
     logger.setLevel(logger_level)
     st_time = time.time()
     device = resolve_device(device)
@@ -262,6 +280,14 @@ def fine_tune_mmpfn(
         phase_seconds=phase_seconds,
     )
     cfg, loaded = trainer.cfg, trainer.loaded
+
+    # exact resume (params + optimizer state + step), as the JAX package's
+    state_path = Path(str(save_path_to_fine_tuned_model) + ".state.npz")
+    start_step = 0
+    if resume and state_path.exists():
+        restore_train_state(state_path, trainer.state)
+        start_step = trainer.state.step
+        logger.info("resumed fine-tuning at step %d", start_step)
     x_tr, i_tr, y_tr = trainer.data["x"], trainer.data["image"], trainer.data["y"]
     n_classes = int(y_tr.max()) + 1
     n_tr = len(y_tr)
@@ -292,8 +318,9 @@ def fine_tune_mmpfn(
     snap_writer = AsyncSnapshotWriter(
         lambda p: save_model(save_path, p, loaded.config, ckpt_config=loaded.ckpt_config)
     )
+    state_writer = AsyncSnapshotWriter(lambda arrays: write_train_state(state_path, arrays))
     validate_inline = int(cfg_hp["validate_every_n_steps"]) == 1
-    will_train = int(cfg_hp["max_steps"]) > 0
+    will_train = int(cfg_hp["max_steps"]) > start_step
 
     # ---- initial validation + snapshot (reference `finetune_mmpfn_main.py:321,352`);
     # with validation every step the JAX package validates the initial
@@ -322,11 +349,13 @@ def fine_tune_mmpfn(
     }
     best_snap = None
 
-    for step_i in range(1, int(cfg_hp["max_steps"]) + 1):
+    for step_i in range(start_step + 1, int(cfg_hp["max_steps"]) + 1):
         t_iter = time.time()
         if time.time() - st_time > time_limit:
             logger.info("time limit reached at step %d", step_i)
             break
+        if state_checkpoint_every and step_i % state_checkpoint_every == 0:
+            state_writer.submit(train_state_arrays(trainer.state))
         metrics = trainer.step(episode_batch_size)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         history["skipped_steps"] += int(not metrics["applied"])
@@ -351,11 +380,15 @@ def fine_tune_mmpfn(
     t_phase = time.time()
     if best_snap is not None:
         snap_writer.submit(best_snap)
-    try:
-        snap_writer.close()
-    except Exception as e:  # the completed run is kept; the error is reported
-        logger.error("background snapshot write failed: %r", e)
-        history["snapshot_write_errors"] = [repr(e)]
+    write_errors = []
+    for writer in (snap_writer, state_writer):
+        try:
+            writer.close()
+        except Exception as e:  # the completed run is kept; the error is reported
+            logger.error("background snapshot write failed: %r", e)
+            write_errors.append(repr(e))
+    if write_errors:
+        history["snapshot_write_errors"] = write_errors
     phase_seconds["final_snapshot_flush"] = time.time() - t_phase
     history["wall_s"] = time.time() - st_time
     history["phase_seconds"] = phase_seconds

@@ -215,3 +215,83 @@ def make_train_step(cfg: ModelConfig, loss_fn: Callable):
         return state, {"loss": loss.detach(), "grad_norm": grad_norm, "applied": applied}
 
     return step_fn
+
+
+# --- full-state checkpointing (params + optimizer state + step) --------------
+# The reference saves weight snapshots only; the JAX package resumes an
+# interrupted fine-tune exactly (`train/step.py:save_train_state`), and so
+# does the port, from its own file format: one .npz of named arrays.
+
+_OPT_SCALARS = ("count", "max_lr", "weight_sum", "notfinite_count", "total_notfinite")
+
+
+def train_state_arrays(state: TrainState) -> dict[str, torch.Tensor]:
+    """Copies of every tensor and counter of ``state``, by name: the params
+    (``params/<leaf>``), the optimizer's base iterate and second moment of
+    each trainable leaf (``z/<leaf>``, ``nu/<leaf>``), its counters and the
+    step. The copies stay on the params' device, so a background writer can
+    fetch them while training goes on."""
+    out: dict[str, torch.Tensor] = {}
+    opt = state.optimizer
+    with torch.no_grad():
+        for k, p in flatten_params(state.params).items():
+            out[f"params/{k}"] = p.detach().clone()
+            st = opt.state.get(p)
+            if st is not None:
+                out[f"z/{k}"] = st["z"].clone()
+                out[f"nu/{k}"] = st["nu"].clone()
+    for name in _OPT_SCALARS:  # Python floats and ints, kept exactly
+        v = getattr(opt, name)
+        out[name] = torch.tensor(v, dtype=torch.float64 if isinstance(v, float) else torch.int64)
+    out["step"] = torch.tensor(state.step, dtype=torch.int64)
+    return out
+
+
+def write_train_state(path, arrays: dict[str, torch.Tensor]) -> None:
+    """Write `train_state_arrays` to ``path`` (an ``.npz``)."""
+    import numpy as np
+
+    np.savez(path, **{k: v.detach().cpu().numpy() for k, v in arrays.items()})
+
+
+def save_train_state(path, state: TrainState) -> None:
+    """Params, optimizer state and step of ``state`` in one ``.npz``
+    (the JAX package's `save_train_state`)."""
+    write_train_state(path, train_state_arrays(state))
+
+
+def restore_train_state(path, template: TrainState) -> TrainState:
+    """Restore into a freshly initialized state of the same params and
+    optimizer (the JAX package's `restore_train_state`): the tensors are
+    overwritten in place, bit for bit, on their own devices. Raises
+    ValueError when the file's leaves are not the template's."""
+    import numpy as np
+
+    opt = template.optimizer
+    flat = flatten_params(template.params)
+    with np.load(path) as data:
+        expected = {f"params/{k}" for k in flat} | set(_OPT_SCALARS) | {"step"}
+        expected |= {f"{n}/{k}" for k, p in flat.items() if p in opt.state for n in ("z", "nu")}
+        if set(data.files) != expected:
+            raise ValueError(f"{path}: the checkpoint's leaves are not the optimizer's "
+                             f"(missing {sorted(expected - set(data.files))[:4]}, "
+                             f"extra {sorted(set(data.files) - expected)[:4]})")
+
+        def put(dst: torch.Tensor, name: str) -> None:
+            src = torch.from_numpy(data[name])
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"{path}: {name} is {src.dtype} {tuple(src.shape)}, expected "
+                                 f"{dst.dtype} {tuple(dst.shape)}")
+            dst.copy_(src)
+
+        with torch.no_grad():
+            for k, p in flat.items():
+                put(p, f"params/{k}")
+                st = opt.state.get(p)
+                if st is not None:
+                    put(st["z"], f"z/{k}")
+                    put(st["nu"], f"nu/{k}")
+        for name in _OPT_SCALARS:
+            setattr(opt, name, type(getattr(opt, name))(data[name].item()))
+        template.step = int(data["step"].item())
+    return template

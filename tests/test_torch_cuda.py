@@ -22,7 +22,7 @@ F32_TOL = dict(rtol=5e-5, atol=5e-5)
 FORWARD_TOL = dict(rtol=2e-4, atol=2e-5)
 
 # an inference path launches no backward kernel
-NO_BACKWARD = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
+NO_BACKWARD = {"K7": 0, "K7s": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0}
 
 pytestmark = pytest.mark.cuda
 
@@ -421,25 +421,82 @@ def test_backward_kernels_match_plain(cuda, dtype, b, t, S, sep, e, h, d, nhid):
 
 
 def test_inference_only_kernels_raise_under_autograd(cuda):
-    """K4, K5, K6a and K6b have no backward kernel: on the card their wrappers
-    refuse inputs that require grad, and run under no_grad."""
+    """K5 with ``token_valid_count``, K6a and K6b have no backward kernel: on
+    the card their wrappers refuse inputs that require grad, and run under
+    no_grad. K4 and the unmasked K5 have one (K11, K7s) and return
+    gradients."""
     gen = torch.Generator().manual_seed(15)
-    q = _rand(gen, 2, 9, 16, device=cuda).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K4"):
-        flash.flash_attention(q, q, q)
     x = _rand(gen, 2, 5, 7, 32, device=cuda).requires_grad_(True)
     w_qkv, w_out = _rand(gen, 3, 4, 8, 32, device=cuda), _rand(gen, 4, 8, 32, device=cuda)
     mask = torch.ones((2, 7), dtype=torch.bool)
     with pytest.raises(NotImplementedError, match="K5"):
-        fused.fused_feature_attention_ln(x, w_qkv, w_out)
+        fused.fused_feature_attention_ln(x, w_qkv, w_out, token_valid_count=6)
     with pytest.raises(NotImplementedError, match="K6b"):
         fused.fused_feature_attention_ln(x, w_qkv, w_out, key_mask=mask[:, None])
     xi = x.detach().transpose(1, 2).contiguous().requires_grad_(True)  # (b, t, s, e)
     with pytest.raises(NotImplementedError, match="K6a"):
         fused.fused_feature_attention_ln_im(xi, w_qkv, w_out, key_mask=mask)
     with torch.no_grad():
-        flash.flash_attention(q, q, q)
-        fused.fused_feature_attention_ln(x, w_qkv, w_out)
+        fused.fused_feature_attention_ln(x, w_qkv, w_out, token_valid_count=6)
+        fused.fused_feature_attention_ln_im(xi, w_qkv, w_out, key_mask=mask)
+    before = dict(kernels.LAUNCHES)
+    q = _rand(gen, 2, 9, 16, device=cuda).requires_grad_(True)
+    o, lse = flash.flash_attention(q, q, q)
+    (dq,) = torch.autograd.grad(o, q, torch.ones_like(o))
+    assert dq.shape == q.shape and torch.isfinite(dq).all() and not lse.requires_grad
+    out = fused.fused_feature_attention_ln(x, w_qkv, w_out)
+    (dx,) = torch.autograd.grad(out, x, torch.ones_like(out))
+    assert dx.shape == x.shape and torch.isfinite(dx).all()
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in ("K4", "K5", "K7s", "K11")}
+    assert ran == {"K4": 1, "K5": 1, "K7s": 1, "K11": 1}
+
+
+# K11 at ragged shapes: Sq and Skv off the 64-row tiles, Skv below one tile,
+# the folded multiquery block (h·Sq queries against one KV head), d 8 to 64
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Sq,Skv,d", [(3, 70, 90, 32), (2, 183, 131, 16), (4, 5, 37, 8),
+                                        (2, 6 * 61, 129, 32), (1, 130, 200, 64)])
+def test_k11_matches_plain(cuda, dtype, G, Sq, Skv, d):
+    """K11 against its plain version from K4's saved o and lse (float32 5e-5,
+    bf16 two bf16 ulps, each output relative to its own largest magnitude),
+    the same bits on a second run."""
+    gen = torch.Generator().manual_seed(G * 1000 + Sq + Skv + d)
+    q = _rand(gen, G, Sq, d, device=cuda).to(dtype)
+    k, v = (_rand(gen, G, Skv, d, device=cuda).to(dtype) for _ in range(2))
+    o, lse = flash.flash_attention(q, k, v)
+    do = _rand(gen, G, Sq, d, device=cuda)
+    bound = 5e-5 if dtype == torch.float32 else 2.0**-6
+    before = kernels.LAUNCHES["K11"]
+    got, again = flash.flash_attention_bwd(q, k, v, o, lse, do), flash.flash_attention_bwd(q, k, v, o, lse, do)
+    assert kernels.LAUNCHES["K11"] == before + 2
+    for name, a, c, w in zip(("dq", "dk", "dv"), got, again,
+                             flash.flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        assert a.dtype == w.dtype == dtype and a.shape == w.shape, name
+        assert torch.equal(a, c), f"{name} differs between runs"
+        rel = (a.float() - w.float()).abs().max() / w.float().abs().max()
+        assert rel <= bound, f"{name}: rel err {float(rel):.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,t,e,h,d", [((2, 37), 5, 48, 3, 16), ((1, 3, 20), 9, 64, 2, 32),
+                                          ((1, 150), 30, 192, 6, 32), ((70,), 48, 32, 4, 8)])
+def test_k7s_matches_plain(cuda, dtype, lead, t, e, h, d):
+    """K7s against its plain version (dx, dW_qkv, dW_out, each relative to
+    its own largest magnitude), the same bits on a second run."""
+    gen = torch.Generator().manual_seed(sum(lead) + t + e)
+    x, g = (_rand(gen, *lead, t, e, device=cuda).to(dtype) for _ in range(2))
+    w_qkv = _rand(gen, 3, h, d, e, scale=e**-0.5, device=cuda)
+    w_out = _rand(gen, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    bound = 5e-5 if dtype == torch.float32 else 2.0**-6
+    before = kernels.LAUNCHES["K7s"]
+    got = fused.feature_attention_ln_bwd(x, w_qkv, w_out, g)
+    again = fused.feature_attention_ln_bwd(x, w_qkv, w_out, g)
+    assert kernels.LAUNCHES["K7s"] == before + 2
+    for i, (a, c, w) in enumerate(zip(got, again, fused.feature_attention_ln_bwd_plain(x, w_qkv, w_out, g))):
+        assert a.dtype == w.dtype and a.shape == w.shape, i
+        assert torch.equal(a, c), f"output {i} differs between runs"
+        rel = (a.float() - w.float()).abs().max() / w.float().abs().max()
+        assert rel <= bound, f"output {i}: rel err {float(rel):.3e}"
 
 
 def test_finetune_three_steps_on_the_card(cuda, tmp_path):
@@ -470,10 +527,58 @@ def test_finetune_three_steps_on_the_card(cuda, tmp_path):
     )
     assert hist["steps"] == 3 and hist["skipped_steps"] == 0
     assert np.isfinite(hist["train_loss"]).all() and np.isfinite(hist["grad_norm"]).all()
-    assert {k: kernels.LAUNCHES[k] for k in NO_BACKWARD} == {k: 3 * cfg.nlayers for k in NO_BACKWARD}
+    assert {k: kernels.LAUNCHES[k] for k in NO_BACKWARD} == (
+        {k: 3 * cfg.nlayers for k in ("K7", "K8", "K9", "K10")} | {"K7s": 0, "K11": 0})
     clf = MMPFNClassifier(model_path=out, mixer_type="MGM+CAP", mgm_heads=2, cap_heads=2,
                           n_estimators=2, device="cuda")
     clf.fit(X[:90], img[:90], y[:90])
     proba = clf.predict_proba(X[90:], img[90:])
+    assert proba.shape == (30, 3)
+    np.testing.assert_allclose(proba.sum(axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("multiquery", [False, True])
+def test_flash_path_finetune_three_steps_on_the_card(cuda, tmp_path, multiquery):
+    """``fine_tune_mmpfn`` on the card, three bf16 steps. A checkpoint
+    without the multiquery test block runs K4 forward and K11 backward in
+    both item blocks of every layer, and never K2a, K2b, K9 or K10; the
+    multiquery checkpoint, for contrast, runs the fused item sublayer (K10 +
+    K9) and no K11. The snapshot keeps the key and the classifier serves
+    it."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch import TabPFNClassifier
+    from multimodalpfn_tpu_torch.datasets.synthetic import toy_classification
+    from multimodalpfn_tpu_torch.models.loading import load_model, save_model
+    from multimodalpfn_tpu_torch.train.finetune import fine_tune_mmpfn
+
+    cfg = ModelConfig(emsize=64, nhead=4, nhid_factor=2, nlayers=2, n_out=10, max_num_classes=10,
+                      multiquery_item_attention_for_test_set=multiquery)
+    base = tmp_path / "base.ckpt"
+    save_model(base, tparams.init_params(torch.Generator().manual_seed(0), cfg), cfg)
+    X, y = toy_classification(n=120, n_classes=3, seed=7)
+    out = tmp_path / "ft.ckpt"
+    kernels.reset_launches()
+    hist = fine_tune_mmpfn(
+        mixer_type="none", mgm_heads=2, cap_heads=2, features_per_group=1,
+        path_to_base_model=base, save_path_to_fine_tuned_model=out,
+        finetuning_config={"max_steps": 3, "learning_rate": 1e-3},
+        X_train=X, y_train=y, random_seed=0,
+    )
+    assert hist["steps"] == 3 and hist["skipped_steps"] == 0
+    assert np.isfinite(hist["train_loss"]).all() and np.isfinite(hist["grad_norm"]).all()
+    ran = dict(kernels.LAUNCHES)
+    L = cfg.nlayers
+    if multiquery:
+        assert ran["K9"] == ran["K10"] == 3 * L and ran["K11"] == 0
+    else:
+        # K4 in both blocks of every layer: 3 training forwards, 4 validations
+        assert ran["K11"] == 2 * 3 * L and ran["K4"] == 2 * L * (3 + 4)
+        assert ran["K2a"] == ran["K2b"] == ran["K9"] == ran["K10"] == 0
+    assert ran["K7"] == ran["K8"] == 3 * L and ran["K7s"] == 0
+    assert load_model(out).config.multiquery_item_attention_for_test_set is multiquery
+    clf = TabPFNClassifier(model_path=out, n_estimators=2, device="cuda")
+    clf.fit(X[:90], y[:90])
+    proba = clf.predict_proba(X[90:])
     assert proba.shape == (30, 3)
     np.testing.assert_allclose(proba.sum(axis=1), 1.0, atol=1e-5)

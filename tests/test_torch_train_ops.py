@@ -166,13 +166,62 @@ def test_bf16_plain_backwards_round_where_the_kernels_do():
 
 
 def test_inference_only_kernels_forbid_autograd():
-    """K4, K5, K6a and K6b have no backward kernel: their wrappers refuse
-    autograd on the card (the check runs before any launch)."""
-    from multimodalpfn_tpu_torch.ops import kernels
+    """K5 with ``token_valid_count``, K6a and K6b have no backward kernel (the
+    JAX package gives them no VJP): off the CPU their wrappers refuse inputs
+    that require grad before any launch. K4 and the unmasked K5 have one
+    (K11, K7s): they go through their autograd Functions instead, which on a
+    meta tensor stop at the device check, not at the autograd refusal."""
+    from multimodalpfn_tpu_torch.ops import flash, kernels
 
+    def meta(*shape):
+        return torch.empty(shape, device="meta").requires_grad_(True)
+
+    x, w_qkv, w_out = meta(2, 5, 7, 32), meta(3, 4, 8, 32), meta(4, 8, 32)
+    mask = torch.ones((2, 7), dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="K5 has no backward kernel"):
+        tf.fused_feature_attention_ln(x, w_qkv, w_out, token_valid_count=6)
+    with pytest.raises(NotImplementedError, match="K6b has no backward kernel"):
+        tf.fused_feature_attention_ln(x, w_qkv, w_out, key_mask=mask[:, None])
+    xi = meta(2, 7, 5, 32)  # (b, t, s, e)
+    with pytest.raises(NotImplementedError, match="K6a has no backward kernel"):
+        tf.fused_feature_attention_ln_im(xi, w_qkv, w_out, key_mask=mask)
+    with pytest.raises(ValueError, match="K5: operands must share one CUDA device"):
+        tf.fused_feature_attention_ln(x, w_qkv, w_out)
+    q = meta(2, 9, 16)
+    with pytest.raises(ValueError, match="K4: operands must share one CUDA device"):
+        flash.flash_attention(q, q, q)
     t = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K4 has no backward kernel"):
-        kernels.forbid_autograd("K4", t)
+    with pytest.raises(NotImplementedError, match="K6a has no backward kernel"):
+        kernels.forbid_autograd("K6a", t)
     with torch.no_grad():
-        kernels.forbid_autograd("K4", t)
-    kernels.forbid_autograd("K4", t.detach())
+        kernels.forbid_autograd("K6a", t)
+    kernels.forbid_autograd("K6a", t.detach())
+
+
+def test_k4_and_unmasked_k5_return_gradients():
+    """K4 and the unmasked K5 are differentiable: on the CPU their autograd
+    Functions return the plain backwards' gradients (K11's and K7s'), for
+    every input, and count no launch."""
+    from multimodalpfn_tpu_torch.ops import flash, kernels
+
+    rng = np.random.default_rng(6)
+    kernels.reset_launches()
+    q, k, v = (torch.from_numpy(_rand(rng, (2, n, 8))).requires_grad_(True) for n in (9, 13, 13))
+    o, lse = flash.flash_attention(q, k, v)
+    assert not lse.requires_grad
+    do = torch.from_numpy(_rand(rng, (2, 9, 8)))
+    got = torch.autograd.grad(o, (q, k, v), do)
+    want = flash.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(),
+                                           lse, do)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    x = torch.from_numpy(_rand(rng, (2, 5, 7, 16))).requires_grad_(True)
+    w_qkv = torch.from_numpy(_rand(rng, (3, 2, 8, 16), 0.3)).requires_grad_(True)
+    w_out = torch.from_numpy(_rand(rng, (2, 8, 16), 0.3)).requires_grad_(True)
+    g = torch.from_numpy(_rand(rng, (2, 5, 7, 16)))
+    out = tf.fused_feature_attention_ln(x, w_qkv, w_out)
+    got = torch.autograd.grad(out, (x, w_qkv, w_out), g)
+    want = tf.feature_attention_ln_bwd_plain(x.detach(), w_qkv.detach(), w_out.detach(), g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not any(kernels.LAUNCHES.values())
