@@ -10,7 +10,9 @@ Phases, each of which must pass:
 
 1. Setup: print the card (``nvidia-smi`` name and power limit), turn TF32 off,
    build the CUDA kernels from ``multimodalpfn_tpu_torch/csrc`` and print the
-   build time; write the model every phase serves (the published 192×12
+   build time; count HGMMA in the SASS of the 12 bf16 pass kernels of K9 and
+   K11 (``cuobjdump``), each of which must issue wgmma; write the model every
+   phase serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
    projections filled in from seed 1) to ``build/``.
 2. Kernel checks: each kernel against its plain PyTorch version at the shapes
@@ -92,7 +94,12 @@ Phases, each of which must pass:
 Phase 8 also holds K7s at x (1, 1838, 30, 192) and K11 at the flash path's
 three blocks (train G = 180, Sq = Skv = 1655; test G = 180, Sq = 183; the
 folded test block G = 30, Sq = 6·183 = 1098; d = 32) to their plain
-versions, with SDPA's backward as K11's yardstick.
+versions, with SDPA's backward as K11's yardstick. For K9 and K11 it prints
+the dq and dk/dv passes' device times apart (profiler kernel names) and an
+exponential floor beside the bound (every (query, key) pair exponentiated
+once a pass, 16 ex2 a clock per SM at the card's maximum SM clock), and it
+holds their float32 outputs (and K11's bf16 at d = 8), which the CUDA-core
+bodies compute, to the parent commit's bits (`PARENT_F32_SHA256`).
 
 ``--profile`` adds a phase 14: ``torch.profiler`` around one warm request of
 each size in both modes and around one warm training step of each item path
@@ -138,6 +145,10 @@ MERGE_WIDTHS, N_IMG_TOKENS = (39, 39, 22, 22), 8
 # tensor-core bf16 and CUDA-core float32 FLOP/s, and HBM3 bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# MUFU.EX2 results per clock per SM on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): the floor of the
+# attention backward's exponentials
+EX2_PER_CLOCK_PER_SM = 16
 
 KERNELS = {
     "K1": dict(
@@ -211,6 +222,15 @@ KERNELS = {
         replaces="multimodalpfn_tpu/ops/pallas_attention.py:333",
     ),
 }
+# `f32_fingerprints` of commit 32e8513 on an H100 80GB HBM3, before the bf16
+# bodies of K9 and K11 moved to wgmma: their CUDA-core bodies (float32, and
+# bf16 at d = 8) must go on giving these bits
+PARENT_F32_SHA256 = {
+    "K11 f32 d=8": "b9f0e3a2bc2964aa", "K11 f32 d=16": "b910ce43502031dc",
+    "K11 f32 d=32": "4055da75ae152101", "K11 f32 d=64": "8d25581c0adcb482",
+    "K11 bf16 d=8": "f08cbd5d6befbdc3", "K9 f32 d=16": "316bb5119ccb572e",
+    "K9 f32 d=32": "c392cb97580252e8",
+}
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
 # (K6a, K6b) whatever the rule plans
@@ -277,6 +297,70 @@ def bound(flops: float, nbytes: float, tag: str) -> tuple[float, str]:
     ``nbytes`` of device-memory traffic, and which of the two bounds it."""
     t_ops, t_bytes = flops / PEAK_FLOPS[tag], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def wgmma_sass_counts(lib: Path) -> dict:
+    """HGMMA instructions in the SASS (``cuobjdump --dump-sass``) of each
+    bf16 pass kernel of `csrc/attn_bwd.cuh`: the dq and dk/dv passes at
+    d = 16, 32, 64 for K9's and K11's geometry, 12 kernels."""
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    proc = subprocess.Popen([tool, "--dump-sass", str(lib)], stdout=subprocess.PIPE, text=True)
+    counts, fn = {}, None
+    for line in proc.stdout:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            fn = None
+            if "wg_kernel" in name:
+                pas = "dq" if "dq_wg_kernel" in name else "dkv"
+                geo = "K9" if "ItemGeo" in name else "K11"
+                d = re.search(r"wg_kernelILi(\d+)", name).group(1)
+                fn = f"{geo} {pas} d={d}"
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    check(proc.wait(timeout=300) == 0, "cuobjdump failed")
+    return counts
+
+
+def exp_floor_ms(pairs: float, device) -> float | None:
+    """The least time in ms the card's SFUs take for ``pairs`` ex2 results:
+    16 a clock per SM at the maximum SM clock that nvidia-smi reports."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    hz = float(smi.stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return pairs / (EX2_PER_CLOCK_PER_SM * sms * hz) * 1e3
+
+
+def pass_ms(fn, device, iters: int) -> dict:
+    """Device ms per call of the dq and dk/dv passes of `csrc/attn_bwd.cuh`
+    that ``fn`` launches, from the profiler's kernel names."""
+    import torch
+
+    if device.type != "cuda":
+        return {}
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {"dq_pass": 0.0, "dkv_pass": 0.0}
+    for ms, _, name in device_kernel_rows(prof):
+        for tag in out:
+            if f"attn_bwd::{tag[:-5]}_" in name:
+                out[tag] += ms / iters
+    return out
 
 
 def densify(params: dict, seed: int) -> None:
@@ -546,6 +630,10 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
 
     hS = S - sep
     blocks = {"K11": (G * h, sep), "K11@test": (G * h, hS), "K11@folded": (G, h * hS)}
+    # the (query, key) pairs each pass of K9 and K11 exponentiates: K9's
+    # self region (every head) and cross region (test rows of every head
+    # against KV head 0's train keys); K11's block
+    pairs = {"K9": G * h * (sep * sep + hS * sep)} | {kid: G_ * Sq * sep for kid, (G_, Sq) in blocks.items()}
     # FLOPs and bytes of the work itself: each input read once, each output
     # written once; attention FLOPs over the (query, key) pairs of the run
     cases = {
@@ -610,11 +698,20 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
             if kid in libraries and tag == "bf16":
                 res[f"library_ms_{tag}"] = timed(libraries[kid](dt), device, iters)
             lib = res[f"library_ms_{tag}"]
+            passes = ""
+            if kid in pairs:
+                for name, ms in pass_ms(lambda: kern(*args), device, iters).items():
+                    res[f"{name}_ms_{tag}"] = ms
+                    passes += f", {name} {ms:.3f} ms"
+                # computed, not measured: printed here, kept out of the kernels line
+                floor = exp_floor_ms(2 * pairs[kid], device)
+                if floor is not None:
+                    passes += f", exp floor {floor:.3f} ms"
             print(
                 f"  {kid} {tag}: rel errs {', '.join(f'{r:.2e}' for r in rels)} (bound "
                 f"{rel_bound:.3e}), max abs err {max(errs):.3e}, repeat bit-equal {same}, "
                 f"kernel {res[f'ms_{tag}']:.3f} ms, plain {res[f'plain_ms_{tag}']:.3f} ms, "
-                f"bound {res[f'bound_ms_{tag}']:.3f} ms ({res[f'bound_by_{tag}']})"
+                f"bound {res[f'bound_ms_{tag}']:.3f} ms ({res[f'bound_by_{tag}']})" + passes
                 + ("" if tag == "f32" else ", no single library call" if lib is None
                    else f", library (SDPA backward) {lib:.3f} ms"),
                 flush=True,
@@ -625,6 +722,49 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
         results[kid] = res
         flash_in.clear()
     return results
+
+
+def f32_fingerprints(device) -> dict:
+    """sha256 (first 16 hex digits) of the float32 outputs of K9 and K11 and
+    of K11's bf16 outputs at d = 8: the work of the CUDA-core bodies of
+    `csrc/attn_bwd.cuh`, which the bf16 redesign left as they were. Inputs
+    come from a seeded CPU generator and the plain forward and epilogue
+    backward on the card (no other kernel of the port, so the digests pin
+    the CUDA-core bodies alone); phase 8 holds them equal to
+    `PARENT_F32_SHA256`, the parent commit's."""
+    import hashlib
+
+    import torch
+
+    from multimodalpfn_tpu_torch.ops import flash, item_fused
+
+    gen = torch.Generator().manual_seed(6)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+
+    def digest(ts) -> str:
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    with torch.no_grad():
+        for dt, d in ((torch.float32, 8), (torch.float32, 16), (torch.float32, 32),
+                      (torch.float32, 64), (torch.bfloat16, 8)):
+            q, k, v = rand(6, 183, d).to(dt), rand(6, 300, d).to(dt), rand(6, 300, d).to(dt)
+            o, lse = flash.flash_attention_plain(q, k, v)
+            tag = "f32" if dt == torch.float32 else "bf16"
+            out[f"K11 {tag} d={d}"] = digest(flash.flash_attention_bwd(q, k, v, o, lse, rand(6, 183, d)))
+        for d in (16, 32):
+            h, e, S, sep = 6, 96, 300, 237
+            x3, g3 = rand(2, S, e), rand(2, S, e)
+            w_qkv, w_out = rand(3, h, d, e, scale=e**-0.5), rand(h, d, e, scale=(h * d) ** -0.5)
+            o, lse = item_fused.item_attention_core_plain(x3, w_qkv, sep)
+            du, do, delta, _ = item_fused.item_epilogue_bwd_plain(x3, o, w_out, g3)
+            out[f"K9 f32 d={d}"] = digest(item_fused.item_attention_bwd(x3, w_qkv, do, delta, lse, sep, du))
+    return out
 
 
 def device_kernel_rows(prof) -> list[tuple[float, int, str]]:
@@ -1242,6 +1382,10 @@ def main() -> int:
         kernels.library()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"({kernels.library_path().name})", flush=True)
+        hgmma = wgmma_sass_counts(kernels.library_path())
+        print(f"  HGMMA instructions in the SASS of the bf16 passes of K9/K11: {hgmma}", flush=True)
+        check(len(hgmma) == 12 and min(hgmma.values()) > 0,
+              "the bf16 attention-backward passes do not all issue wgmma")
     model_path = ROOT / "build" / "chip_smoke_model.npz"
     write_model(model_path)
     nmq_path = ROOT / "build" / "chip_smoke_model_no_multiquery.npz"
@@ -1292,6 +1436,11 @@ def main() -> int:
     print("== phase 8: backward kernels against their plain versions (fine-tune shapes)", flush=True)
     ft_dims = (1, 5, 37, 21, 32, 4, 8, 64) if args.rehearse else FT_DIMS
     kres |= phase_bwd_kernels(device, ft_dims, iters)
+    if device.type == "cuda":
+        prints = f32_fingerprints(device)
+        print(f"  K9/K11 CUDA-core outputs (sha256): {prints}", flush=True)
+        check(prints == PARENT_F32_SHA256,
+              f"K9/K11 CUDA-core outputs differ from the parent commit's: {prints} != {PARENT_F32_SHA256}")
 
     ft_data = (X, img, y)
     ft_steps, ft_layers = (2, 12) if args.rehearse else (FT_STEPS, 12)

@@ -12,7 +12,7 @@ __version__ = "0.1.0"
 
 from multimodalpfn_tpu_torch.estimator.classifier import MMPFNClassifier, TabPFNClassifier
 from multimodalpfn_tpu_torch.models.config import MixerConfig, ModelConfig
-from multimodalpfn_tpu_torch.models.loading import load_model
+from multimodalpfn_tpu_torch.models.loading import load_model, save_model
 
 __all__ = [
     "MMPFNClassifier",
@@ -20,4 +20,5 @@ __all__ = [
     "ModelConfig",
     "MixerConfig",
     "load_model",
+    "save_model",
 ]

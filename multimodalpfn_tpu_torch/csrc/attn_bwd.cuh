@@ -12,38 +12,63 @@
 // (pallas_attention.py:_bwd_kernel, pallas_item_fused.py:_bwd_kernel).
 //
 // Two passes, no atomics (flash-attention-2's backward): the dq pass gives a
-// block BR query rows and streams every key in tiles of BR; the dk/dv pass
-// gives a block BR key rows and streams its query segments (several for a
-// key head that serves several query heads: the GQA reduction). No two
+// block its own query rows and streams every key in tiles; the dk/dv pass
+// gives a block its own key rows and streams its query segments (several for
+// a key head that serves several query heads: the GQA reduction). No two
 // blocks write one output, so the results are the same bits on every run.
 //
 // Where the rows are is the caller's: a geometry type `Geo` tells each
-// block, from blockIdx, its rows as pointers and row strides:
-//   QRows<T>  dq_rows() const;      the block's query rows (dq pass)
-//   KVRows<T> dq_keys() const;      the keys they attend to
-//   OutRows<T> dq_out() const;      where their dq goes
-//   KVRows<T> dkv_keys() const;     the block's key rows (dk/dv pass)
+// block, from blockIdx and its number of own rows bm, its rows both as
+// pointers with row strides (the CUDA-core bodies) and as coordinates of the
+// caller's 3-D tensor maps (group z, row, column; the tensor-core bodies):
+//   QRows<T>  dq_rows(bm) const;    the block's query rows (dq pass)
+//   KVRows<T> dq_keys(bm) const;    the keys they attend to
+//   OutRows<T> dq_out(bm) const;    where their dq goes
+//   KVRows<T> dkv_keys(bm) const;   the block's key rows (dk/dv pass)
 //   int dkv_segments() const;       how many query segments attend to them
 //   QRows<T>  dkv_segment(int) const;
-//   OutRows<T> dk_out() const, dv_out() const;
-// Rows past a count are zero-filled on load and their weights forced to 0
-// (lse = +inf, delta = 0), so no out-of-range value reaches a sum.
+//   OutRows<T> dk_out(bm) const, dv_out(bm) const;
+//   dim3 dq_grid(bm) const, dkv_grid(bm) const;   (host) the two grids
+// Rows past a count have their weights forced to 0 (lse = +inf, delta = 0),
+// so no out-of-range value reaches a sum.
 //
-// float32 operands (and d = 8) run on the CUDA cores, a thread per row; bf16
-// operands with d a multiple of 16 run on the tensor cores (mma.sync
-// m16n8k16), a warp per 16 rows.
+// float32 operands (and d = 8) run on the CUDA cores, a thread per row, the
+// parity mode. bf16 operands with d = 16, 32, 64 run on Hopper's tensor
+// cores, warp-specialised:
+//  * a block owns 128 rows, 64 per consumer warpgroup (query rows in the dq
+//    pass, key rows in the dk/dv pass), so every streamed tile serves 128;
+//  * one producer warp fills a ring of STAGES tiles through TMA (3-D tensor
+//    maps, groups × rows × columns, whose bounds zero-fill a group's ragged
+//    tail) and mbarriers; in the dk/dv pass its lanes stage each query
+//    tile's lse (times log2 e) and delta beside it. The producer warpgroup
+//    gives up its registers (setmaxnreg) to the consumers;
+//  * the scores and dp are wgmma.m64n64k16 with the own tile (A) and the
+//    streamed tile (B, K-major) from shared memory; dq += ds·k,
+//    dk += dsᵀ·q and dv += rnd(p)ᵀ·do take p and ds from registers as the A
+//    operand (the accumulator layout of the scores is the operand layout of
+//    the next product, FlashAttention-3's reuse) and the streamed tile as B
+//    with the transpose bit set. The dk/dv pass computes Sᵀ = k·qᵀ directly,
+//    so pᵀ and dsᵀ are already in that layout;
+//  * tiles lie in shared memory as TMA writes them, each row 2·d bytes under
+//    the swizzle of the same span (32, 64 or 128 bytes), which the wgmma
+//    descriptors name;
+//  * p = exp2(s·scale·log2 e − lse·log2 e): the constant is folded into the
+//    scale and into each lse once, and ex2 is one MUFU instruction.
 #pragma once
 
 #include "common.cuh"
+
+#include <cuda.h>
 
 #include <type_traits>
 
 namespace attn_bwd {
 
-constexpr int BR = 64;  // rows of a block's own tile and of a streamed tile
+constexpr int BR = 64;  // CUDA cores: rows of a block's own tile and of a streamed tile
 
 // n rows from row 0: q of row r at q + r·ldq, do at dout + r·lddo, lse and
-// delta at lse[r] and delta[r]
+// delta at lse[r] and delta[r]; in the tensor maps, rows [row, row + n) of
+// group z, q from column qcol, do from column docol
 template <typename T>
 struct QRows {
   const T* q;
@@ -52,15 +77,18 @@ struct QRows {
   const float* lse;
   const float* delta;
   int n;
+  int row, z, qcol, docol;
 };
 
-// n rows from row 0: k of row r at k + r·ld, v at v + r·ld
+// n rows from row 0: k of row r at k + r·ld, v at v + r·ld; in the tensor
+// maps, rows [row, row + n) of group z, k from column kcol, v from vcol
 template <typename T>
 struct KVRows {
   const T* k;
   const T* v;
   long long ld;
   int n;
+  int row, z, kcol, vcol;
 };
 
 // D values of output row r at p + r·ld
@@ -77,8 +105,8 @@ __global__ void __launch_bounds__(BR) dq_cc_kernel(Geo geo, float scale) {
   __shared__ __align__(16) float Ks[BR][D];
   __shared__ __align__(16) float Vs[BR][D];
   const int tid = threadIdx.x;
-  const QRows<T> qr = geo.dq_rows();
-  const KVRows<T> kv = geo.dq_keys();
+  const QRows<T> qr = geo.dq_rows(BR);
+  const KVRows<T> kv = geo.dq_keys(BR);
   const bool active = tid < qr.n;
   float q[D], g[D], dq[D];
   float lse_i = 0.f, delta_i = 0.f;
@@ -120,7 +148,7 @@ __global__ void __launch_bounds__(BR) dq_cc_kernel(Geo geo, float scale) {
     __syncthreads();
   }
   if (active) {
-    const OutRows<T> out = geo.dq_out();
+    const OutRows<T> out = geo.dq_out(BR);
     T* dst = out.p + tid * out.ld;
 #pragma unroll
     for (int c = 0; c < D; ++c) dst[c] = from_f<T>(dq[c]);
@@ -133,7 +161,7 @@ __global__ void __launch_bounds__(BR) dkv_cc_kernel(Geo geo, float scale) {
   __shared__ __align__(16) float Gs[BR][D];
   __shared__ float LSE[BR], DL[BR];
   const int tid = threadIdx.x;
-  const KVRows<T> own = geo.dkv_keys();
+  const KVRows<T> own = geo.dkv_keys(BR);
   const bool active = tid < own.n;
   float k[D], v[D], dk[D], dv[D];
 #pragma unroll
@@ -182,7 +210,7 @@ __global__ void __launch_bounds__(BR) dkv_cc_kernel(Geo geo, float scale) {
     }
   }
   if (active) {
-    const OutRows<T> ko = geo.dk_out(), vo = geo.dv_out();
+    const OutRows<T> ko = geo.dk_out(BR), vo = geo.dv_out(BR);
     T* dkr = ko.p + tid * ko.ld;
     T* dvr = vo.p + tid * vo.ld;
 #pragma unroll
@@ -193,215 +221,493 @@ __global__ void __launch_bounds__(BR) dkv_cc_kernel(Geo geo, float scale) {
   }
 }
 
-// ---- tensor cores (bf16, d a multiple of 16) ---------------------------------
-// A warp owns 16 rows of the block's tile, whose operands it holds as mma a
-// fragments; the streamed tile of 64 rows is staged row-major in shared
-// memory (rows padded by 8 elements), where its rows serve directly as b
-// fragments (B^T products) or through ldmatrix.trans (B products). Score and
-// weight fragments never leave registers: each row lives in a quad of lanes.
-constexpr int MTHREADS = 128;  // 4 warps x 16 rows = BR
-constexpr int PAD = 8;
+// ---- tensor cores (bf16, d = 16, 32, 64): TMA ring and wgmma ---------------
 
-// Stage `rows` rows of D bf16 (16-byte loads, zero past `valid`) at `dst`.
+constexpr int BM = 128;           // own rows of a block, 64 per consumer warpgroup
+constexpr int BN = 64;            // rows of a streamed tile
+constexpr int STAGES = 3;         // depth of the tile ring
+constexpr int WG_THREADS = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int CONSUMER_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <typename T, int D>
+inline constexpr bool on_wgmma = std::is_same_v<T, __nv_bfloat16> && D % 16 == 0;
+
+// The caller's tensor maps of q, k, v and do (K9: q, k, v are one map of the
+// packed qkv), passed to the kernels as a __grid_constant__ parameter.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Dynamic shared memory of both passes, from a 1024-byte aligned base: the
+// own tiles A (q or k) and B (do or v), 128 rows each; the ring of STAGES
+// stages, each a tile X (k or q) and a tile Y (v or do); per stage the
+// streamed rows' lse·log2 e and delta (dk/dv pass); the mbarriers.
 template <int D>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, long long ld,
-                                      int valid) {
-  constexpr int KP = D + PAD;
-  for (int i = threadIdx.x; i < BR * D / 8; i += MTHREADS) {
-    const int r = i / (D / 8), c = 8 * (i - r * (D / 8));
-    *reinterpret_cast<uint4*>(dst + r * KP + c) =
-        r < valid ? *reinterpret_cast<const uint4*>(src + r * ld + c) : make_uint4(0, 0, 0, 0);
-  }
+struct SmemPlan {
+  static constexpr int TILE = BN * D * 2;  // bytes of a 64-row tile
+  static constexpr int OWN_A = 0, OWN_B = 2 * TILE, RING = 4 * TILE, STAGE = 2 * TILE;
+  static constexpr int VEC = RING + STAGES * STAGE;       // float [STAGES][2][BN]
+  static constexpr int BARS = VEC + STAGES * 2 * BN * 4;  // full[STAGES], empty[STAGES], own
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// this warp's 16 rows of a staged tile as a fragments, one per 16 columns
-template <int D>
-__device__ __forceinline__ void frags(uint32_t (&a)[D / 16][4], const __nv_bfloat16* tile) {
-  const int wr = 16 * (threadIdx.x >> 5);
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) lds_a(a[ks], tile + wr * (D + PAD) + ks * 16, D + PAD);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-// acc[nb] += A(16×D, fragments a) · Bt^T for the 64 staged rows of Bt (as the
-// n axis, 8 per tile): scores against a staged tile.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+// TMA: the box of `map` at (column c0, row c1, group c2) into shared memory
+// at dst, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The wgmma descriptor of a tile of rows of D bf16 as TMA wrote it: each row
+// 2·D bytes, the span of the tile's swizzle (32, 64, 128 bytes for D = 16,
+// 32, 64: layout types 3, 2, 1), groups of 8 rows 16·D bytes apart (the
+// stride offset). The leading offset is unused: one instruction's k extent
+// (K-major) or n extent (N-major) lies within one swizzled row. A K-major
+// k step of 16 columns adds 32 bytes (2 in the address field); an N-major
+// k step of 16 rows adds 32·D bytes (2·D).
 template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[BR / 8][4], const uint32_t (&a)[D / 16][4],
-                                        const __nv_bfloat16* bt) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
+__device__ __forceinline__ uint64_t tile_desc(const void* p) {
+  constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)((16 * D) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses to wgmma accumulators across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
 #pragma unroll
-  for (int nb = 0; nb < BR / 8; ++nb) {
-    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const __nv_bfloat16* br = bt + (nb * 8 + g) * (D + PAD) + ks * 16 + 2 * q4;
-      mma_bf16_16816(acc[nb], a[ks], *reinterpret_cast<const uint32_t*>(br),
-                     *reinterpret_cast<const uint32_t*>(br + 8));
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 64) += A·B, A and B from shared memory (descriptors), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 16) += A·B, A (64 x 16) from registers in the accumulator-row
+// layout, B from shared memory, N-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32) += A·B, A (64 x 16) from registers in the accumulator-row
+// layout, B from shared memory, N-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += A·B, A (64 x 16) from registers in the accumulator-row
+// layout, B from shared memory, N-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else wgmma_rs_n64(d, a, b);
+}
+
+// Accumulator layout of a 64-row wgmma product (and the operand layout of
+// its A from registers): warp w of the warpgroup holds rows 16w + g and
+// 16w + g + 8 (g = lane / 4); register 4i + 2r + c is row 16w + g + 8r,
+// column 8i + 2·(lane % 4) + c. So the A fragment of k step j of a 64 × 64
+// score tile is registers 8j..8j+7, two at a time rounded and packed:
+// a[j][r + 2·(i & 1)] from column tile i = 2j + (i & 1).
+
+// Register split of a block (384 threads of at most 168 registers at launch,
+// 64512 in all): the producer warpgroup keeps 40 a thread, the two consumer
+// warpgroups take 232 (128·40 + 256·232 = 64512).
+__device__ __forceinline__ void producer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
+// The shared memory of a block, aligned to 1024 bytes (the swizzle's repeat),
+// and its barriers initialised: full[s] completes when stage s has arrived
+// (`producers` arrivals and the TMA bytes), empty[s] when the 8 consumer
+// warps have released it, own when the block's own tiles have arrived.
+template <int D>
+__device__ __forceinline__ uint8_t* block_smem(uint8_t* raw, int producers) {
+  uint8_t* sm = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + SmemPlan<D>::BARS);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + s, producers);
+      mbar_init(bars + STAGES + s, CONSUMER_WARPS);
     }
+    mbar_init(bars + 2 * STAGES, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-// acc[nd] += P(16×64, fragments pa) · B (the 64 staged rows, D columns)
-template <int D>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const uint32_t (&pa)[BR / 16][4],
-                                       const __nv_bfloat16* b) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int j = 0; j < BR / 16; ++j) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, b + (j * 16 + (lane & 15)) * (D + PAD) + nd * 8);
-      mma_bf16_16816(acc[nd], pa[j], b0, b1);
-    }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ld, int valid,
-                                           const float (&acc)[D / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3, wr = 16 * (threadIdx.x >> 5);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wr + g + 8 * r;
-    if (row >= valid) continue;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      store2(dst + row * ld + nd * 8 + 2 * q4, acc[nd][2 * r], acc[nd][2 * r + 1]);
-  }
-}
-
-template <int D, typename Geo>
-__global__ void __launch_bounds__(MTHREADS) dq_mma_kernel(Geo geo, float scale) {
-  constexpr int KP = D + PAD;
-  __shared__ __align__(16) __nv_bfloat16 Ks[BR * KP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BR * KP];
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3, wr = 16 * (threadIdx.x >> 5);
-  const QRows<__nv_bfloat16> qr = geo.dq_rows();
-  const KVRows<__nv_bfloat16> kv = geo.dq_keys();
-  const int nq = qr.n;
-
-  uint32_t qa[D / 16][4], ga[D / 16][4];
-  stage<D>(Ks, qr.q, qr.ldq, nq);
-  stage<D>(Vs, qr.dout, qr.lddo, nq);
   __syncthreads();
-  frags<D>(qa, Ks);
-  frags<D>(ga, Vs);
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wr + g + 8 * r;
-    lse_r[r] = row < nq ? qr.lse[row] : INFINITY;
-    dl_r[r] = row < nq ? qr.delta[row] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+  return sm;
+}
 
-  for (int k0 = 0; k0 < kv.n; k0 += BR) {
-    __syncthreads();  // the previous tile (or the query staging) is consumed
-    const int nk = min(BR, kv.n - k0);
-    stage<D>(Ks, kv.k + k0 * kv.ld, kv.ld, nk);
-    stage<D>(Vs, kv.v + k0 * kv.ld, kv.ld, nk);
-    __syncthreads();
-    float sc[BR / 8][4], dp[BR / 8][4];
-    mma_abt<D>(sc, qa, Ks);
-    mma_abt<D>(dp, ga, Vs);
-    uint32_t dsa[BR / 16][4];
+// dq pass: a block owns 128 query rows; the ring streams the keys' k (X) and
+// v (Y) tiles.
+template <int D, typename Geo>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    dq_wg_kernel(const __grid_constant__ Maps maps, Geo geo, float scale) {
+  using P = SmemPlan<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = block_smem<D>(smem_raw, 1);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own = empty + STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const QRows<__nv_bfloat16> qr = geo.dq_rows(BM);
+  const KVRows<__nv_bfloat16> kv = geo.dq_keys(BM);
+  const int ntiles = (kv.n + BN - 1) / BN;
+
+  if (wg == 2) {  // producer
+    producer_registers();
+    if (tid == 256) {
+      mbar_arrive_tx(own, 4 * P::TILE);
+      for (int h = 0; h < 2; ++h) {
+        tma_load(sm + P::OWN_A + h * P::TILE, &maps.q, own, qr.qcol, qr.row + h * BN, qr.z);
+        tma_load(sm + P::OWN_B + h * P::TILE, &maps.dout, own, qr.docol, qr.row + h * BN, qr.z);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES, round = t / STAGES;
+        if (round) mbar_wait(empty + s, (round - 1) & 1);
+        uint8_t* st = sm + P::RING + s * P::STAGE;
+        mbar_arrive_tx(full + s, 2 * P::TILE);
+        tma_load(st, &maps.k, full + s, kv.kcol, kv.row + t * BN, kv.z);
+        tma_load(st + P::TILE, &maps.v, full + s, kv.vcol, kv.row + t * BN, kv.z);
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows [64·wg, 64·wg + 64) of the block
+    consumer_registers();
+    const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+    const int row0 = wg * 64 + ((tid >> 5) & 3) * 16 + g;  // and row0 + 8
+    const bool busy = wg * 64 < qr.n;
+    const float sl2 = scale * LOG2E;
+    float lse2[2], dl[2];
 #pragma unroll
-    for (int nb = 0; nb < BR / 8; ++nb)
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < qr.n ? qr.lse[row] * LOG2E : INFINITY;  // weight 0 past the rows
+      dl[r] = row < qr.n ? qr.delta[row] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    mbar_wait(own, 0);
+    const uint64_t qd = tile_desc<D>(sm + P::OWN_A + wg * P::TILE);
+    const uint64_t gd = tile_desc<D>(sm + P::OWN_B + wg * P::TILE);
+    // Each tile waits for its scores, then for its dq product; issuing tile
+    // t's product with tile t + 1's scores measured slower on the H100.
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(full + s, (t / STAGES) & 1);
+      if (busy) {
+        const uint8_t* st = sm + P::RING + s * P::STAGE;
+        const uint64_t kd = tile_desc<D>(st), vd = tile_desc<D>(st + P::TILE);
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < D / 16; ++j) wgmma_ss_n64(sc, qd + 2 * j, kd + 2 * j, j);
+#pragma unroll
+        for (int j = 0; j < D / 16; ++j) wgmma_ss_n64(dp, gd + 2 * j, vd + 2 * j, j);
+        wgmma_commit();
+        wgmma_wait_all();
+        keep(sc);
+        keep(dp);
+        const int lim = kv.n - t * BN;  // keys of this tile
+        uint32_t a[4][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float ds[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float p = 8 * i + 2 * q4 + c < lim ? ex2(sc[4 * i + 2 * r + c] * sl2 - lse2[r]) : 0.f;
+              ds[c] = p * (dp[4 * i + 2 * r + c] - dl[r]) * scale;
+            }
+            a[i >> 1][r + 2 * (i & 1)] = pack_bf16(ds[0], ds[1]);
+          }
+        wgmma_fence();
+        keep(dq);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wgmma_rs<D>(dq, a[j], kd + 2 * D * j);
+        wgmma_commit();
+        wgmma_wait_all();
+        keep(dq);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    if (busy) {
+      const OutRows<__nv_bfloat16> out = geo.dq_out(BM);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float ds[2];
+        const int row = row0 + 8 * r;
+        if (row >= qr.n) continue;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int key = nb * 8 + 2 * q4 + c;
-          const float p = key < nk ? expf(sc[nb][2 * r + c] * scale - lse_r[r]) : 0.f;
-          ds[c] = p * (dp[nb][2 * r + c] - dl_r[r]) * scale;
-        }
-        dsa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(ds[0], ds[1]);
+        for (int i = 0; i < D / 8; ++i)
+          store2(out.p + row * out.ld + 8 * i + 2 * q4, dq[4 * i + 2 * r], dq[4 * i + 2 * r + 1]);
       }
-    mma_pb<D>(dq, dsa, Ks);
-  }
-  const OutRows<__nv_bfloat16> out = geo.dq_out();
-  store_rows<D>(out.p, out.ld, nq, dq);
-}
-
-template <int D, typename Geo>
-__global__ void __launch_bounds__(MTHREADS) dkv_mma_kernel(Geo geo, float scale) {
-  constexpr int KP = D + PAD;
-  __shared__ __align__(16) __nv_bfloat16 Qs[BR * KP];
-  __shared__ __align__(16) __nv_bfloat16 Gs[BR * KP];
-  __shared__ float LSE[BR], DL[BR];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, q4 = lane & 3;
-  const KVRows<__nv_bfloat16> own = geo.dkv_keys();
-  const int nk = own.n;
-
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  stage<D>(Qs, own.k, own.ld, nk);
-  stage<D>(Gs, own.v, own.ld, nk);
-  __syncthreads();
-  frags<D>(ka, Qs);
-  frags<D>(va, Gs);
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[nd][i] = dv[nd][i] = 0.f;
-
-  const int nseg = geo.dkv_segments();
-  for (int sg = 0; sg < nseg; ++sg) {
-    const QRows<__nv_bfloat16> qs = geo.dkv_segment(sg);
-    for (int q0 = 0; q0 < qs.n; q0 += BR) {
-      const int nq = min(BR, qs.n - q0);
-      __syncthreads();  // the previous tile (or the key staging) is consumed
-      stage<D>(Qs, qs.q + q0 * qs.ldq, qs.ldq, nq);
-      stage<D>(Gs, qs.dout + q0 * qs.lddo, qs.lddo, nq);
-      if (tid < BR) {
-        LSE[tid] = tid < nq ? qs.lse[q0 + tid] : INFINITY;  // weight 0 past the segment
-        DL[tid] = tid < nq ? qs.delta[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float st[BR / 8][4], dpt[BR / 8][4];
-      mma_abt<D>(st, ka, Qs);  // keys × queries
-      mma_abt<D>(dpt, va, Gs);
-      uint32_t pa[BR / 16][4], dsa[BR / 16][4];
-#pragma unroll
-      for (int nb = 0; nb < BR / 8; ++nb)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float p[2], ds[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int qc = nb * 8 + 2 * q4 + c;
-            p[c] = expf(st[nb][2 * r + c] * scale - LSE[qc]);
-            ds[c] = p[c] * (dpt[nb][2 * r + c] - DL[qc]) * scale;
-          }
-          pa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(p[0], p[1]);
-          dsa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(ds[0], ds[1]);
-        }
-      mma_pb<D>(dv, pa, Gs);
-      mma_pb<D>(dk, dsa, Qs);
     }
   }
-  const OutRows<__nv_bfloat16> ko = geo.dk_out(), vo = geo.dv_out();
-  store_rows<D>(ko.p, ko.ld, nk, dk);
-  store_rows<D>(vo.p, vo.ld, nk, dv);
 }
 
-// Both passes on `st`: the dq pass over grid `gq`, the dk/dv pass over `gkv`.
-// Returns the CUDA error code of the launches.
+// dk/dv pass: a block owns 128 key rows; the ring streams the query
+// segments' q (X) and do (Y) tiles with their lse·log2 e and delta.
+template <int D, typename Geo>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    dkv_wg_kernel(const __grid_constant__ Maps maps, Geo geo, float scale) {
+  using P = SmemPlan<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = block_smem<D>(smem_raw, 32);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own = empty + STAGES;
+  float* vec = reinterpret_cast<float*>(sm + P::VEC);
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const KVRows<__nv_bfloat16> kr = geo.dkv_keys(BM);
+  const int nseg = geo.dkv_segments();
+
+  if (wg == 2) {  // producer: warp 8 stages every query tile of every segment
+    producer_registers();
+    if (tid < 256 + 32) {
+      if (lane == 0) {
+        mbar_arrive_tx(own, 4 * P::TILE);
+        for (int h = 0; h < 2; ++h) {
+          tma_load(sm + P::OWN_A + h * P::TILE, &maps.k, own, kr.kcol, kr.row + h * BN, kr.z);
+          tma_load(sm + P::OWN_B + h * P::TILE, &maps.v, own, kr.vcol, kr.row + h * BN, kr.z);
+        }
+      }
+      int t = 0;
+      for (int sg = 0; sg < nseg; ++sg) {
+        const QRows<__nv_bfloat16> qs = geo.dkv_segment(sg);
+        for (int q0 = 0; q0 < qs.n; q0 += BN, ++t) {
+          const int s = t % STAGES, round = t / STAGES;
+          if (round) mbar_wait(empty + s, (round - 1) & 1);
+          float* L = vec + s * 2 * BN;
+          for (int i = lane; i < BN; i += 32) {
+            const bool ok = q0 + i < qs.n;
+            L[i] = ok ? qs.lse[q0 + i] * LOG2E : INFINITY;  // weight 0 past the segment
+            L[BN + i] = ok ? qs.delta[q0 + i] : 0.f;
+          }
+          if (lane == 0) {
+            uint8_t* st = sm + P::RING + s * P::STAGE;
+            mbar_arrive_tx(full + s, 2 * P::TILE);
+            tma_load(st, &maps.q, full + s, qs.qcol, qs.row + q0, qs.z);
+            tma_load(st + P::TILE, &maps.dout, full + s, qs.docol, qs.row + q0, qs.z);
+          } else {
+            mbar_arrive(full + s);
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns key rows [64·wg, 64·wg + 64) of the block
+    consumer_registers();
+    const int g = lane >> 2, q4 = lane & 3;
+    const int row0 = wg * 64 + ((tid >> 5) & 3) * 16 + g;  // and row0 + 8
+    const bool busy = wg * 64 < kr.n;
+    const float sl2 = scale * LOG2E;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(own, 0);
+    const uint64_t kd = tile_desc<D>(sm + P::OWN_A + wg * P::TILE);
+    const uint64_t vd = tile_desc<D>(sm + P::OWN_B + wg * P::TILE);
+    int t = 0;
+    for (int sg = 0; sg < nseg; ++sg) {
+      const int nq = geo.dkv_segment(sg).n;
+      for (int q0 = 0; q0 < nq; q0 += BN, ++t) {
+        const int s = t % STAGES;
+        mbar_wait(full + s, (t / STAGES) & 1);
+        if (busy) {
+          const uint8_t* st = sm + P::RING + s * P::STAGE;
+          const uint64_t qd = tile_desc<D>(st), gd = tile_desc<D>(st + P::TILE);
+          const float* L = vec + s * 2 * BN;
+          float lse2[16], dl[16];  // of this thread's query columns 8i + 2·q4 + c
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float2 a = *reinterpret_cast<const float2*>(L + 8 * i + 2 * q4);
+            const float2 b = *reinterpret_cast<const float2*>(L + BN + 8 * i + 2 * q4);
+            lse2[2 * i] = a.x, lse2[2 * i + 1] = a.y, dl[2 * i] = b.x, dl[2 * i + 1] = b.y;
+          }
+          float sc[32], dp[32];  // keys × queries
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < D / 16; ++j) wgmma_ss_n64(sc, kd + 2 * j, qd + 2 * j, j);
+#pragma unroll
+          for (int j = 0; j < D / 16; ++j) wgmma_ss_n64(dp, vd + 2 * j, gd + 2 * j, j);
+          wgmma_commit();
+          wgmma_wait_all();
+          keep(sc);
+          keep(dp);
+          uint32_t pa[4][4], da[4][4];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float p[2], ds[2];
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                p[c] = ex2(sc[4 * i + 2 * r + c] * sl2 - lse2[2 * i + c]);
+                ds[c] = p[c] * (dp[4 * i + 2 * r + c] - dl[2 * i + c]) * scale;
+              }
+              pa[i >> 1][r + 2 * (i & 1)] = pack_bf16(p[0], p[1]);
+              da[i >> 1][r + 2 * (i & 1)] = pack_bf16(ds[0], ds[1]);
+            }
+          wgmma_fence();
+          keep(dk);
+          keep(dv);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            wgmma_rs<D>(dv, pa[j], gd + 2 * D * j);
+            wgmma_rs<D>(dk, da[j], qd + 2 * D * j);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          keep(dk);
+          keep(dv);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+      }
+    }
+    if (busy) {
+      const OutRows<__nv_bfloat16> ko = geo.dk_out(BM), vo = geo.dv_out(BM);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= kr.n) continue;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          store2(ko.p + row * ko.ld + 8 * i + 2 * q4, dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
+          store2(vo.p + row * vo.ld + 8 * i + 2 * q4, dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// A 3-D tensor map over `groups` groups of `rows` rows of `ld` bf16 at base,
+// read in boxes of 64 rows × D columns, swizzled for wgmma; rows past a
+// group's last read as zero. cuTensorMapEncodeTiled is reached through the
+// runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda.
+template <int D>
+int make_map(CUtensorMap* map, const void* base, int rows, int groups, long long ld) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || !fn) return MMPFN_TMA_FAILED;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)groups};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BN, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : MMPFN_TMA_FAILED;
+}
+
+// Both passes on `st`, returning the CUDA error code of the launches. `maps`
+// is read only on the tensor-core path (on_wgmma<T, D>).
 template <typename T, int D, typename Geo>
-int passes(const Geo& geo, dim3 gq, dim3 gkv, float scale, cudaStream_t st) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D % 16 == 0) {
-    dq_mma_kernel<D, Geo><<<gq, MTHREADS, 0, st>>>(geo, scale);
-    int rc = (int)cudaGetLastError();
+int passes(const Geo& geo, const Maps& maps, float scale, cudaStream_t st) {
+  if constexpr (on_wgmma<T, D>) {
+    constexpr int bytes = SmemPlan<D>::BYTES;
+    int rc = mmpfn_allow_smem(dq_wg_kernel<D, Geo>, bytes);
+    if (!rc) rc = mmpfn_allow_smem(dkv_wg_kernel<D, Geo>, bytes);
     if (rc) return rc;
-    dkv_mma_kernel<D, Geo><<<gkv, MTHREADS, 0, st>>>(geo, scale);
+    dq_wg_kernel<D, Geo><<<geo.dq_grid(BM), WG_THREADS, bytes, st>>>(maps, geo, scale);
+    if ((rc = (int)cudaGetLastError())) return rc;
+    dkv_wg_kernel<D, Geo><<<geo.dkv_grid(BM), WG_THREADS, bytes, st>>>(maps, geo, scale);
   } else {
-    dq_cc_kernel<T, D, Geo><<<gq, BR, 0, st>>>(geo, scale);
+    dq_cc_kernel<T, D, Geo><<<geo.dq_grid(BR), BR, 0, st>>>(geo, scale);
     int rc = (int)cudaGetLastError();
     if (rc) return rc;
-    dkv_cc_kernel<T, D, Geo><<<gkv, BR, 0, st>>>(geo, scale);
+    dkv_cc_kernel<T, D, Geo><<<geo.dkv_grid(BR), BR, 0, st>>>(geo, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -168,3 +168,5 @@ template <typename K> static int mmpfn_allow_smem(K kernel, size_t bytes) {
 #define MMPFN_MAX_SMEM (227 * 1024)
 // Returned by a launcher for arguments its kernel does not take.
 #define MMPFN_BAD_ARGS 10001
+// Returned where a TMA tensor map could not be encoded.
+#define MMPFN_TMA_FAILED 10002

@@ -12,9 +12,13 @@
 //
 // What bounds it on the H100: five products of 2·d FLOPs per (query, key)
 // pair (the scores, dp = do·v, dv, dk and dq): at the flagship fine-tune's
-// train block (G = 180, Sq = Skv = 1655, d = 32) 157.8 GFLOP against about
-// 174 MB of operands, some 900 FLOPs per byte, above the card's ~295: the
-// tensor cores bound it (0.160 ms in bf16).
+// train block (G = 180, Sq = Skv = 1655, d = 32, 4.93e8 pairs) 157.8 GFLOP
+// against about 174 MB of operands, some 900 FLOPs per byte, above the
+// card's ~295: the tensor cores bound the work (0.160 ms in bf16). Two
+// passes without atomics recompute the scores and dp, seven products
+// (0.224 ms), and exponentiate every pair twice: 9.9e8 ex2 at 16 per clock
+// per SM, about 0.24 ms at 1.98 GHz. At d = 32 the exponentials, not the
+// products, are the floor.
 //
 // Design: the Pallas kernel merges both passes and carries dq over a
 // sequential kv grid axis; on the H100 blocks run in no order, and merging
@@ -23,18 +27,23 @@
 // atomics:
 //  1. a pre-pass: delta = Σ_d do·o from the float32 do, and do rounded to T
 //     (the Pallas kernel's operand type);
-//  2. dq pass: a block owns 64 query rows of a group and streams its K/V in
+//  2. dq pass: a block owns 128 query rows of a group and streams its K/V in
 //     tiles of 64;
-//  3. dk/dv pass: a block owns 64 key rows of a group and streams every
+//  3. dk/dv pass: a block owns 128 key rows of a group and streams every
 //     query row of the group (for the folded multiquery block, all h·Sq).
-// Ragged tails (Sq = 183, 1098 and 1655 are not multiples of 64) load as
-// zero, with lse = +inf and delta = 0 past Sq (exp(−inf) = 0 weights, never
-// 0·inf), and the weights of keys past Skv are forced to 0.
+// In bf16 (d = 16, 32, 64) the tiles arrive through TMA from 3-D tensor maps
+// of q, k, v and the rounded do (G, S, d), built here on the host, into a
+// ring that one producer warp keeps full while two consumer warpgroups run
+// wgmma and exp2 (attn_bwd.cuh): the products run at the tensor cores' rate
+// and overlap the copies, leaving the exponentials and the softmax
+// arithmetic between the products as the limit. Ragged tails (Sq = 183,
+// 1098 and 1655 are not multiples of 64) load as zero, with lse = +inf and
+// delta = 0 past Sq (exp(−inf) = 0 weights, never 0·inf), and the weights
+// of keys past Skv are forced to 0.
 #include "attn_bwd.cuh"
 
 namespace {
 
-using attn_bwd::BR;
 using attn_bwd::KVRows;
 using attn_bwd::OutRows;
 using attn_bwd::QRows;
@@ -64,8 +73,9 @@ delta_kernel(const float* __restrict__ dout, const float* __restrict__ o, T* __r
 }
 
 // Rows of the passes: group g = blockIdx.z; the dq pass's block x owns query
-// rows [64x, 64x + 64), the dk/dv pass's block x key rows [64x, 64x + 64),
-// with one query segment, all Sq rows of the group.
+// rows [bm·x, bm·x + bm), the dk/dv pass's block x key rows [bm·x, bm·x + bm),
+// with one query segment, all Sq rows of the group. In the tensor maps q, k,
+// v and do_c are (G, S, d): group z = g, column 0.
 template <typename T, int D>
 struct FlashGeo {
   const T* q;
@@ -77,34 +87,39 @@ struct FlashGeo {
   T* dq;
   T* dk;
   T* dv;
-  int Sq, Skv;
+  int G, Sq, Skv;
 
-  __device__ __forceinline__ long long qrow0() const {
-    return (long long)blockIdx.z * Sq + blockIdx.x * BR;
+  __host__ dim3 dq_grid(int bm) const { return dim3((Sq + bm - 1) / bm, 1, G); }
+  __host__ dim3 dkv_grid(int bm) const { return dim3((Skv + bm - 1) / bm, 1, G); }
+  __device__ __forceinline__ long long qrow0(int bm) const {
+    return (long long)blockIdx.z * Sq + blockIdx.x * bm;
   }
-  __device__ __forceinline__ long long krow0() const {
-    return (long long)blockIdx.z * Skv + blockIdx.x * BR;
+  __device__ __forceinline__ long long krow0(int bm) const {
+    return (long long)blockIdx.z * Skv + blockIdx.x * bm;
   }
-  __device__ __forceinline__ QRows<T> dq_rows() const {
-    const long long r = qrow0();
-    return {q + r * D, dout + r * D, D, D, lse + r, delta + r, min(BR, Sq - (int)blockIdx.x * BR)};
+  __device__ __forceinline__ QRows<T> dq_rows(int bm) const {
+    const long long r = qrow0(bm);
+    const int row = blockIdx.x * bm;
+    return {q + r * D, dout + r * D, D, D, lse + r, delta + r, min(bm, Sq - row),
+            row, (int)blockIdx.z, 0, 0};
   }
-  __device__ __forceinline__ KVRows<T> dq_keys() const {
+  __device__ __forceinline__ KVRows<T> dq_keys(int) const {
     const long long r = (long long)blockIdx.z * Skv;
-    return {k + r * D, v + r * D, D, Skv};
+    return {k + r * D, v + r * D, D, Skv, 0, (int)blockIdx.z, 0, 0};
   }
-  __device__ __forceinline__ OutRows<T> dq_out() const { return {dq + qrow0() * D, D}; }
-  __device__ __forceinline__ KVRows<T> dkv_keys() const {
-    const long long r = krow0();
-    return {k + r * D, v + r * D, D, min(BR, Skv - (int)blockIdx.x * BR)};
+  __device__ __forceinline__ OutRows<T> dq_out(int bm) const { return {dq + qrow0(bm) * D, D}; }
+  __device__ __forceinline__ KVRows<T> dkv_keys(int bm) const {
+    const long long r = krow0(bm);
+    const int row = blockIdx.x * bm;
+    return {k + r * D, v + r * D, D, min(bm, Skv - row), row, (int)blockIdx.z, 0, 0};
   }
   __device__ __forceinline__ int dkv_segments() const { return 1; }
   __device__ __forceinline__ QRows<T> dkv_segment(int) const {
     const long long r = (long long)blockIdx.z * Sq;
-    return {q + r * D, dout + r * D, D, D, lse + r, delta + r, Sq};
+    return {q + r * D, dout + r * D, D, D, lse + r, delta + r, Sq, 0, (int)blockIdx.z, 0, 0};
   }
-  __device__ __forceinline__ OutRows<T> dk_out() const { return {dk + krow0() * D, D}; }
-  __device__ __forceinline__ OutRows<T> dv_out() const { return {dv + krow0() * D, D}; }
+  __device__ __forceinline__ OutRows<T> dk_out(int bm) const { return {dk + krow0(bm) * D, D}; }
+  __device__ __forceinline__ OutRows<T> dv_out(int bm) const { return {dv + krow0(bm) * D, D}; }
 };
 
 template <typename T, int D>
@@ -117,9 +132,15 @@ int launch(const T* q, const T* k, const T* v, const float* o, const float* lse,
   delta_kernel<T, L><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(dout, o, do_c, delta, rows);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  const FlashGeo<T, D> geo{q, k, v, do_c, lse, delta, dq, dk, dv, Sq, Skv};
-  const dim3 gq((Sq + BR - 1) / BR, 1, G), gkv((Skv + BR - 1) / BR, 1, G);
-  return attn_bwd::passes<T, D>(geo, gq, gkv, scale, st);
+  attn_bwd::Maps maps{};
+  if constexpr (attn_bwd::on_wgmma<T, D>) {
+    using attn_bwd::make_map;
+    if ((rc = make_map<D>(&maps.q, q, Sq, G, D)) || (rc = make_map<D>(&maps.k, k, Skv, G, D)) ||
+        (rc = make_map<D>(&maps.v, v, Skv, G, D)) || (rc = make_map<D>(&maps.dout, do_c, Sq, G, D)))
+      return rc;
+  }
+  const FlashGeo<T, D> geo{q, k, v, do_c, lse, delta, dq, dk, dv, G, Sq, Skv};
+  return attn_bwd::passes<T, D>(geo, maps, scale, st);
 }
 
 template <typename T>

@@ -283,5 +283,6 @@ extern "C" int mmpfn_mlp_ln(const void* x, const void* w1, const void* w2, void*
 
 extern "C" const char* mmpfn_error_string(int code) {
   if (code == MMPFN_BAD_ARGS) return "arguments not supported by the kernel";
+  if (code == MMPFN_TMA_FAILED) return "a TMA tensor map could not be encoded";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -12,9 +12,13 @@ from typing import Literal
 import numpy as np
 import torch
 
+from multimodalpfn_tpu_torch.models.download import CLASSIFIER_CKPT, cached_classifier_path
 from multimodalpfn_tpu_torch.models.loading import LoadedModel, load_model
 
-_DEFAULT_CLF_CKPT = "tabpfn-v2-classifier.ckpt"
+
+class NotFittedError(ValueError, AttributeError):
+    """Raised by a predict before ``fit``: a ``ValueError`` and an
+    ``AttributeError``, as scikit-learn's ``NotFittedError`` is."""
 
 
 def _cache_dir() -> Path:
@@ -22,6 +26,27 @@ def _cache_dir() -> Path:
     if env:
         return Path(env)
     return Path.home() / ".cache" / "multimodalpfn_tpu"
+
+
+def resolve_auto_checkpoint() -> Path:
+    """The published classifier checkpoint for ``model_path="auto"``, looked
+    for where the JAX package looks (its `estimator/base.py:initialize_model`):
+    first the legacy ``_cache_dir()``, then ``$TABPFN_MODEL_CACHE_DIR``, or
+    else ``$XDG_CACHE_HOME/tabpfn`` or ``~/.cache/tabpfn``, where the
+    reference caches it. There is no download."""
+    legacy = _cache_dir() / CLASSIFIER_CKPT
+    if legacy.exists():
+        return legacy
+    path = cached_classifier_path()
+    if path.exists():
+        return path
+    raise FileNotFoundError(
+        f"No checkpoint named {CLASSIFIER_CKPT} in {legacy.parent}, in "
+        f"$TABPFN_MODEL_CACHE_DIR ({os.environ.get('TABPFN_MODEL_CACHE_DIR') or 'unset'}) or in "
+        f"the user cache dir ($XDG_CACHE_HOME/tabpfn or ~/.cache/tabpfn: {path.parent}). "
+        f"Place the published {CLASSIFIER_CKPT} in one of them, pass model_path=..., or use "
+        "model_path='random:<seed>' for an untrained model."
+    )
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -49,21 +74,15 @@ def initialize_model(
 ) -> LoadedModel:
     """Load (or synthesize) the model onto ``device``.
 
-    - ``"auto"``: the published checkpoint from the model cache dir
-      (``$TABPFN_MODEL_CACHE_DIR``); there is no download path.
+    - ``"auto"``: the published checkpoint from the model cache dirs
+      (`resolve_auto_checkpoint`); there is no download path.
     - an existing path: a reference-format torch checkpoint, or an ``.npz``
       written by `models.loading.save_npz`.
     - ``"random"`` / ``"random:<seed>"``: fresh random initialization with the
       published architecture — for benchmarking/testing without weights.
     """
     if model_path == "auto":
-        model_path = _cache_dir() / _DEFAULT_CLF_CKPT
-        if not model_path.exists():
-            raise FileNotFoundError(
-                f"No checkpoint {model_path}. Place the published {_DEFAULT_CLF_CKPT} in "
-                "$TABPFN_MODEL_CACHE_DIR, pass model_path=..., or use "
-                "model_path='random:<seed>' for an untrained model."
-            )
+        model_path = resolve_auto_checkpoint()
     return load_model(
         model_path,
         model_seed=static_seed,

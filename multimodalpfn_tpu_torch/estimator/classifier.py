@@ -8,12 +8,16 @@ constructor, fit and predict as the JAX package's classifier
 
 scikit-learn is never imported, and on a numeric ``np.ndarray`` pandas is not
 either; labels are encoded with ``np.unique``, which is ``LabelEncoder``'s
-mapping.
+mapping. The estimator contract that the JAX classifiers inherit from
+``ClassifierMixin, BaseEstimator`` (``get_params``, ``set_params``, so
+``sklearn.base.clone``; ``score``; the tags) is written out here; only
+``__sklearn_tags__``, which only scikit-learn calls, imports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from pathlib import Path
 from typing import Literal, Sequence
 
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from multimodalpfn_tpu_torch.estimator.base import (
+    NotFittedError,
     determine_precision,
     initialize_model,
     pipeline_requests,
@@ -54,6 +59,8 @@ def _softmax(x: np.ndarray, axis: int = -1) -> np.ndarray:
 
 class MMPFNClassifier:
     """Multimodal TabPFN-v2 classifier on PyTorch (CUDA kernels on a GPU)."""
+
+    _estimator_type = "classifier"
 
     def __init__(
         self,
@@ -95,6 +102,47 @@ class MMPFNClassifier:
         self.mgm_heads = mgm_heads
         self.cap_heads = cap_heads
         self.features_per_group = features_per_group
+
+    # the estimator contract (scikit-learn's BaseEstimator and ClassifierMixin)
+    @classmethod
+    def _get_param_names(cls) -> list[str]:
+        """The constructor's parameter names, sorted."""
+        params = inspect.signature(cls.__init__).parameters.values()
+        return sorted(p.name for p in params if p.name != "self" and p.kind != p.VAR_KEYWORD)
+
+    def get_params(self, deep: bool = True) -> dict:
+        """The constructor's parameters; none holds an estimator, so ``deep``
+        changes nothing."""
+        return {key: getattr(self, key) for key in self._get_param_names()}
+
+    def set_params(self, **params) -> "MMPFNClassifier":
+        names = self._get_param_names()
+        for key, value in params.items():
+            if key not in names:
+                raise ValueError(
+                    f"Invalid parameter {key!r} for estimator {type(self).__name__}. "
+                    f"Valid parameters are: {names!r}."
+                )
+            setattr(self, key, value)
+        return self
+
+    def score(self, X, y, sample_weight=None) -> float:
+        """Mean accuracy of ``self.predict(X)`` against ``y``, weighted by
+        ``sample_weight`` (``ClassifierMixin.score``)."""
+        return float(np.average(np.asarray(self.predict(X)) == np.asarray(y), weights=sample_weight))
+
+    def _more_tags(self):
+        return {"allow_nan": True, "multilabel": False}
+
+    def __sklearn_tags__(self):
+        from sklearn.utils import ClassifierTags, InputTags, Tags, TargetTags
+
+        return Tags(
+            estimator_type="classifier",
+            target_tags=TargetTags(required=True),
+            classifier_tags=ClassifierTags(),
+            input_tags=InputTags(allow_nan=True),
+        )
 
     def fit(self, X, image: np.ndarray | None, y) -> "MMPFNClassifier":
         """Load weights, encode labels, build ensemble configs, fit member
@@ -245,7 +293,10 @@ class MMPFNClassifier:
     def _dispatch_predict(self, X, image_test: np.ndarray | None):
         """Validation, encoding and the engine's dispatch (no host sync)."""
         if not hasattr(self, "executor_"):
-            raise RuntimeError(f"This {type(self).__name__} instance is not fitted yet.")
+            raise NotFittedError(
+                f"This {type(self).__name__} instance is not fitted yet. Call 'fit' with "
+                "appropriate arguments before using this estimator."
+            )
         if X is not None:
             X = self._encode_X(validate_X_predict(X, self), fit=False)
         return self.executor_.dispatch_outputs(X, image_test)
@@ -285,6 +336,11 @@ class TabPFNClassifier(MMPFNClassifier):
     def __init__(self, **kwargs):
         kwargs.setdefault("mixer_type", "none")
         super().__init__(**kwargs)
+
+    @classmethod
+    def _get_param_names(cls) -> list[str]:
+        # the constructor forwards **kwargs to the parent's
+        return MMPFNClassifier._get_param_names()
 
     def fit(self, X, y):  # type: ignore[override]
         return super().fit(X, None, y)

@@ -87,6 +87,27 @@ def test_mmpfn_predict_proba_matches_jax(small_ckpt, tmp_path):
     np.testing.assert_array_equal(clf.classes_, jclf.classes_)
 
 
+# options of the classifier the tests above leave at their defaults, each
+# against the JAX package's on the same weights and data
+@pytest.mark.parametrize(
+    "option",
+    [{"fit_mode": "low_memory"}, {"average_before_softmax": True},
+     {"balance_probabilities": True}, {"n_estimators": 5}],
+    ids=["low_memory", "average_before_softmax", "balance_probabilities", "n_estimators_5"],
+)
+def test_mmpfn_options_match_jax(small_ckpt, tmp_path, option):
+    X_tr, img_tr, y_tr, X_te, img_te = _data()
+    jclf = JMMPFNClassifier(model_path=str(small_ckpt), mgm_heads=2, cap_heads=4,
+                            **(_kwargs(JPreprocessorConfig) | option))
+    want = jclf.fit(X_tr, img_tr, y_tr).predict_proba(X_te, img_te)
+    npz = tmp_path / "from_jax.npz"
+    save_npz(npz, jax.device_get(jclf.params_), jclf.config_)
+    clf = MMPFNClassifier(model_path=str(npz), mgm_heads=2, cap_heads=4, device="cpu",
+                          **(_kwargs(PreprocessorConfig) | option))
+    got = clf.fit(X_tr, img_tr, y_tr).predict_proba(X_te, img_te)
+    np.testing.assert_allclose(got, want, atol=PROBA_ATOL, rtol=0)
+
+
 def test_tabpfn_predict_proba_matches_jax(small_ckpt, tmp_path):
     X_tr, _, y_tr, X_te, _ = _data()
     labels = np.array(["a", "b", "c"])[y_tr]  # string labels: LabelEncoder semantics

@@ -477,6 +477,78 @@ def test_k11_matches_plain(cuda, dtype, G, Sq, Skv, d):
         assert rel <= bound, f"{name}: rel err {float(rel):.3e}"
 
 
+# The bf16 passes of K9 and K11 (TMA ring, wgmma; csrc/attn_bwd.cuh) at
+# every ragged length around the 64-row tiles and 128-row blocks, the
+# fine-tune's lengths (183 test rows, 1098 folded, 1655 train) and one row
+RAGGED = [1, 63, 64, 65, 183, 1098, 1655]
+
+
+def _k11_case(device, dtype, G, Sq, Skv, d):
+    gen = torch.Generator().manual_seed(G * 1000 + Sq + 7 * Skv + d)
+    q = _rand(gen, G, Sq, d, device=device).to(dtype)
+    k, v = (_rand(gen, G, Skv, d, device=device).to(dtype) for _ in range(2))
+    o, lse = flash.flash_attention(q, k, v)
+    return q, k, v, o, lse, _rand(gen, G, Sq, d, device=device)
+
+
+def _check_k11(args, dtype):
+    bound = 5e-5 if dtype == torch.float32 else 2.0**-6
+    before = kernels.LAUNCHES["K11"]
+    got, again = flash.flash_attention_bwd(*args), flash.flash_attention_bwd(*args)
+    assert kernels.LAUNCHES["K11"] == before + 2
+    for name, a, c, w in zip(("dq", "dk", "dv"), got, again, flash.flash_attention_bwd_plain(*args)):
+        assert a.dtype == w.dtype == dtype and a.shape == w.shape, name
+        assert torch.equal(a, c), f"{name} differs between runs"
+        assert torch.isfinite(a.float()).all(), name
+        rel = (a.float() - w.float()).abs().max() / w.float().abs().max()
+        assert rel <= bound, f"{name}: rel err {float(rel):.3e}"
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("Skv", RAGGED)
+@pytest.mark.parametrize("Sq", RAGGED)
+def test_k11_bf16_ragged_matches_plain(cuda, Sq, Skv, d):
+    """bf16 K11 within two bf16 ulps of its plain version, bit-equal on a
+    repeat, at every pair of ragged lengths and every d the wgmma passes
+    serve."""
+    _check_k11(_k11_case(cuda, torch.bfloat16, 2, Sq, Skv, d), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("h,Sq", [(6, 183), (6, 61), (2, 1)])
+def test_k11_bf16_folded_multiquery_matches_plain(cuda, h, Sq, d):
+    """The folded multiquery block: h heads' Sq query rows each against one
+    KV head of the 1655 train rows, so every key's dk and dv sum over all
+    h·Sq query rows (the GQA reduction)."""
+    _check_k11(_k11_case(cuda, torch.bfloat16, 3, h * Sq, 1655, d), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("S,sep", [(200, 1), (200, 128), (200, 199), (300, 64), (1838, 1655)])
+def test_k9_bf16_regions_match_plain(cuda, S, sep, d):
+    """bf16 K9 (dx and dW_qkv) within two bf16 ulps of its plain version and
+    bit-equal on a repeat, with `sep` at one train row, at a multiple of 64
+    (a query block ending exactly at the region's end), at S − 1 (one test
+    row per head) and at the flagship's split."""
+    h, e = 6, 96 if d < 64 else 128
+    gen = torch.Generator().manual_seed(S + sep + d)
+    x3 = _rand(gen, 2, S, e, device=cuda).to(torch.bfloat16)
+    g3 = _rand(gen, 2, S, e, device=cuda).to(torch.bfloat16)
+    w_qkv = _rand(gen, 3, h, d, e, scale=e**-0.5, device=cuda)
+    w_out = _rand(gen, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    o, lse = item_fused.item_attention_core_plain(x3, w_qkv, sep)
+    du, do, delta, _ = item_fused.item_epilogue_bwd_plain(x3, o, w_out, g3)
+    args = (x3, w_qkv, do, delta, lse, sep, du)
+    before = kernels.LAUNCHES["K9"]
+    got, again = item_fused.item_attention_bwd(*args), item_fused.item_attention_bwd(*args)
+    assert kernels.LAUNCHES["K9"] == before + 2
+    for i, (a, c, w) in enumerate(zip(got, again, item_fused.item_attention_bwd_plain(*args))):
+        assert a.dtype == w.dtype and a.shape == w.shape, i
+        assert torch.equal(a, c), f"output {i} differs between runs"
+        rel = (a.float() - w.float()).abs().max() / w.float().abs().max()
+        assert rel <= 2.0**-6, f"output {i}: rel err {float(rel):.3e}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lead,t,e,h,d", [((2, 37), 5, 48, 3, 16), ((1, 3, 20), 9, 64, 2, 32),
                                           ((1, 150), 30, 192, 6, 32), ((70,), 48, 32, 4, 8)])
