@@ -10,9 +10,10 @@ Phases, each of which must pass:
 
 1. Setup: print the card (``nvidia-smi`` name and power limit), turn TF32 off,
    build the CUDA kernels from ``multimodalpfn_tpu_torch/csrc`` and print the
-   build time; count HGMMA in the SASS of the 12 bf16 pass kernels of K9 and
-   K11 (``cuobjdump``), each of which must issue wgmma; write the model every
-   phase serves (the published 192×12
+   build time; count HGMMA in the SASS of the 18 bf16 attention kernels (the
+   forward of K2a and K4, the dq and dk/dv passes of K9 and K11, each at
+   d = 16, 32, 64; ``cuobjdump``), each of which must issue wgmma; write the
+   model every phase serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
    projections filled in from seed 1) to ``build/``.
 2. Kernel checks: each kernel against its plain PyTorch version at the shapes
@@ -22,13 +23,21 @@ Phases, each of which must pass:
    function, that call's time (``library_ms``). K1, K2a, K2b and K3 at the
    ``fit_preprocessors`` shapes (4 members, 1838 train + 460 test rows bucketed
    to 2350, 31 tokens, e = 192, h = 6, d = 32, nhid = 768), K1 also at 48
-   tokens; K4 at the KV-cache prime shape (G = 4·31·6, 1838 × 1838) and the
-   multiquery predict shape (G = 4·31, 6·512 queries, 1838 keys); K5 at the
+   tokens; K4 at the KV-cache prime shape (G = 4·31·6, 1838 × 1838), the
+   multiquery predict shape (G = 4·31, 6·512 queries, 1838 keys) and the
+   flash fine-tune's three blocks (train G = 180, 1655 × 1655; test G = 180,
+   183 queries; folded G = 30, 6·183 queries; 1655 keys), each with SDPA
+   beside it; K5 at the
    prime shape (4, 1838, 31, 192) and at 48 tokens; the key-masked K6a at
    (4, 48, 2350, 192) and K6b at the merged prime (4·1838, 48, 192) and
    predict (4·512, 48, 192) shapes, with the masks of members 39/39/22/22
    features wide (+ 8 image tokens and the target: 17 keys of the narrow
-   members masked).
+   members masked). The lse of K2a and K4 must match to 1e-4 abs in both
+   dtypes (K2a's bf16 lse on inputs on which its projection is exact, so
+   that it holds the attention alone); K2a's projection and attention are
+   timed apart (profiler kernel names) and the attention is set against
+   SDPA on the attention core; K2a's and K4's exponential floor (one ex2 per
+   (query, key) pair) is printed beside the bound.
 3. ``fit_preprocessors`` served: ``MMPFNClassifier`` (4 members, the
    classifier's default preprocessing: quantile transform, appended
    originals, global SVD, on numpy/scipy) fits the PAD-UFES-shaped synthetic
@@ -99,7 +108,8 @@ the dq and dk/dv passes' device times apart (profiler kernel names) and an
 exponential floor beside the bound (every (query, key) pair exponentiated
 once a pass, 16 ex2 a clock per SM at the card's maximum SM clock), and it
 holds their float32 outputs (and K11's bf16 at d = 8), which the CUDA-core
-bodies compute, to the parent commit's bits (`PARENT_F32_SHA256`).
+bodies compute, to the parent commit's bits (`PARENT_F32_SHA256`); so too
+K4's and K2a's float32 outputs and bf16 at d = 8 (`attn::cc_rows`).
 
 ``--profile`` adds a phase 14: ``torch.profiler`` around one warm request of
 each size in both modes and around one warm training step of each item path
@@ -133,7 +143,10 @@ ROOT = Path(__file__).resolve().parent
 # log-sum of exponentials of float32 scores) must match to 1e-4 abs.
 F32_REL_BOUND = 5e-5
 BF16_REL_BOUND = 2.0**-6
-LSE_F32_ABS_BOUND = 1e-4
+# The lse of K2a and K4 (a log-sum of exponentials of float32 scores, in both
+# dtypes) must match to 1e-4 abs: K9 and K11 recompute every weight from it,
+# so a shifted lse scales each one.
+LSE_ABS_BOUND = 1e-4
 PROBA_ABS_BOUND = 1e-4
 # merged against split float32 answers: the padded keys get exactly zero
 # weight, so the two differ by summation order only (the JAX package's bar)
@@ -147,7 +160,7 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # MUFU.EX2 results per clock per SM on compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput): the floor of the
-# attention backward's exponentials
+# attention kernels' exponentials, one per (query, key) pair a pass
 EX2_PER_CLOCK_PER_SM = 16
 
 KERNELS = {
@@ -222,14 +235,20 @@ KERNELS = {
         replaces="multimodalpfn_tpu/ops/pallas_attention.py:333",
     ),
 }
-# `f32_fingerprints` of commit 32e8513 on an H100 80GB HBM3, before the bf16
-# bodies of K9 and K11 moved to wgmma: their CUDA-core bodies (float32, and
-# bf16 at d = 8) must go on giving these bits
+# `f32_fingerprints` on an H100 80GB HBM3 of the commits before each bf16
+# redesign (K9, K11: 32e8513, before their passes moved to wgmma; K4, K2a:
+# 4f9071f, before their forward did): the CUDA-core bodies (float32, and bf16
+# at d = 8) must go on giving these bits
 PARENT_F32_SHA256 = {
     "K11 f32 d=8": "b9f0e3a2bc2964aa", "K11 f32 d=16": "b910ce43502031dc",
     "K11 f32 d=32": "4055da75ae152101", "K11 f32 d=64": "8d25581c0adcb482",
     "K11 bf16 d=8": "f08cbd5d6befbdc3", "K9 f32 d=16": "316bb5119ccb572e",
     "K9 f32 d=32": "c392cb97580252e8",
+    "K4 f32 d=8": "e3120a6cef7fdb84", "K4 f32 d=16": "958edca163ae9a69",
+    "K4 f32 d=32": "43c8d595c221bc21", "K4 f32 d=64": "b83b6d8fa95cec24",
+    "K4 bf16 d=8": "55c558b98b8ab344", "K2a f32 d=8": "a24a3210b8ee60a2",
+    "K2a f32 d=16": "ac6db837ce5d7a7e", "K2a f32 d=32": "50a91845e15f9ced",
+    "K2a f32 d=64": "35568848dcbde803", "K2a bf16 d=8": "d4a47c31e5c7a20a",
 }
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
@@ -301,8 +320,9 @@ def bound(flops: float, nbytes: float, tag: str) -> tuple[float, str]:
 
 def wgmma_sass_counts(lib: Path) -> dict:
     """HGMMA instructions in the SASS (``cuobjdump --dump-sass``) of each
-    bf16 pass kernel of `csrc/attn_bwd.cuh`: the dq and dk/dv passes at
-    d = 16, 32, 64 for K9's and K11's geometry, 12 kernels."""
+    bf16 tensor-core attention kernel: the forward of K2a and K4
+    (`csrc/attn_tile.cuh`) and the dq and dk/dv passes of K9 and K11
+    (`csrc/attn_bwd.cuh`), each at d = 16, 32, 64: 18 kernels."""
     import os
     import re
     import shutil
@@ -317,10 +337,12 @@ def wgmma_sass_counts(lib: Path) -> dict:
             name = m.group(1)
             fn = None
             if "wg_kernel" in name:
-                pas = "dq" if "dq_wg_kernel" in name else "dkv"
-                geo = "K9" if "ItemGeo" in name else "K11"
                 d = re.search(r"wg_kernelILi(\d+)", name).group(1)
-                fn = f"{geo} {pas} d={d}"
+                if "fwd_wg_kernel" in name:
+                    fn = f"{'K2a' if 'ItemFwdGeo' in name else 'K4'} fwd d={d}"
+                else:
+                    pas = "dq" if "dq_wg_kernel" in name else "dkv"
+                    fn = f"{'K9' if 'ItemGeo' in name else 'K11'} {pas} d={d}"
                 counts[fn] = 0
         elif fn and "HGMMA" in line:
             counts[fn] += 1
@@ -342,9 +364,9 @@ def exp_floor_ms(pairs: float, device) -> float | None:
     return pairs / (EX2_PER_CLOCK_PER_SM * sms * hz) * 1e3
 
 
-def pass_ms(fn, device, iters: int) -> dict:
-    """Device ms per call of the dq and dk/dv passes of `csrc/attn_bwd.cuh`
-    that ``fn`` launches, from the profiler's kernel names."""
+def profiled_ms(fn, device, iters: int, patterns: dict) -> dict:
+    """Device ms per call of ``fn``'s kernels whose profiler names contain
+    each pattern: {key: pattern} -> {key: ms}."""
     import torch
 
     if device.type != "cuda":
@@ -355,12 +377,26 @@ def pass_ms(fn, device, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {"dq_pass": 0.0, "dkv_pass": 0.0}
+    out = dict.fromkeys(patterns, 0.0)
     for ms, _, name in device_kernel_rows(prof):
-        for tag in out:
-            if f"attn_bwd::{tag[:-5]}_" in name:
-                out[tag] += ms / iters
+        for key, pattern in patterns.items():
+            if pattern in name:
+                out[key] += ms / iters
     return out
+
+
+# the two passes of `csrc/attn_bwd.cuh` (K9, K11) and K2a's two kernels (its
+# projection, then the attention of both regions), by profiler name
+BWD_PASSES = {"dq_pass": "attn_bwd::dq_", "dkv_pass": "attn_bwd::dkv_"}
+K2A_PARTS = {"proj": "proj_nt", "attn": "attn"}
+
+
+def exact_grid(a, step: float = 0.25, lim: int = 8):
+    """``a`` rounded to multiples of ``step`` within ±lim·step: bf16 holds
+    such values exactly, and at e = 192 every partial sum of x·W over x on
+    the default grid and W on a grid of 1/256 within ±0.375 is a multiple of
+    1/1024 below 2^17 of them, exact in float32 in any order."""
+    return (a / step).round().clamp(-lim, lim) * step
 
 
 def densify(params: dict, seed: int) -> None:
@@ -392,8 +428,10 @@ def write_model(path: Path, multiquery: bool = True) -> None:
     save_npz(path, loaded.params, cfg)
 
 
-def phase_kernels(device, dims, iters) -> dict:
-    """Every kernel against its plain version on the same inputs."""
+def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
+    """Every kernel against its plain version on the same inputs (with
+    ``only``, the cases whose ids start with one of its entries). K4 also
+    runs at the flash fine-tune's three blocks (``ft_dims``, as `FT_DIMS`)."""
     import torch
     import torch.nn.functional as F
 
@@ -417,6 +455,14 @@ def phase_kernels(device, dims, iters) -> dict:
     xs48 = rand(b, sep, 48, e)
     qp, kp, vp = rand(b * t * h, sep, d), rand(b * t * h, sep, d), rand(b * t * h, sep, d)
     qm = rand(b * t, h * n_pred, d)  # multiquery: heads folded into the queries
+    # the flash fine-tune's blocks: train rows of every head, the test rows
+    # of every head, and the test rows folded against KV head 0
+    _, ft_t, ft_S, ft_sep, _, ft_h, _, _ = ft_dims
+    ft_G, ft_test = ft_t * ft_h, ft_S - ft_sep
+    kf, vf = rand(ft_G, ft_sep, d), rand(ft_G, ft_sep, d)
+    ft_blocks = {"K4@ft_train": (rand(ft_G, ft_sep, d), kf, vf),
+                 "K4@ft_test": (rand(ft_G, ft_test, d), kf, vf),
+                 "K4@ft_folded": (rand(ft_t, ft_h * ft_test, d), kf[:ft_t], vf[:ft_t])}
     xp48 = rand(b, n_pred, 48, e)  # K6b at the merged predict shape
     # the merged group's key masks: each member's own feature tokens, none of
     # its padded ones, the image tokens and the target
@@ -492,6 +538,18 @@ def phase_kernels(device, dims, iters) -> dict:
                         lambda dt: (xp48.to(dt), w_qkv, w_out, None, mask[:, None]),
                         feat_work(b * n_pred, 48, keys), None),
     }
+    for kid, (qb, kb, vb) in ft_blocks.items():
+        cases[kid] = (flash.flash_attention, flash.flash_attention_plain,
+                      lambda dt, qkv=(qb, kb, vb): tuple(a.to(dt) for a in qkv),
+                      flash_work(qb.shape[0], qb.shape[1], kb.shape[1]),
+                      lambda dt, qkv=(qb, kb, vb): sdpa(*(a.to(dt) for a in qkv)))
+    if only is not None:
+        cases = {kid: case for kid, case in cases.items() if kid.startswith(tuple(only))}
+    # the (query, key) pairs each attention forward exponentiates once: K2a's
+    # train rows (every head) and test rows (KV head 0) against the train keys
+    pairs = {"K2a": G2 * h * S * sep} | {
+        kid: (lambda a: a[0].shape[0] * a[0].shape[1] * a[1].shape[1])(make(torch.float32))
+        for kid, (_, _, make, _, _) in cases.items() if kid.startswith("K4")}
     results = {}
     for kid, (kern, plain, make, work, library) in cases.items():
         res = {"shape": list(make(torch.float32)[0].shape)}
@@ -505,8 +563,16 @@ def phase_kernels(device, dims, iters) -> dict:
                 (got, got_lse), (want, want_lse) = got, want
                 lse_err = float((got_lse - want_lse).abs().max())
                 res[f"lse_max_abs_err_{tag}"] = lse_err
-                if kid.startswith("K4") and tag == "f32":
-                    check(lse_err <= LSE_F32_ABS_BOUND, f"{kid} f32 lse err {lse_err:.3e}")
+                if kid == "K2a" and tag == "bf16":
+                    # K2a's projection and the plain version's sum in other
+                    # orders, so a q or k element may round to its bf16
+                    # neighbour and shift a score (lse_max_abs_err_bf16);
+                    # on inputs whose sums are exact the two round alike,
+                    # and the lse holds the attention alone
+                    exact = (exact_grid(args[0]), exact_grid(args[1], 1 / 256, 96), sep)
+                    lse_err = float((kern(*exact)[1] - plain(*exact)[1]).abs().max())
+                    res["lse_exact_proj_max_abs_err_bf16"] = lse_err
+                check(lse_err <= LSE_ABS_BOUND, f"{kid} {tag} lse err {lse_err:.3e} > {LSE_ABS_BOUND:.0e}")
             if device.type == "cuda":
                 torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
@@ -523,14 +589,29 @@ def phase_kernels(device, dims, iters) -> dict:
             if library is not None and tag == "bf16":
                 res[f"library_ms_{tag}"] = timed(library(dt), device, iters)
             lib = res[f"library_ms_{tag}"]
+            extra = ""
+            if kid == "K2a":  # the projection and the attention apart
+                for part, ms in profiled_ms(lambda: kern(*args), device, iters, K2A_PARTS).items():
+                    res[f"{part}_ms_{tag}"] = ms
+                    extra += f", {part} {ms:.3f} ms"
+            if kid in pairs:
+                # computed, not measured: printed here, kept out of the kernels line
+                floor = exp_floor_ms(pairs[kid], device)
+                if floor is not None:
+                    extra += f", exp floor {floor:.3f} ms"
+            if "lse_max_abs_err_" + tag in res:
+                extra += f", lse max abs err {res['lse_max_abs_err_' + tag]:.2e}"
             print(
                 f"  {kid} {tag}: max abs err {err:.3e}, rel err {rel:.3e} (bound {rel_bound:.3e}), "
                 f"kernel {res[f'ms_{tag}']:.3f} ms, plain {res[f'plain_ms_{tag}']:.3f} ms, "
-                f"bound {res[f'bound_ms_{tag}']:.3f} ms ({res[f'bound_by_{tag}']})"
+                f"bound {res[f'bound_ms_{tag}']:.3f} ms ({res[f'bound_by_{tag}']})" + extra
                 + ("" if tag == "f32" else ", no single library call" if lib is None
                    else f", library {lib:.3f} ms"),
                 flush=True,
             )
+            if kid == "K2a" and lib is not None and res.get(f"attn_ms_{tag}"):
+                print(f"  K2a {tag}: its attention against the library's attention core: "
+                      f"{res[f'attn_ms_{tag}'] / lib:.2f}x", flush=True)
             check(finite, f"{kid} {tag}: non-finite output")
             check(rel <= rel_bound, f"{kid} {tag}: rel err {rel:.3e} > {rel_bound:.3e}")
         results[kid] = res
@@ -700,7 +781,7 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
             lib = res[f"library_ms_{tag}"]
             passes = ""
             if kid in pairs:
-                for name, ms in pass_ms(lambda: kern(*args), device, iters).items():
+                for name, ms in profiled_ms(lambda: kern(*args), device, iters, BWD_PASSES).items():
                     res[f"{name}_ms_{tag}"] = ms
                     passes += f", {name} {ms:.3f} ms"
                 # computed, not measured: printed here, kept out of the kernels line
@@ -725,13 +806,14 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
 
 
 def f32_fingerprints(device) -> dict:
-    """sha256 (first 16 hex digits) of the float32 outputs of K9 and K11 and
-    of K11's bf16 outputs at d = 8: the work of the CUDA-core bodies of
-    `csrc/attn_bwd.cuh`, which the bf16 redesign left as they were. Inputs
-    come from a seeded CPU generator and the plain forward and epilogue
-    backward on the card (no other kernel of the port, so the digests pin
-    the CUDA-core bodies alone); phase 8 holds them equal to
-    `PARENT_F32_SHA256`, the parent commit's."""
+    """sha256 (first 16 hex digits) of the float32 outputs of K9, K11, K4
+    and K2a and of their bf16 outputs at d = 8: the work of the CUDA-core
+    bodies of `csrc/attn_bwd.cuh` and `csrc/attn_tile.cuh`, which the bf16
+    redesigns left as they were. Inputs come from a seeded CPU generator
+    and, for the backward kernels, the plain forward and epilogue backward on
+    the card (no other kernel of the port, so the digests pin the CUDA-core
+    bodies alone); phase 8 holds them equal to `PARENT_F32_SHA256`, the
+    parent commits'."""
     import hashlib
 
     import torch
@@ -764,6 +846,15 @@ def f32_fingerprints(device) -> dict:
             o, lse = item_fused.item_attention_core_plain(x3, w_qkv, sep)
             du, do, delta, _ = item_fused.item_epilogue_bwd_plain(x3, o, w_out, g3)
             out[f"K9 f32 d={d}"] = digest(item_fused.item_attention_bwd(x3, w_qkv, do, delta, lse, sep, du))
+        # the forward's CUDA-core body (attn::cc_rows): K4 and K2a in float32,
+        # and bf16 at d = 8
+        for dt, d in ((torch.float32, 8), (torch.float32, 16), (torch.float32, 32),
+                      (torch.float32, 64), (torch.bfloat16, 8)):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            q, k, v = rand(6, 183, d).to(dt), rand(6, 300, d).to(dt), rand(6, 300, d).to(dt)
+            out[f"K4 {tag} d={d}"] = digest(flash.flash_attention(q, k, v))
+            x3, w_qkv = rand(2, 300, 96).to(dt), rand(3, 6, d, 96, scale=96**-0.5)
+            out[f"K2a {tag} d={d}"] = digest(item_fused.item_attention_core(x3, w_qkv, 237))
     return out
 
 
@@ -1327,7 +1418,7 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
     rows = []
     for kid, meta in KERNELS.items():
         r = dict(kres[kid])
-        for sub in ("t48", "predict", "test", "folded"):
+        for sub in ("t48", "predict", "test", "folded", "ft_train", "ft_test", "ft_folded"):
             r.update({f"{k}_{sub}": v for k, v in kres.get(f"{kid}@{sub}", {}).items()})
         main = {"max_abs_err": "max_abs_err_f32", "ms": "ms_bf16", "plain_ms": "plain_ms_bf16",
                 "bound_ms": "bound_ms_bf16", "bound_by": "bound_by_bf16",
@@ -1383,9 +1474,10 @@ def main() -> int:
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"({kernels.library_path().name})", flush=True)
         hgmma = wgmma_sass_counts(kernels.library_path())
-        print(f"  HGMMA instructions in the SASS of the bf16 passes of K9/K11: {hgmma}", flush=True)
-        check(len(hgmma) == 12 and min(hgmma.values()) > 0,
-              "the bf16 attention-backward passes do not all issue wgmma")
+        print(f"  HGMMA instructions in the SASS of the bf16 attention kernels (K2a and K4 forward, "
+              f"K9 and K11 passes): {hgmma}", flush=True)
+        check(len(hgmma) == 18 and min(hgmma.values()) > 0,
+              "the bf16 attention kernels do not all issue wgmma")
     model_path = ROOT / "build" / "chip_smoke_model.npz"
     write_model(model_path)
     nmq_path = ROOT / "build" / "chip_smoke_model_no_multiquery.npz"
@@ -1396,7 +1488,8 @@ def main() -> int:
         dims, iters = (2, 7, 40, 30, 32, 4, 8, 64, 16), 1
     else:
         dims, iters = (4, 31, 2350, 1838, 192, 6, 32, 768, 512), 10
-    kres = phase_kernels(device, dims, iters)
+    ft_dims = (1, 5, 37, 21, 32, 4, 8, 64) if args.rehearse else FT_DIMS
+    kres = phase_kernels(device, dims, iters, ft_dims)
 
     X, img, y = pad_ufes_like(seed=0)
     if args.rehearse:
@@ -1434,13 +1527,12 @@ def main() -> int:
               f"{forced[mode, 'merged']['warm']}", flush=True)
 
     print("== phase 8: backward kernels against their plain versions (fine-tune shapes)", flush=True)
-    ft_dims = (1, 5, 37, 21, 32, 4, 8, 64) if args.rehearse else FT_DIMS
     kres |= phase_bwd_kernels(device, ft_dims, iters)
     if device.type == "cuda":
         prints = f32_fingerprints(device)
-        print(f"  K9/K11 CUDA-core outputs (sha256): {prints}", flush=True)
+        print(f"  K9/K11/K4/K2a CUDA-core outputs (sha256): {prints}", flush=True)
         check(prints == PARENT_F32_SHA256,
-              f"K9/K11 CUDA-core outputs differ from the parent commit's: {prints} != {PARENT_F32_SHA256}")
+              f"CUDA-core outputs differ from the parent commits': {prints} != {PARENT_F32_SHA256}")
 
     ft_data = (X, img, y)
     ft_steps, ft_layers = (2, 12) if args.rehearse else (FT_STEPS, 12)

@@ -1,19 +1,23 @@
 // Online-softmax attention of query rows against a stream of K/V rows, the
-// tile loop shared by K2a (item_attn.cu) and K4 (flash_fwd.cu). Each caller
-// loads its query rows, calls one of the two bodies below with pointers to
-// the first K and V row and the row stride, and normalizes and stores the
-// result in its own layout.
+// tile loop shared by K2a (item_attn.cu) and K4 (flash_fwd.cu).
 //
 // The rounding is the Pallas kernels': scores q·k accumulate in float32 and
 // are scaled in float32; the unnormalized weights exp(s - m) are rounded to
 // the operand type before the P·V product; their sum and the output stay
-// float32. K/V rows at or past `nkv` are zero-filled on load (stale shared
-// memory times zero can be NaN) and their scores masked with -1e30, so no
+// float32. Keys at or past the key count are masked by index, so no
 // out-of-range value reaches a sum. K/V stream from device memory through
 // shared memory, so the key count has no shared-memory ceiling.
+//
+// Two bodies:
+//  * cc_rows, float32 operands (or bf16 at d = 8) on the CUDA cores, the
+//    parity mode: each caller loads its query rows, calls it with pointers
+//    to the first K and V row and the row stride, and normalizes and stores;
+//  * fwd_wg_kernel, bf16 operands at d = 16, 32, 64 on Hopper's tensor
+//    cores: a warp-specialised kernel fed by TMA, with a geometry type per
+//    caller (below).
 #pragma once
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace attn {
 
@@ -92,114 +96,279 @@ __device__ __forceinline__ void cc_rows(const float (&q)[D], const T* __restrict
   }
 }
 
-// ---- bf16 operands on the tensor cores --------------------------------------
-// A warp owns 16 query rows, scores and P·V are mma.sync m16n8k16 products
-// (bf16 in, float32 accumulated), and the online softmax runs on the score
-// fragments: each row lives in the 4 lanes of a quad, which combine their
-// maxima with shuffles and keep partial sums that are added once at the end.
-// K and V tiles are staged row-major with 16-byte loads (ldmatrix.trans reads
-// V as b fragments), rows padded so fragment reads hit distinct banks; the
-// MQ query rows of a block share each staged tile.
-constexpr int MQ = 128;       // query rows per block: 8 warps x 16
-constexpr int MKV = 64;       // keys per shared-memory tile
-constexpr int MTHREADS = 2 * MQ;
-constexpr int MPAD = 8;       // padding of a K/V tile row (bf16 elements)
+// ---- bf16 operands on Hopper's tensor cores (d = 16, 32, 64) ---------------
+// What bounds it: at d = 32 each (query, key) pair costs 4·d = 128
+// tensor-core FLOPs and one exponential, and the SFU's 16 ex2 a clock per SM
+// take twice as long as the products. So the design keeps the SFU busy:
+//  * a block owns 64 query rows per consumer warpgroup, three of them at
+//    d <= 32 (192 rows; registers allow it) and two at d = 64, so that
+//    every streamed K/V tile serves them all and three warps share each
+//    SM sub-partition's SFU;
+//  * one producer warp fills a ring of STAGES K/V tiles of KB = 128 keys
+//    through TMA (3-D tensor maps, groups × rows × columns, swizzled for
+//    wgmma; a tile is two boxes of 64 rows back to back) and mbarriers; the
+//    producer warpgroup gives its registers to the consumers (setmaxnreg);
+//  * scores S = q·kᵀ are wgmma.m64n64k16 with q (A) and the K tile (B,
+//    K-major) from shared memory; O += rnd(P)·V takes P from registers as
+//    the A operand (the score accumulator layout is the A-fragment layout)
+//    and the V tile as B with the transpose bit set;
+//  * the softmax runs on the accumulator fragments, in log2 units: each
+//    score costs one FFMA (s·scale·log2 e − m) and one ex2.approx (one MUFU
+//    instruction), the rescale factor one ex2 per row and tile; lse =
+//    (m + log2 l)·ln 2 in float32; only the last, partial tile pays for the
+//    key mask;
+//  * the warpgroups issue their score products in turn (ordered ping-pong
+//    on named barriers, FlashAttention-3's schedule), so that one
+//    warpgroup's products run under the others' softmax; each warpgroup
+//    waits for its scores, exponentiates, then waits for its P·V. Issuing
+//    tile t + 1's scores with tile t's P·V (intra-warpgroup overlap), 64-key
+//    tiles, two consumer warpgroups at d = 32, and part of the
+//    exponentials on the FMA pipe (FlashAttention-4's polynomial) each
+//    measured slower on the H100.
+// Rows: a geometry type `Geo` of the caller tells each block, from blockIdx
+// and its number of rows bm, where its rows lie:
+//   QTile<O> q_tile(bm) const;   the block's query rows and their outputs
+//   KeyRows keys(bm) const;      the keys they attend to
+//   dim3 grid(bm) const;         (host) the grid
+constexpr int KB = 128;    // keys of a streamed tile
+constexpr int STAGES = 4;  // depth of the K/V ring
 
-// All MTHREADS threads of the block call this. qa holds the warp's 16 query
-// rows as a fragments, one per 16-wide slice of d (zero for rows past the
-// end); K row j is k[j * ld, j * ld + D), 16-byte aligned, V likewise;
-// Ks and Vs are MKV * (D + MPAD) elements of shared memory each. On return,
-// for the lane's rows g and g + 8 (r = 0, 1): oacc[n][2r], oacc[n][2r+1] hold
-// output columns 8n + 2(lane % 4) and the next, unnormalized; m[r] is the row
-// maximum and l[r] the full sum of the weights.
+// A block: CW consumer warpgroups of 64 query rows each, then one producer
+// warpgroup; the registers a thread keeps after setmaxnreg, the producer's
+// and the consumers' (the split fills the SM's 64K registers: one block an
+// SM).
 template <int D>
-__device__ __forceinline__ void mma_rows(const uint32_t (&qa)[D / 16][4],
-                                         const __nv_bfloat16* __restrict__ k,
-                                         const __nv_bfloat16* __restrict__ v, long long ld,
-                                         int nkv, float scale, __nv_bfloat16* Ks,
-                                         __nv_bfloat16* Vs, float (&oacc)[D / 8][4],
-                                         float (&m)[2], float (&l)[2]) {
-  constexpr int KP = D + MPAD;  // padded rows: fragment reads hit distinct banks
-  constexpr int NB = MKV / 8;   // score tiles of 8 keys
-  constexpr int ND = D / 8;     // output tiles of 8 columns
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) oacc[nd][0] = oacc[nd][1] = oacc[nd][2] = oacc[nd][3] = 0.f;
-  m[0] = m[1] = -INFINITY;
-  l[0] = l[1] = 0.f;
+struct Cfg {
+  static constexpr int CW = D <= 32 ? 3 : 2;
+  static constexpr int WM = 64 * CW;  // query rows of a block
+  static constexpr int THREADS = 128 * (CW + 1);
+  static constexpr int PRODUCER_REGS = CW == 2 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = (65536 - 128 * PRODUCER_REGS) / (128 * CW) / 8 * 8;
+};
 
-  for (int k0 = 0; k0 < nkv; k0 += MKV) {
-    for (int i = tid; i < MKV * D / 8; i += MTHREADS) {
-      const int r = i / (D / 8), c = 8 * (i - r * (D / 8));
-      const int kr = k0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (kr < nkv) {
-        kv = *reinterpret_cast<const uint4*>(k + (long long)kr * ld + c);
-        vv = *reinterpret_cast<const uint4*>(v + (long long)kr * ld + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * KP + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * KP + c) = vv;
-    }
-    __syncthreads();
+// The caller's tensor maps of q, k and v (K2a: one map of the packed qkv),
+// passed to the kernel as a __grid_constant__ parameter.
+struct Maps {
+  CUtensorMap q, k, v;
+};
 
-    float sc[NB][4];
+// The block's query rows: n rows (at most bm; the others are computed and
+// never stored) from row `row` of group z of the q map, from column col;
+// the output of row r at o + r·ldo (D values) and its lse at lse[r].
+template <typename O>
+struct QTile {
+  O* o;
+  long long ldo;
+  float* lse;
+  int n, row, z, col;
+};
+
+// The keys of a block's rows: n rows from row `row` of group z of the k and
+// v maps, k from column kcol, v from vcol. A box past n reads zeros or real
+// rows that are not keys; both are masked by index.
+struct KeyRows {
+  int n, row, z, kcol, vcol;
+};
+
+// Dynamic shared memory from a 1024-byte aligned base: the block's q tiles
+// (64 rows each), the ring of STAGES stages (KB rows of K, then KB of V, as
+// boxes of 64 rows back to back), the mbarriers.
+template <int D>
+struct FwdSmem {
+  static constexpr int TILE = hopper::BN * D * 2;  // bytes of a 64-row box
+  static constexpr int HALVES = KB / hopper::BN;   // boxes of a K (or V) tile
+  static constexpr int Q = 0, RING = Cfg<D>::CW * TILE, STAGE = 2 * HALVES * TILE;
+  static constexpr int BARS = RING + STAGES * STAGE;  // full[STAGES], empty[STAGES], own
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+};
+
+// v[0] = the maximum (tree_max) or the sum (tree_sum) of v[0, 2W), as a
+// tree of depth log2 2W; recursion on W keeps every index a constant, so v
+// stays in registers
+template <int W, int N>
+__device__ __forceinline__ void tree_max(float (&v)[N]) {
+  if constexpr (W >= 1) {
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
+    for (int k = 0; k < W; ++k) v[k] = fmaxf(v[k], v[k + W]);
+    tree_max<W / 2>(v);
+  }
+}
+template <int W, int N>
+__device__ __forceinline__ void tree_sum(float (&v)[N]) {
+  if constexpr (W >= 1) {
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const __nv_bfloat16* kr = Ks + (nb * 8 + g) * KP + ks * 16 + 2 * q4;
-        mma_bf16_16816(sc[nb], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                       *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-    const int nk = min(MKV, nkv - k0);
-    float mt[2] = {-INFINITY, -INFINITY};
+    for (int k = 0; k < W; ++k) v[k] += v[k + W];
+    tree_sum<W / 2>(v);
+  }
+}
+
+// One tile's online-softmax step on the score accumulators sc (KB keys as
+// H = KB / 64 products of 64 columns) of the thread's rows r = 0, 1 (layout:
+// hopper.cuh), in log2 units: with MASK, keys at or past `lim` are masked;
+// m[r] becomes the running maximum of s·scale·log2 e, alpha[r] =
+// 2^(m_old − m_new) the factor that rescales what was summed before; the
+// weights p = 2^(s·sl2 − m) are summed into l (float32, after l·alpha) and
+// rounded to bf16 into pa, the A fragments of P·V. Maxima and sums are
+// trees, for short dependency chains.
+template <int H, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[H][32], int lim, float sl2, float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             uint32_t (&pa)[4 * H][4]) {
+  const int q4 = threadIdx.x & 3;
+  if constexpr (MASK) {
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int h = 0; h < H; ++h)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = nb * 8 + 2 * q4 + (i & 1);
-        sc[nb][i] = key < nk ? sc[nb][i] * scale : -1e30f;
-        mt[i >> 1] = fmaxf(mt[i >> 1], sc[nb][i]);
-      }
-    uint32_t pa[MKV / 16][4];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m[r], mt[r]);
-      const float alpha = expf(m[r] - m_new);
-      l[r] *= alpha;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        oacc[nd][2 * r] *= alpha;
-        oacc[nd][2 * r + 1] *= alpha;
-      }
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const float p0 = expf(sc[nb][2 * r] - m_new), p1 = expf(sc[nb][2 * r + 1] - m_new);
-        l[r] += p0 + p1;
-        // score tiles 2j and 2j+1 are the A fragment of keys 16j..16j+15
-        pa[nb >> 1][r + 2 * (nb & 1)] = pack_bf16(p0, p1);
-      }
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int j = 0; j < MKV / 16; ++j) {
-        uint32_t b0, b1;
-        ldsm_x2_trans(b0, b1, Vs + (j * 16 + (lane & 15)) * KP + nd * 8);
-        mma_bf16_16816(oacc[nd], pa[j], b0, b1);
-      }
-    __syncthreads();
+        for (int c = 0; c < 2; ++c)
+          if (64 * h + 8 * i + 2 * q4 + c >= lim) sc[h][4 * i + c] = sc[h][4 * i + 2 + c] = -INFINITY;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    float v[8 * H];
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[8 * h + i] = fmaxf(sc[h][4 * i + 2 * r], sc[h][4 * i + 2 * r + 1]);
+    tree_max<4 * H>(v);
+    float mx = fmaxf(v[0], __shfl_xor_sync(0xffffffffu, v[0], 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * sl2);  // sl2 > 0: the maximum commutes with the scale
+    alpha[r] = hopper::ex2(m[r] - m_new);
+    m[r] = m_new;
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float p0 = hopper::ex2(fmaf(sc[h][4 * i + 2 * r], sl2, -m_new));
+        const float p1 = hopper::ex2(fmaf(sc[h][4 * i + 2 * r + 1], sl2, -m_new));
+        v[8 * h + i] = p0 + p1;
+        pa[4 * h + (i >> 1)][r + 2 * (i & 1)] = pack_bf16(p0, p1);
+      }
+    tree_sum<4 * H>(v);
+    l[r] = fmaf(l[r], alpha[r], v[0]);
   }
+}
+
+template <int D, typename Geo>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+    fwd_wg_kernel(const __grid_constant__ Maps maps, Geo geo, float scale) {
+  using namespace hopper;
+  using P = FwdSmem<D>;
+  using C = Cfg<D>;
+  constexpr int H = P::HALVES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = ring_smem(smem_raw, P::BARS, STAGES, 1, 4 * C::CW);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own = empty + STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const auto qt = geo.q_tile(C::WM);
+  const KeyRows kv = geo.keys(C::WM);
+  const int ntiles = (kv.n + KB - 1) / KB;
+
+  if (wg == C::CW) {  // producer
+    producer_registers<C::PRODUCER_REGS>();
+    if (tid == 128 * C::CW) {
+      mbar_arrive_tx(own, C::CW * P::TILE);
+      for (int w = 0; w < C::CW; ++w)
+        tma_load(sm + P::Q + w * P::TILE, &maps.q, own, qt.col, qt.row + w * BN, qt.z);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES, round = t / STAGES;
+        if (round) mbar_wait(empty + s, (round - 1) & 1);
+        uint8_t* st = sm + P::RING + s * P::STAGE;
+        mbar_arrive_tx(full + s, P::STAGE);
+        for (int h = 0; h < H; ++h) {
+          tma_load(st + h * P::TILE, &maps.k, full + s, kv.kcol, kv.row + t * KB + h * BN, kv.z);
+          tma_load(st + (H + h) * P::TILE, &maps.v, full + s, kv.vcol, kv.row + t * KB + h * BN, kv.z);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns query rows [64·wg, 64·wg + 64) of the block
+    consumer_registers<C::CONSUMER_REGS>();
+    const int lane = tid & 31, q4 = lane & 3;
+    const int row0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // and row0 + 8
+    mbar_wait(own, 0);
+    if (wg * 64 < qt.n) {
+      const uint64_t qd = tile_desc<D>(sm + P::Q + wg * P::TILE);
+      const float sl2 = scale * LOG2E;
+      float sc[H][32], o[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+      uint32_t pa[4 * H][4];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      // the warpgroups issue their score products in turn (named barrier
+      // 1 + w is warpgroup w's), where all of them have rows; the last
+      // opens the first turn and leaves no turn open after its last tile
+      const bool pingpong = qt.n > 64 * (C::CW - 1);
+      if (pingpong && wg == C::CW - 1) bar_arrive(1, 256);
+      for (int t = 0; t < ntiles; ++t) {
+        uint8_t* st = sm + P::RING + (t % STAGES) * P::STAGE;
+        mbar_wait(full + t % STAGES, (t / STAGES) & 1);
+        if (pingpong) bar_sync(1 + wg, 256);
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const uint64_t kd = tile_desc<D>(st + h * P::TILE);
+#pragma unroll
+          for (int j = 0; j < D / 16; ++j) wgmma_ss_n64(sc[h], qd + 2 * j, kd + 2 * j, j);
+        }
+        wgmma_commit();
+        if (pingpong && !(wg == C::CW - 1 && t == ntiles - 1)) bar_arrive(1 + (wg + 1) % C::CW, 256);
+        wgmma_wait_all();
+#pragma unroll
+        for (int h = 0; h < H; ++h) keep(sc[h]);
+        const int lim = kv.n - t * KB;  // keys of this tile
+        if (lim < KB)
+          softmax_tile<H, true>(sc, lim, sl2, m, l, alpha, pa);
+        else
+          softmax_tile<H, false>(sc, lim, sl2, m, l, alpha, pa);
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) o[4 * i + c] *= alpha[c >> 1];
+        wgmma_fence();
+        keep(o);
+        const uint64_t vd = tile_desc<D>(st + H * P::TILE);
+#pragma unroll
+        for (int j = 0; j < 4 * H; ++j) wgmma_rs<D>(o, pa[j], vd + 2 * D * j);
+        wgmma_commit();
+        wgmma_wait_all();
+        keep(o);
+        keep(pa);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + t % STAGES);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = row0 + 8 * r;
+        if (row >= qt.n) continue;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+          store2(qt.o + row * qt.ldo + 8 * i + 2 * q4, o[4 * i + 2 * r] / l[r],
+                 o[4 * i + 2 * r + 1] / l[r]);
+        if (q4 == 0) qt.lse[row] = (m[r] + log2f(l[r])) * LN2;
+      }
+    } else {  // no rows of this warpgroup: release each tile as it arrives
+      for (int t = 0; t < ntiles; ++t) {
+        mbar_wait(full + t % STAGES, (t / STAGES) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + t % STAGES);
+      }
+    }
+  }
+}
+
+// The kernel on `st` over the caller's maps, returning the CUDA error code
+// of the launch.
+template <int D, typename Geo>
+int fwd_wg(const Geo& geo, const Maps& maps, float scale, cudaStream_t st) {
+  constexpr int bytes = FwdSmem<D>::BYTES;
+  if (const int rc = mmpfn_allow_smem(fwd_wg_kernel<D, Geo>, bytes)) return rc;
+  fwd_wg_kernel<D, Geo><<<geo.grid(Cfg<D>::WM), Cfg<D>::THREADS, bytes, st>>>(maps, geo, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace attn

@@ -133,8 +133,8 @@ int launch(const T* q, const T* k, const T* v, const float* o, const float* lse,
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   attn_bwd::Maps maps{};
-  if constexpr (attn_bwd::on_wgmma<T, D>) {
-    using attn_bwd::make_map;
+  if constexpr (hopper::on_wgmma<T, D>) {
+    using hopper::make_map;
     if ((rc = make_map<D>(&maps.q, q, Sq, G, D)) || (rc = make_map<D>(&maps.k, k, Skv, G, D)) ||
         (rc = make_map<D>(&maps.v, v, Skv, G, D)) || (rc = make_map<D>(&maps.dout, do_c, Sq, G, D)))
       return rc;

@@ -10,26 +10,27 @@
 // TPU's 128 lanes (pallas_attention.py:12-18); here every operand keeps the
 // natural (G, S, d) layout, which row-major tiles read with 16-byte loads.
 //
-// What bounds it on the H100: the score and P·V products, 4·Sq·Skv·d FLOPs
-// per group against (2·Sq + 2·Skv)·d operand elements: at the KV-cache prime
-// shape (G = 744, Sq = Skv = 1838, d = 32) 322 GFLOP against 0.2 GB in bf16,
-// about 1600 FLOPs per byte, far above the card's ~295 per byte. float32
-// operands run on the CUDA cores (the parity mode needs full float32
-// products), bf16 operands (d a multiple of 16) on the tensor cores with
-// mma.sync; wgmma and TMA pipelines are later work.
+// What bounds it on the H100: at the KV-cache prime shape (G = 744, Sq =
+// Skv = 1838, d = 32) 322 GFLOP of score and P·V products against 0.2 GB of
+// bf16 operands, about 1600 FLOPs per byte, far above the card's ~295 per
+// byte; and 2.5e9 exponentials, one per (query, key) pair, which at 16 ex2
+// a clock per SM take longer than the products on the tensor cores. So at
+// d = 32 the SFU, not the tensor cores, is the floor.
 //
-// Design: the online-softmax tile loops of attn_tile.cuh, shared with K2a.
-// A CUDA-core block owns 64 query rows of one group (a thread per row); a
-// tensor-core block owns 128 (a warp per 16). K/V stream through shared
-// memory in tiles of 64 rows, so Skv has no ceiling (the Pallas kernel held
-// the whole K/V of a group in VMEM). Ragged query rows load as zero and are
-// never stored; ragged K/V rows load as zero and are masked. The rounding is
-// the Pallas kernel's: float32 scores scaled in float32, the unnormalized
-// weights rounded to T before P·V, the sum and the output acc / l in
-// float32.
+// Design: the two bodies of attn_tile.cuh, shared with K2a. float32 operands
+// (the parity mode) and bf16 at d = 8 run on the CUDA cores: a block owns 64
+// query rows of one group, a thread per row, K/V staged through shared
+// memory in tiles of 64. bf16 at d = 16, 32, 64 runs fwd_wg_kernel: a block
+// owns 192 query rows of one group (128 at d = 64), K/V tiles of 128 rows
+// arrive through TMA from 3-D tensor maps of q, k, v (G, S, d) built here
+// on the host, and one consumer warpgroup per 64 rows runs the products on
+// wgmma and the softmax on one ex2 per score. Skv has no ceiling (the Pallas kernel held the whole K/V
+// of a group in VMEM). Ragged query rows load as zero (the map's row bound)
+// and are never stored; keys past Skv load as zero and are masked by index.
+// The rounding is the Pallas kernel's: float32 scores scaled in float32,
+// the unnormalized weights rounded to T before P·V, the sum and the output
+// acc / l in float32.
 #include "attn_tile.cuh"
-
-#include <type_traits>
 
 namespace {
 
@@ -56,55 +57,40 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// Rows of fwd_wg_kernel: block x of group z = blockIdx.z owns query rows
+// [bm·x, bm·x + bm) and attends to all Skv keys of the group; in the tensor
+// maps q, k and v are (G, S, d), column 0.
 template <int D>
-__global__ void __launch_bounds__(attn::MTHREADS)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int Sq, int Skv, float scale) {
-  constexpr int ND = D / 8;  // output tiles of 8 columns
-  __shared__ __align__(16) __nv_bfloat16 Ks[attn::MKV * (D + attn::MPAD)];
-  __shared__ __align__(16) __nv_bfloat16 Vs[attn::MKV * (D + attn::MPAD)];
-  const long long g_i = blockIdx.y;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
-  const int q0 = blockIdx.x * attn::MQ + 16 * (threadIdx.x >> 5);  // this warp's first row
-  const __nv_bfloat16* qg = q + g_i * Sq * D;
+struct FlashFwdGeo {
+  float* o;
+  float* lse;
+  int G, Sq, Skv;
 
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + g + 8 * (i & 1), col = ks * 16 + 2 * q4 + 8 * (i >> 1);
-      qa[ks][i] = row < Sq ? *reinterpret_cast<const uint32_t*>(qg + (long long)row * D + col) : 0u;
-    }
-  float oacc[ND][4], m[2], l[2];  // rows g and g+8
-  attn::mma_rows<D>(qa, k + g_i * Skv * D, v + g_i * Skv * D, D, Skv, scale, Ks, Vs, oacc, m, l);
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + g + 8 * r;
-    if (row < Sq) {
-      float* orow = o + (g_i * Sq + row) * D;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<float2*>(orow + nd * 8 + 2 * q4) =
-            make_float2(oacc[nd][2 * r] / l[r], oacc[nd][2 * r + 1] / l[r]);
-      if (q4 == 0) lse[g_i * Sq + row] = m[r] + logf(l[r]);
-    }
+  __host__ dim3 grid(int bm) const { return dim3((Sq + bm - 1) / bm, 1, G); }
+  __device__ __forceinline__ attn::QTile<float> q_tile(int bm) const {
+    const int row = blockIdx.x * bm;
+    const long long r = (long long)blockIdx.z * Sq + row;
+    return {o + r * D, D, lse + r, min(bm, Sq - row), row, (int)blockIdx.z, 0};
   }
-}
+  __device__ __forceinline__ attn::KeyRows keys(int) const { return {Skv, 0, (int)blockIdx.z, 0, 0}; }
+};
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, float* o, float* lse, int G, int Sq,
            int Skv, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D % 16 == 0) {
-    flash_fwd_mma_kernel<D><<<dim3((Sq + attn::MQ - 1) / attn::MQ, G), attn::MTHREADS, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, o, lse, Sq, Skv, scale);
+  if constexpr (hopper::on_wgmma<T, D>) {
+    attn::Maps maps;
+    int rc;
+    if ((rc = hopper::make_map<D>(&maps.q, q, Sq, G, D)) ||
+        (rc = hopper::make_map<D>(&maps.k, k, Skv, G, D)) ||
+        (rc = hopper::make_map<D>(&maps.v, v, Skv, G, D)))
+      return rc;
+    return attn::fwd_wg<D>(FlashFwdGeo<D>{o, lse, G, Sq, Skv}, maps, scale, stream);
   } else {
     flash_fwd_kernel<T, D><<<dim3((Sq + attn::BQ - 1) / attn::BQ, G), attn::BQ, 0, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, o, lse, Sq, Skv, scale);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -126,7 +112,7 @@ extern "C" int mmpfn_flash_fwd(const void* q, const void* k, const void* v, void
                                void* stream) {
   if (cudaError_t err = cudaSetDevice(device)) return (int)err;
   if (G <= 0 || Sq <= 0) return 0;
-  if (Skv < 1 || G > 65535) return MMPFN_BAD_ARGS;
+  if (Skv < 1 || G > 65535 || !(scale > 0.f)) return MMPFN_BAD_ARGS;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == MMPFN_F32)
     return dispatch<float>(q, k, v, (float*)o, (float*)lse, G, Sq, Skv, d, scale, s);

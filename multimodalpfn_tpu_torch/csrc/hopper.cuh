@@ -1,0 +1,249 @@
+// Hopper primitives shared by the tensor-core attention kernels: the forward
+// tile of K2a and K4 (attn_tile.cuh) and the backward passes of K9 and K11
+// (attn_bwd.cuh). Each is a thin wrapper of one PTX instruction (or of the
+// driver's tensor-map encoder) for sm_90a:
+//  * mbarriers and TMA 3-D tile loads that complete on them;
+//  * the wgmma descriptor of a tile as TMA wrote it, and the products
+//    m64n64k16 (A and B from shared memory) and m64nNk16 (A from registers,
+//    B N-major);
+//  * ex2.approx (one MUFU instruction), the register split of a
+//    warp-specialised block (setmaxnreg), and named barriers.
+#pragma once
+
+#include "common.cuh"
+
+#include <cuda.h>
+
+#include <type_traits>
+
+namespace hopper {
+
+constexpr int BN = 64;  // rows of a TMA box, and of a streamed tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// whether a kernel with operands of T and head width D runs its tensor-core
+// body (bf16, d = 16, 32, 64) rather than its CUDA-core one
+template <typename T, int D>
+inline constexpr bool on_wgmma = std::is_same_v<T, __nv_bfloat16> && D % 16 == 0;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+// TMA: the box of `map` at (column c0, row c1, group c2) into shared memory
+// at dst, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The shared memory of a block, aligned to 1024 bytes (the swizzle's repeat),
+// and the barriers of a ring of `stages` stages at byte `bars` of it
+// initialised: full[s] completes when stage s has arrived (`producers`
+// arrivals and the TMA bytes), empty[s] when `consumer_warps` warps have
+// released it, own (the last) when the block's own tiles have arrived.
+__device__ __forceinline__ uint8_t* ring_smem(uint8_t* raw, int bars, int stages, int producers,
+                                              int consumer_warps) {
+  uint8_t* sm = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + bars);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bar + s, producers);
+      mbar_init(bar + stages + s, consumer_warps);
+    }
+    mbar_init(bar + 2 * stages, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return sm;
+}
+
+// The wgmma descriptor of a tile of rows of D bf16 as TMA wrote it: each row
+// 2·D bytes, the span of the tile's swizzle (32, 64, 128 bytes for D = 16,
+// 32, 64: layout types 3, 2, 1), groups of 8 rows 16·D bytes apart (the
+// stride offset). The leading offset is unused: one instruction's k extent
+// (K-major) or n extent (N-major) lies within one swizzled row. A K-major
+// k step of 16 columns adds 32 bytes (2 in the address field); an N-major
+// k step of 16 rows adds 32·D bytes (2·D).
+template <int D>
+__device__ __forceinline__ uint64_t tile_desc(const void* p) {
+  constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)((16 * D) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses to wgmma accumulators across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// ... and the A fragments of a product from registers in theirs until the
+// product has been waited for
+template <int J>
+__device__ __forceinline__ void keep(uint32_t (&a)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 64) += A·B, A and B from shared memory (descriptors), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 16) += A·B, A (64 x 16) from registers in the accumulator-row
+// layout, B from shared memory, N-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32) += A·B, A (64 x 16) from registers in the accumulator-row
+// layout, B from shared memory, N-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += A·B, A (64 x 16) from registers in the accumulator-row
+// layout, B from shared memory, N-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else wgmma_rs_n64(d, a, b);
+}
+
+// Accumulator layout of a 64-row wgmma product (and the operand layout of
+// its A from registers): warp w of the warpgroup holds rows 16w + g and
+// 16w + g + 8 (g = lane / 4); register 4i + 2r + c is row 16w + g + 8r,
+// column 8i + 2·(lane % 4) + c. So the A fragment of k step j of a 64 × 64
+// score tile is registers 8j..8j+7, two at a time rounded and packed:
+// a[j][r + 2·(i & 1)] from column tile i = 2j + (i & 1).
+
+// Register split of a warp-specialised block, by warpgroup. The default is
+// that of 384 threads of at most 168 registers at launch (64512 in all): the
+// producer warpgroup keeps 40 a thread, the two consumer warpgroups take 232
+// (128·40 + 256·232 = 64512).
+template <int N = 40>
+__device__ __forceinline__ void producer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
+}
+template <int N = 232>
+__device__ __forceinline__ void consumer_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads): `threads` threads in all
+// take part, those that call bar_sync wait for the others' bar_arrive.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A 3-D tensor map over `groups` groups of `rows` rows of `ld` bf16 at base,
+// read in boxes of 64 rows × D columns, swizzled for wgmma; rows past a
+// group's last read as zero. cuTensorMapEncodeTiled is reached through the
+// runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda. TMA
+// needs base, the row stride 2·ld and the group stride 2·ld·rows to be
+// multiples of 16 bytes; the encoder refuses them otherwise.
+template <int D>
+int make_map(CUtensorMap* map, const void* base, int rows, int groups, long long ld) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || !fn) return MMPFN_TMA_FAILED;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)groups};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BN, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : MMPFN_TMA_FAILED;
+}
+
+}  // namespace hopper

@@ -8,13 +8,12 @@
 // Replaces multimodalpfn_tpu/ops/pallas_item_fused.py:_fwd_kernel (pallas_call
 // in _fwd_region, :200/:222, called for both regions from _fwd_call :246).
 //
-// What bounds it on the H100: the attention FMAs. At the flagship shape
-// (G = 124, S = 2350, sep = 1838, h = 6, d = 32) the scores and P·V cost
-// 205 G FMAs per call against 64 G FLOP of projection and ~0.3 GB of traffic.
-// float32 operands run on the CUDA cores (the parity mode needs full float32
-// products); bf16 operands run on the tensor cores with mma.sync
-// (proj_nt_tc_kernel, item_attn_mma_kernel). wgmma/TMA pipelines are later
-// work.
+// What bounds it on the H100: the attention. At the flagship shape (G = 124,
+// S = 2350, sep = 1838, h = 6, d = 32) the scores and P·V cost 411 GFLOP
+// and 3.2e9 exponentials (one per (query, key, head)), against 64 GFLOP of
+// projection and ~0.3 GB of traffic; at 16 ex2 a clock per SM the
+// exponentials take longer than the products on the tensor cores, so the
+// SFU is the floor of the attention.
 //
 // Design:
 //  * proj_nt_kernel: a classic shared-memory tiled product, 64×64 outputs per
@@ -22,21 +21,29 @@
 //    kernel casts its projections. It is a kernel of this file, not a library
 //    call. Test rows' k/v columns are computed and unused (13% of the
 //    projection at the flagship shape) to keep one plain product.
-//    proj_nt_tc_kernel is its bf16 tensor-core twin.
-//  * item_attn_kernel: one block per (group, head, 64-query tile); a thread
-//    owns one query row: its q and its float32 output accumulator live in
-//    registers, K/V tiles of 64 train rows are staged in shared memory and
-//    read as broadcasts. Online softmax over sub-tiles of 16 keys with the
-//    Pallas kernel's rounding (the unnormalized weights are rounded to T
-//    before P·V; their sum stays float32). The query tiles of the two regions
-//    are enumerated in one grid, so a tile never straddles `sep`; a test tile
-//    reads KV head 0. K/V rows past `sep` are zero-filled on load and masked
-//    with -1e30, so no out-of-range value reaches a sum. K/V stream from
-//    device memory, so `sep` has no shared-memory ceiling (the Pallas kernel
-//    kept K/V resident in VMEM and was capped at 4096 rows).
-//    item_attn_mma_kernel is its bf16 tensor-core twin (d a multiple of 16):
-//    a warp owns 16 query rows and runs the same online softmax on mma
-//    fragments. Both tile loops live in attn_tile.cuh, shared with K4.
+//    proj_nt_tc_kernel is its bf16 tensor-core twin (mma.sync, synchronous
+//    loads).
+//  * item_attn_kernel (float32, and bf16 at d = 8): one block per (group,
+//    head, 64-query tile); a thread owns one query row: its q and its float32
+//    output accumulator live in registers, K/V tiles of 64 train rows are
+//    staged in shared memory and read as broadcasts. Online softmax over
+//    sub-tiles of 16 keys with the Pallas kernel's rounding (the
+//    unnormalized weights are rounded to T before P·V; their sum stays
+//    float32). K/V rows past `sep` are zero-filled on load and masked, so no
+//    out-of-range value reaches a sum.
+//  * bf16 at d = 16, 32, 64: fwd_wg_kernel of attn_tile.cuh, shared with
+//    K4 (a block owns 192 query rows of one (group, head), 128 at d = 64;
+//    K/V tiles arrive through TMA from a 3-D tensor map of the packed qkv
+//    (G, S, 3·h·d), built here on the host; wgmma products, one ex2 per
+//    score). `ItemFwdGeo` below tells it where the rows of each region lie:
+//    a key tile that straddles `sep` holds real test rows, which are masked
+//    by index; a train query tile's rows past `sep` belong to a test tile
+//    and are computed but never stored.
+// In both attention bodies the query tiles of the two regions are
+// enumerated in one grid, so a tile never straddles `sep`, and a test tile
+// reads KV head 0. K/V stream from device memory, so `sep` has no
+// shared-memory ceiling (the Pallas kernel kept K/V resident in VMEM and was
+// capped at 4096 rows).
 #include "attn_tile.cuh"
 
 #include <type_traits>
@@ -155,15 +162,11 @@ proj_nt_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __re
 }
 
 // ---- two-block online-softmax attention ------------------------------------
-// The tile loops are attn_tile.cuh's, shared with K4. A block owns one
-// (group, head, query tile); the query tiles of the two regions are
-// enumerated in one grid, so a tile never straddles `sep`, and a test tile
-// reads KV head 0.
-using attn::BQ;
+// A block owns one (group, head, query tile); the query tiles of the two
+// regions are enumerated in one grid, so a tile never straddles `sep`, and a
+// test tile reads KV head 0.
 using attn::BKV;
-using attn::MQ;
-using attn::MKV;
-using attn::MTHREADS;
+using attn::BQ;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(BQ)
@@ -196,54 +199,32 @@ item_attn_kernel(const T* __restrict__ qkv, T* __restrict__ o, float* __restrict
   }
 }
 
-// The same function for bf16 operands on the tensor cores (a warp owns 16
-// query rows of the block's 128).
+// Rows of fwd_wg_kernel in the packed qkv (G·S, 3·h·d), o (G·S, h·d) and lse
+// (G, h, S); in the tensor map, qkv as (G, S, 3·h·d), group z = blockIdx.z.
+// Grid (query tiles of both regions, h, G): a train tile (x < the train
+// tiles) attends to the train keys of its own head y, a test tile to those
+// of KV head 0.
 template <int D>
-__global__ void __launch_bounds__(MTHREADS)
-item_attn_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int S, int sep, int h, float scale) {
-  constexpr int ND = D / 8;  // output tiles of 8 columns
-  __shared__ __align__(16) __nv_bfloat16 Ks[MKV * (D + attn::MPAD)];
-  __shared__ __align__(16) __nv_bfloat16 Vs[MKV * (D + attn::MPAD)];
-  const int g_i = blockIdx.z, hh = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
-  const int n_qb_tr = (sep + MQ - 1) / MQ;
-  const bool cross = (int)blockIdx.x >= n_qb_tr;
-  const int q0 = (cross ? sep + ((int)blockIdx.x - n_qb_tr) * MQ : (int)blockIdx.x * MQ) + 16 * warp;
-  const int q_end = cross ? S : sep;
-  const int kvh = cross ? 0 : hh;  // test rows share KV head 0
-  const int hd = h * D, ld = 3 * hd;
-  const __nv_bfloat16* grp = qkv + (long long)g_i * S * ld;
+struct ItemFwdGeo {
+  __nv_bfloat16* o;
+  float* lse;
+  int G, S, sep, h;
 
-  // this warp's 16 query rows as A fragments, one per 16-wide slice of d
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + g + 8 * (i & 1), col = ks * 16 + 2 * q4 + 8 * (i >> 1);
-      qa[ks][i] = row < q_end
-                      ? *reinterpret_cast<const uint32_t*>(grp + (long long)row * ld + hh * D + col)
-                      : 0u;
-    }
-  float oacc[ND][4], m[2], l[2];  // rows g and g+8
-  attn::mma_rows<D>(qa, grp + hd + kvh * D, grp + 2 * hd + kvh * D, ld, sep, scale, Ks, Vs, oacc,
-                    m, l);
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + g + 8 * r;
-    if (row < q_end) {
-      const float inv = 1.f / l[r];
-      __nv_bfloat16* orow = o + ((long long)g_i * S + row) * hd + hh * D;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * q4) =
-            pack_bf16(oacc[nd][2 * r] * inv, oacc[nd][2 * r + 1] * inv);
-      if (q4 == 0) lse[((long long)g_i * h + hh) * S + row] = m[r] + logf(l[r]);
-    }
+  __host__ __device__ __forceinline__ int n_train(int bm) const { return (sep + bm - 1) / bm; }
+  __host__ dim3 grid(int bm) const { return dim3(n_train(bm) + (S - sep + bm - 1) / bm, h, G); }
+  __device__ __forceinline__ bool cross(int bm) const { return (int)blockIdx.x >= n_train(bm); }
+  __device__ __forceinline__ attn::QTile<__nv_bfloat16> q_tile(int bm) const {
+    const int x = blockIdx.x, ntr = n_train(bm), hh = blockIdx.y, z = blockIdx.z;
+    const int q0 = x >= ntr ? sep + (x - ntr) * bm : x * bm, q_end = x >= ntr ? S : sep;
+    const int hd = h * D;
+    return {o + ((long long)z * S + q0) * hd + hh * D, hd, lse + ((long long)z * h + hh) * S + q0,
+            min(bm, q_end - q0), q0, z, hh * D};
   }
-}
+  __device__ __forceinline__ attn::KeyRows keys(int bm) const {
+    const int kvh = cross(bm) ? 0 : blockIdx.y;  // test rows share KV head 0
+    return {sep, 0, (int)blockIdx.z, (h + kvh) * D, (2 * h + kvh) * D};
+  }
+};
 
 template <typename T>
 int launch_proj(const void* a, const void* b, void* c, long long M, int N, int K,
@@ -265,18 +246,20 @@ int launch_proj(const void* a, const void* b, void* c, long long M, int N, int K
 template <typename T, int D>
 int launch_attn(const void* qkv, void* o, float* lse, int G, int S, int sep, int h,
                 cudaStream_t stream) {
-  // query tiles of both regions in one grid: a tile never straddles sep
   const float scale = 1.f / sqrtf((float)D);
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D % 16 == 0) {
-    const int nq = (sep + MQ - 1) / MQ + (S - sep + MQ - 1) / MQ;
-    item_attn_mma_kernel<D><<<dim3(nq, h, G), MTHREADS, 0, stream>>>((const T*)qkv, (T*)o, lse,
-                                                                      S, sep, h, scale);
+  if constexpr (hopper::on_wgmma<T, D>) {
+    attn::Maps maps;
+    if (const int rc = hopper::make_map<D>(&maps.q, qkv, S, G, 3LL * h * D)) return rc;
+    maps.k = maps.v = maps.q;
+    return attn::fwd_wg<D>(ItemFwdGeo<D>{(__nv_bfloat16*)o, lse, G, S, sep, h}, maps, scale,
+                           stream);
   } else {
+    // query tiles of both regions in one grid: a tile never straddles sep
     const int nq = (sep + BQ - 1) / BQ + (S - sep + BQ - 1) / BQ;
     item_attn_kernel<T, D><<<dim3(nq, h, G), BQ, 0, stream>>>((const T*)qkv, (T*)o, lse, S, sep,
                                                               h, scale);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>

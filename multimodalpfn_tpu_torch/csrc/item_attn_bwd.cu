@@ -153,8 +153,8 @@ int passes(const T* qkv, const T* dout, const float* lse, const float* delta, T*
            Layout L, cudaStream_t st) {
   const float scale = 1.f / sqrtf((float)D);
   attn_bwd::Maps maps{};
-  if constexpr (attn_bwd::on_wgmma<T, D>) {
-    using attn_bwd::make_map;
+  if constexpr (hopper::on_wgmma<T, D>) {
+    using hopper::make_map;
     int rc;
     if ((rc = make_map<D>(&maps.q, qkv, L.S, G, 3LL * L.hd)) ||
         (rc = make_map<D>(&maps.dout, dout, L.S, G, L.hd)))

@@ -300,8 +300,10 @@ def _cached_item_attention(
     if cfg.use_flash:
         # the query heads fold into K4's query axis, head-major, against the
         # single cached KV head; q in the compute dtype
-        q = torch.einsum("btsi,hdi->bthsd", sti.to(cd), wq).reshape(b * t, h_n * s, d)
-        o, _ = flash_attention(q, k0.reshape(b * t, -1, d), v0.reshape(b * t, -1, d))
+        q = torch.einsum("btsi,hdi->bthsd", sti.to(cd), wq).contiguous().reshape(b * t, h_n * s, d)
+        # the cache's K and V of head 0 are strided views: K4 takes contiguous operands
+        k0, v0 = k0.contiguous().reshape(b * t, -1, d), v0.contiguous().reshape(b * t, -1, d)
+        o, _ = flash_attention(q, k0, v0)
         o = o.reshape(b, t, h_n, s, d).to(cd).float()
         return torch.einsum("bthqd,hdo->btqo", o, w_out.float())
     # plain: bf16 products accumulated and emitted in float32, as the JAX

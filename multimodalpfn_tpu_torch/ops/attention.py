@@ -112,14 +112,15 @@ def _flash_mha(xq, xkv, wq, wk, wv, w_out, kv_head0_only: bool) -> torch.Tensor:
     package computes them in XLA outside the Pallas call."""
     lead, Sq, Skv = xq.shape[:-2], xq.shape[-2], xkv.shape[-2]
     h, d = wq.shape[:2]
-    q = torch.einsum("...si,hdi->...hsd", xq, wq)
+    # K4 takes contiguous (G, S, d) operands: an einsum may return a permuted view
+    q = torch.einsum("...si,hdi->...hsd", xq, wq).contiguous()
     if kv_head0_only:
-        k = torch.einsum("...si,di->...sd", xkv, wk[0]).reshape(-1, Skv, d)
-        v = torch.einsum("...si,di->...sd", xkv, wv[0]).reshape(-1, Skv, d)
+        k = torch.einsum("...si,di->...sd", xkv, wk[0]).contiguous().reshape(-1, Skv, d)
+        v = torch.einsum("...si,di->...sd", xkv, wv[0]).contiguous().reshape(-1, Skv, d)
         o, _ = flash_attention(q.reshape(-1, h * Sq, d), k, v)
     else:
-        k = torch.einsum("...si,hdi->...hsd", xkv, wk).reshape(-1, Skv, d)
-        v = torch.einsum("...si,hdi->...hsd", xkv, wv).reshape(-1, Skv, d)
+        k = torch.einsum("...si,hdi->...hsd", xkv, wk).contiguous().reshape(-1, Skv, d)
+        v = torch.einsum("...si,hdi->...hsd", xkv, wv).contiguous().reshape(-1, Skv, d)
         o, _ = flash_attention(q.reshape(-1, Sq, d), k, v)
     o = o.reshape(*lead, h, Sq, d).to(xq.dtype)
     return torch.einsum("...hqd,hdo->...qo", o, w_out)

@@ -67,7 +67,8 @@ def flash_attention(
     """K4. Replaces `multimodalpfn_tpu/ops/pallas_attention.py:_fwd_kernel`
     (called through `_fwd_impl`); kernel in `csrc/flash_fwd.cu`. Shapes and
     results as `flash_attention_plain`. Differentiable in q, k and v, with K11
-    as its backward (`_FlashAttention`); lse carries no gradient."""
+    as its backward (`_FlashAttention`); lse carries no gradient. On the card
+    q, k and v must be contiguous and the scale positive."""
     if kernels.needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, sm_scale)
     if q.device.type == "cpu":
@@ -80,13 +81,19 @@ def flash_attention(
         raise ValueError(f"K4: unsupported shape G={G}, Skv={Skv}, d={d}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"K4: q, k and v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    q, k, v = (kernels.aligned(t.contiguous()) for t in (q, k, v))
+    scale = _scale(q, sm_scale)
+    if not scale > 0:
+        raise ValueError(f"K4: the kernel takes a positive scale, got {scale}")
+    # the bf16 kernel reads q, k and v through TMA tensor maps of (G, S, d):
+    # every caller hands in contiguous tensors, and a copy here would hide one
+    # that does not
     kernels.require_cuda("K4", q, k, v)
+    q, k, v = (kernels.aligned(t) for t in (q, k, v))
     o = torch.empty((G, Sq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((G, Sq), dtype=torch.float32, device=q.device)
     rc = kernels.library().mmpfn_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        G, Sq, Skv, d, _scale(q, sm_scale), *kernels.launch_args(q, "K4"),
+        G, Sq, Skv, d, scale, *kernels.launch_args(q, "K4"),
     )
     kernels.check(rc, "K4")
     kernels.LAUNCHES["K4"] += 1
@@ -204,9 +211,12 @@ def flash_mha(
     only KV head 0 used when ``kv_head0_only`` (multiquery: the h query heads
     fold into the query axis against it). Returns float32 ``(B, h, Sq, d)``."""
     B, h, Sq, d = q.shape
+    q = q.contiguous()
     if kv_head0_only:
-        o, _ = flash_attention(q.reshape(B, h * Sq, d), k[:, 0], v[:, 0], sm_scale)
+        k, v = k[:, 0].contiguous(), v[:, 0].contiguous()
+        o, _ = flash_attention(q.reshape(B, h * Sq, d), k, v, sm_scale)
     else:
+        k, v = k.contiguous(), v.contiguous()
         o, _ = flash_attention(
             q.reshape(B * h, Sq, d), k.reshape(B * h, -1, d), v.reshape(B * h, -1, d), sm_scale
         )

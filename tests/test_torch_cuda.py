@@ -10,6 +10,8 @@ import dataclasses
 import pytest
 import torch
 
+from chip_smoke import exact_grid
+
 from multimodalpfn_tpu_torch.models import params as tparams
 from multimodalpfn_tpu_torch.models.config import ModelConfig
 from multimodalpfn_tpu_torch.models.transformer import forward
@@ -547,6 +549,80 @@ def test_k9_bf16_regions_match_plain(cuda, S, sep, d):
         assert torch.equal(a, c), f"output {i} differs between runs"
         rel = (a.float() - w.float()).abs().max() / w.float().abs().max()
         assert rel <= 2.0**-6, f"output {i}: rel err {float(rel):.3e}"
+
+
+# The bf16 forward of K4 and K2a (TMA ring, wgmma; csrc/attn_tile.cuh) at
+# every ragged length around its 64-key tiles and 128-row blocks and at the
+# flash fine-tune's 1655 train rows. lse within 1e-4 abs: K9 and K11
+# recompute every weight from it.
+FWD_RAGGED = [1, 63, 64, 65, 127, 128, 129, 1655]
+
+
+def _check_fwd(kernel_id, fn, plain, args):
+    before = kernels.LAUNCHES[kernel_id]
+    (o, lse), (o2, lse2) = fn(*args), fn(*args)
+    assert kernels.LAUNCHES[kernel_id] == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), "differs between runs"
+    o_ref, lse_ref = plain(*args)
+    assert o.dtype == o_ref.dtype and o.shape == o_ref.shape and lse.shape == lse_ref.shape
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    rel = (o.float() - o_ref.float()).abs().max() / o_ref.float().abs().max()
+    assert rel <= 2.0**-6, f"o: rel err {float(rel):.3e}"
+    err = (lse - lse_ref).abs().max()
+    assert err <= 1e-4, f"lse: abs err {float(err):.3e}"
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("Skv", FWD_RAGGED)
+@pytest.mark.parametrize("Sq", FWD_RAGGED)
+def test_k4_bf16_ragged_matches_plain(cuda, Sq, Skv, d):
+    """bf16 K4 within two bf16 ulps of its plain version, lse within 1e-4,
+    bit-equal on a repeat, at every pair of ragged lengths."""
+    gen = torch.Generator().manual_seed(Sq + 7 * Skv + d)
+    q = _rand(gen, 2, Sq, d, device=cuda).to(torch.bfloat16)
+    k, v = (_rand(gen, 2, Skv, d, device=cuda).to(torch.bfloat16) for _ in range(2))
+    _check_fwd("K4", flash.flash_attention, flash.flash_attention_plain, (q, k, v))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("h,Sq", [(6, 183), (6, 512), (2, 1)])
+def test_k4_bf16_folded_multiquery_matches_plain(cuda, h, Sq, d):
+    """The multiquery fold: h heads' Sq query rows against one KV head of
+    1655 rows, Sq = h·Sq' query rows of one group."""
+    gen = torch.Generator().manual_seed(h * Sq + d)
+    q = _rand(gen, 3, h * Sq, d, device=cuda).to(torch.bfloat16)
+    k, v = (_rand(gen, 3, 1655, d, device=cuda).to(torch.bfloat16) for _ in range(2))
+    _check_fwd("K4", flash.flash_attention, flash.flash_attention_plain, (q, k, v))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("S,sep", [(300, 1), (300, 63), (300, 64), (300, 65), (300, 127),
+                                   (300, 128), (300, 129), (300, 299), (300, 300),
+                                   (2350, 1838)])
+def test_k2a_bf16_sep_matches_plain(cuda, S, sep, d):
+    """bf16 K2a with `sep` at one train row, around multiples of 64 and of
+    128, at S − 1 (one test row) and S (none), and at the flagship's split;
+    its inputs on a grid on which the projection is exact, so the lse holds
+    the attention alone."""
+    h, e = 6, 96
+    gen = torch.Generator().manual_seed(S + sep + d)
+    x3 = exact_grid(_rand(gen, 2, S, e, device=cuda)).to(torch.bfloat16)
+    w_qkv = exact_grid(_rand(gen, 3, h, d, e, scale=e**-0.5, device=cuda), 1 / 256, 96)
+    _check_fwd("K2a", item_fused.item_attention_core, item_fused.item_attention_core_plain,
+               (x3, w_qkv, sep))
+
+
+def test_k4_refuses_strided_operands_and_non_positive_scale(cuda):
+    """The bf16 kernel reads q, k, v through TMA maps of (G, S, d): a strided
+    view is refused, not copied; so is a scale the kernel cannot take."""
+    gen = torch.Generator().manual_seed(5)
+    q = _rand(gen, 2, 10, 16, device=cuda).to(torch.bfloat16)
+    kv = _rand(gen, 2, 2, 20, 16, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention(q, kv[:, 0], kv[:, 1])
+    k, v = kv[:, 0].contiguous(), kv[:, 1].contiguous()
+    with pytest.raises(ValueError, match="positive scale"):
+        flash.flash_attention(q, k, v, sm_scale=-0.5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -45,8 +45,14 @@ def _qkv(seed, G, Sq, Skv, d):
     )
 
 
-# ragged against the JAX kernel's 128-lane tiles; one key; d 8 to 32
-@pytest.mark.parametrize("G,Sq,Skv,d", [(3, 37, 45, 16), (2, 130, 200, 32), (2, 5, 1, 8)])
+# ragged against the JAX kernel's 128-lane tiles; one key; d 8 to 64; the
+# edges of the card kernel's tiles (64 keys, 128 query rows a block): one
+# row, 63, 64, 65, 127 and 129
+@pytest.mark.parametrize("G,Sq,Skv,d", [
+    (3, 37, 45, 16), (2, 130, 200, 32), (2, 5, 1, 8),
+    (2, 1, 129, 16), (2, 63, 64, 32), (2, 64, 65, 64), (1, 65, 63, 16), (2, 127, 1, 32),
+    (1, 129, 127, 64), (2, 128, 129, 32),
+])
 def test_flash_attention_matches_jax(G, Sq, Skv, d):
     q, k, v = _qkv(0, G, Sq, Skv, d)
     t = lambda a: jnp.asarray(np.swapaxes(a, 1, 2))  # the JAX (G, d, S) layout
@@ -59,6 +65,27 @@ def test_flash_attention_matches_jax(G, Sq, Skv, d):
     assert o.dtype == lse.dtype == torch.float32
     np.testing.assert_allclose(o.numpy(), np.swapaxes(np.asarray(o_j), 1, 2), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, 0], **TOL)
+
+
+# bf16 operands, the card's production precision, at the card kernel's tile
+# edges: the plain version rounds the weights to bf16 where the Pallas kernel
+# does, so the two agree to a bf16 flip of a weight (2**-6 of the largest
+# output); lse is a float32 log-sum of the same scores
+@pytest.mark.parametrize("G,Sq,Skv,d", [(2, 129, 65, 32), (2, 64, 127, 16), (1, 65, 129, 64),
+                                        (3, 1, 63, 32)])
+def test_flash_attention_bf16_matches_jax(G, Sq, Skv, d):
+    q, k, v = _qkv(5, G, Sq, Skv, d)
+    t = lambda a: jnp.asarray(np.swapaxes(a, 1, 2)).astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        o_j, lse_j = jpa._fwd_impl(
+            t(q), t(k), t(v), sm_scale=1.0 / math.sqrt(d),
+            block_q=jpa.DEFAULT_BLOCK_Q, block_kv=jpa.DEFAULT_BLOCK_KV,
+        )
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    o, lse = flash.flash_attention(tb(q), tb(k), tb(v))
+    want = np.swapaxes(np.asarray(o_j, dtype=np.float32), 1, 2)
+    assert np.abs(o.numpy() - want).max() <= 2.0**-6 * np.abs(want).max()
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, 0], rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("kv_head0_only", [False, True])

@@ -53,9 +53,16 @@ def test_sublayer_matches_jax(S, sep):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
-@pytest.mark.parametrize("S,sep", [(72, 48), (48, 48)])
-def test_attention_core_and_lse_match_jax(S, sep):
-    x, w_qkv, w_out = _make(7, lead=(4,), S=S, sep=sep)
+# the card kernel's tile edges (64 keys, 128 query rows a block): sep at 1,
+# 64, 65 and 128, with no test row, one, or 65
+K2A_EDGES = [(sep + n_test, sep, 16 if i % 2 else 32)
+             for i, (sep, n_test) in enumerate((sep, n) for sep in (1, 64, 65, 128) for n in (0, 1, 65))]
+
+
+@pytest.mark.parametrize("S,sep,d", [pytest.param(72, 48, 8, id="72-48"),
+                                     pytest.param(48, 48, 8, id="48-48"), *K2A_EDGES])
+def test_attention_core_and_lse_match_jax(S, sep, d):
+    x, w_qkv, w_out = _make(7, lead=(4,), S=S, sep=sep, d=d)
     G, _, e = x.shape
     _, h, d, _ = w_qkv.shape
     with pltpu.force_tpu_interpret_mode():
@@ -72,6 +79,29 @@ def test_attention_core_and_lse_match_jax(S, sep):
         np.testing.assert_allclose(
             lse[..., sep:].numpy(), np.asarray(lse_te)[..., : S - sep], atol=1e-5
         )
+
+
+# bf16 operands: the plain version rounds the projections and the weights
+# where the Pallas kernel does, so the two agree to a bf16 flip (2**-6 of the
+# largest output); lse is a float32 log-sum of the same scores
+@pytest.mark.parametrize("S,sep,d", [(130, 65, 32), (129, 128, 16), (64, 64, 32), (66, 1, 16)])
+def test_attention_core_bf16_matches_jax(S, sep, d):
+    x, w_qkv, _ = _make(13, lead=(3,), S=S, sep=sep, d=d)
+    G, _, e = x.shape
+    _, h, d, _ = w_qkv.shape
+    with pltpu.force_tpu_interpret_mode():
+        o_mid, lse_tr, lse_te = pif._fwd_call(
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(w_qkv.reshape(3, h * d, e), jnp.bfloat16),
+            sep, h=h, d=d, sm_scale=1.0 / math.sqrt(d),
+        )
+    o, lse = tif.item_attention_core(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w_qkv), sep)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want = np.swapaxes(np.asarray(o_mid, dtype=np.float32), 1, 2)
+    assert np.abs(o.float().numpy() - want).max() <= 2.0**-6 * np.abs(want).max()
+    np.testing.assert_allclose(lse[..., :sep].numpy(), np.asarray(lse_tr)[..., :sep], rtol=0, atol=1e-5)
+    if S > sep:
+        np.testing.assert_allclose(lse[..., sep:].numpy(), np.asarray(lse_te)[..., : S - sep],
+                                   rtol=0, atol=1e-5)
 
 
 def test_plain_core_matches_plain_item_attention():
