@@ -12,7 +12,10 @@ Phases, each of which must pass:
    build the CUDA kernels from ``multimodalpfn_tpu_torch/csrc`` and print the
    build time; count HGMMA in the SASS of the 18 bf16 attention kernels (the
    forward of K2a and K4, the dq and dk/dv passes of K9 and K11, each at
-   d = 16, 32, 64; ``cuobjdump``), each of which must issue wgmma; write the
+   d = 16, 32, 64; ``cuobjdump``), each of which must issue wgmma, and of
+   the 20 instantiations of the bf16 product tile of K7-K10
+   (``gemm_tile.cuh``: five epilogues by four storage orders), each of which
+   must issue wgmma with no local-memory load or store; write the
    model every phase serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
    projections filled in from seed 1) to ``build/``.
@@ -72,6 +75,10 @@ Phases, each of which must pass:
    bf16 (2**-6), each output relative to its own largest magnitude; each run
    twice on the same inputs must give the same bits. Times, bounds, and for
    K9 the backward of ``scaled_dot_product_attention`` over both regions.
+   For bf16 K7 and K8, each launch of the sequence by profiler name, each
+   product beside ``torch.matmul`` on operands of its shapes, and each
+   launch's bytes over the HBM rate (`bwd_products`); the kernels line
+   carries the two measured ones as ``products_ms`` and ``matmul_ms``.
 9. ``fine_tune_mmpfn`` served: 100 bf16 steps on the PAD-UFES-shaped set (the
    full 12 layers, validation after every step); the counters, zeroed just
    before, show K7, K8, K9 and K10 launched 12 times per step; every loss and
@@ -109,7 +116,9 @@ exponential floor beside the bound (every (query, key) pair exponentiated
 once a pass, 16 ex2 a clock per SM at the card's maximum SM clock), and it
 holds their float32 outputs (and K11's bf16 at d = 8), which the CUDA-core
 bodies compute, to the parent commit's bits (`PARENT_F32_SHA256`); so too
-K4's and K2a's float32 outputs and bf16 at d = 8 (`attn::cc_rows`).
+K4's and K2a's float32 outputs and bf16 at d = 8 (`attn::cc_rows`), and the
+float32 outputs of K7, K7s, K8 and K10 (`gemm_tile.cuh`'s cc_kernel and the
+row kernels).
 
 ``--profile`` adds a phase 14: ``torch.profiler`` around one warm request of
 each size in both modes and around one warm training step of each item path
@@ -237,8 +246,9 @@ KERNELS = {
 }
 # `f32_fingerprints` on an H100 80GB HBM3 of the commits before each bf16
 # redesign (K9, K11: 32e8513, before their passes moved to wgmma; K4, K2a:
-# 4f9071f, before their forward did): the CUDA-core bodies (float32, and bf16
-# at d = 8) must go on giving these bits
+# 4f9071f, before their forward did; K7, K7s, K8, K10: 661c4b4, before the
+# product tile did): the CUDA-core bodies (float32, and bf16 at d = 8) must
+# go on giving these bits
 PARENT_F32_SHA256 = {
     "K11 f32 d=8": "b9f0e3a2bc2964aa", "K11 f32 d=16": "b910ce43502031dc",
     "K11 f32 d=32": "4055da75ae152101", "K11 f32 d=64": "8d25581c0adcb482",
@@ -249,6 +259,8 @@ PARENT_F32_SHA256 = {
     "K4 bf16 d=8": "55c558b98b8ab344", "K2a f32 d=8": "a24a3210b8ee60a2",
     "K2a f32 d=16": "ac6db837ce5d7a7e", "K2a f32 d=32": "50a91845e15f9ced",
     "K2a f32 d=64": "35568848dcbde803", "K2a bf16 d=8": "d4a47c31e5c7a20a",
+    "K7 f32": "2e4e66085b349fd4", "K7s f32": "9ff86b363935af49", "K8 f32": "14c4dab8f5d35cd6",
+    "K10 f32": "050187159db35e72",
 }
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
@@ -318,11 +330,14 @@ def bound(flops: float, nbytes: float, tag: str) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def wgmma_sass_counts(lib: Path) -> dict:
+def wgmma_sass_counts(lib: Path) -> tuple[dict, dict]:
     """HGMMA instructions in the SASS (``cuobjdump --dump-sass``) of each
-    bf16 tensor-core attention kernel: the forward of K2a and K4
+    bf16 tensor-core kernel: the attention forward of K2a and K4
     (`csrc/attn_tile.cuh`) and the dq and dk/dv passes of K9 and K11
-    (`csrc/attn_bwd.cuh`), each at d = 16, 32, 64: 18 kernels."""
+    (`csrc/attn_bwd.cuh`), each at d = 16, 32, 64 (18 kernels); and of the
+    product tile of `csrc/gemm_tile.cuh` by epilogue and transposes, with
+    its local-memory loads and stores (spills) beside. Returns (attention
+    counts, {product kernel: (HGMMA, LDL + STL)})."""
     import os
     import re
     import shutil
@@ -330,12 +345,12 @@ def wgmma_sass_counts(lib: Path) -> dict:
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     proc = subprocess.Popen([tool, "--dump-sass", str(lib)], stdout=subprocess.PIPE, text=True)
-    counts, fn = {}, None
+    counts, gemm, fn, gfn = {}, {}, None, None
     for line in proc.stdout:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            fn = None
+            fn = gfn = None
             if "wg_kernel" in name:
                 d = re.search(r"wg_kernelILi(\d+)", name).group(1)
                 if "fwd_wg_kernel" in name:
@@ -344,10 +359,17 @@ def wgmma_sass_counts(lib: Path) -> dict:
                     pas = "dq" if "dq_wg_kernel" in name else "dkv"
                     fn = f"{'K9' if 'ItemGeo' in name else 'K11'} {pas} d={d}"
                 counts[fn] = 0
+            elif "wgmma_kernel" in name:
+                at, bt = re.search(r"wgmma_kernelILb(\d)ELb(\d)E", name).groups()
+                epi = next(e for e in ("GeluEpi", "MulEpi", "AddStore", "Partial", "Store") if e in name)
+                gfn = f"{epi} a_t={at} b_t={bt}"
+                gemm.setdefault(gfn, [0, 0])
         elif fn and "HGMMA" in line:
             counts[fn] += 1
+        elif gfn and ("HGMMA" in line or re.search(r"\b(LDL|STL)\b", line)):
+            gemm[gfn][0 if "HGMMA" in line else 1] += 1
     check(proc.wait(timeout=300) == 0, "cuobjdump failed")
-    return counts
+    return counts, {k: tuple(v) for k, v in gemm.items()}
 
 
 def exp_floor_ms(pairs: float, device) -> float | None:
@@ -389,6 +411,150 @@ def profiled_ms(fn, device, iters: int, patterns: dict) -> dict:
 # projection, then the attention of both regions), by profiler name
 BWD_PASSES = {"dq_pass": "attn_bwd::dq_", "dkv_pass": "attn_bwd::dkv_"}
 K2A_PARTS = {"proj": "proj_nt", "attn": "attn"}
+
+
+def bwd_products(dims) -> dict:
+    """The launch sequences of K8 (`csrc/mlp_ln_bwd.cu`) and K7
+    (`csrc/feat_attn_bwd.cu`; K7s launches the same) at ``dims`` (FT_DIMS'
+    layout): per kernel its ``buffers`` {name: (shape, dtype)}, dtype "cd"
+    (the compute dtype) or "f32", the allocations of `ops/fused.py` plus the
+    weights and the weight gradients' slabs (views of ``work``); and its
+    ``launches`` in order, each {name, reads, writes} and, for a product of
+    `gemm_tile.cuh` (C = op(A)·op(B)), its M, N, K, a_t, b_t and operand
+    buffers a, b."""
+    b, t, S, _, e, h, d, nhid = dims
+    R, hd = b * t * S, h * d
+    slabs = max(1, -(-R // 2048))
+
+    def prod(name, a, bb, M, N, K, reads, writes, a_t=False, b_t=False):
+        return dict(name=name, a=a, b=bb, M=M, N=N, K=K, a_t=a_t, b_t=b_t, reads=reads,
+                    writes=writes)
+
+    def rows(name, reads, writes):
+        return dict(name=name, reads=reads, writes=writes)
+
+    k8 = {
+        "buffers": {
+            "x": ((R, e), "cd"), "g": ((R, e), "cd"), "w1": ((e, nhid), "cd"),
+            "w2": ((nhid, e), "cd"), "gz": ((R, nhid), "cd"), "gzg": ((R, nhid), "f32"),
+            "u": ((R, e), "f32"), "du": ((R, e), "f32"), "du_c": ((R, e), "cd"),
+            "dz": ((R, nhid), "cd"), "dx": ((R, e), "cd"), "dw1": ((e, nhid), "f32"),
+            "dw2": ((nhid, e), "f32"), "work": ((slabs, e, nhid), "f32"),
+            "slabs_dw1": ((slabs, e, nhid), "f32"), "slabs_dw2": ((slabs, nhid, e), "f32"),
+        },
+        "launches": [
+            prod("z=x.W1", "x", "w1", R, nhid, e, ["x", "w1"], ["gz", "gzg"]),
+            prod("u=x+gz.W2", "gz", "w2", R, e, nhid, ["gz", "w2", "x"], ["u"]),
+            rows("ln_bwd", ["u", "g"], ["du", "du_c"]),
+            prod("dz=du.W2t*gelu'", "du_c", "w2", R, nhid, e, ["du_c", "w2", "gzg"], ["dz"],
+                 b_t=True),
+            prod("dx=du+dz.W1t", "dz", "w1", R, e, nhid, ["dz", "w1", "du"], ["dx"], b_t=True),
+            prod("dW1=xt.dz", "x", "dz", e, nhid, R, ["x", "dz"], ["slabs_dw1"], a_t=True),
+            rows("sum_slabs dW1", ["slabs_dw1"], ["dw1"]),
+            prod("dW2=gzt.du", "gz", "du_c", nhid, e, R, ["gz", "du_c"], ["slabs_dw2"], a_t=True),
+            rows("sum_slabs dW2", ["slabs_dw2"], ["dw2"]),
+        ],
+    }
+    k7 = {
+        "buffers": {
+            "x": ((R, e), "cd"), "g": ((R, e), "cd"), "wqkv": ((3 * hd, e), "cd"),
+            "wout": ((hd, e), "cd"), "qkv": ((R, 3 * hd), "cd"), "o": ((R, hd), "cd"),
+            "u": ((R, e), "f32"), "du": ((R, e), "f32"), "du_c": ((R, e), "cd"),
+            "do": ((R, hd), "cd"), "dqkv": ((R, 3 * hd), "cd"), "dx": ((R, e), "cd"),
+            "dwqkv": ((3 * hd, e), "f32"), "dwout": ((hd, e), "f32"),
+            "work": ((slabs, 3 * hd, e), "f32"),
+            "slabs_dwqkv": ((slabs, 3 * hd, e), "f32"), "slabs_dwout": ((slabs, hd, e), "f32"),
+        },
+        "launches": [
+            prod("qkv=x.Wqkvt", "x", "wqkv", R, 3 * hd, e, ["x", "wqkv"], ["qkv"], b_t=True),
+            rows("attn_o", ["qkv"], ["o"]),
+            prod("u=x+o.Wout", "o", "wout", R, e, hd, ["o", "wout", "x"], ["u"]),
+            rows("ln_bwd", ["u", "g"], ["du", "du_c"]),
+            prod("do=du.Woutt", "du_c", "wout", R, hd, e, ["du_c", "wout"], ["do"], b_t=True),
+            rows("attn_bwd (softmax backward)", ["qkv", "do"], ["dqkv"]),
+            prod("dx=du+dqkv.Wqkv", "dqkv", "wqkv", R, e, 3 * hd, ["dqkv", "wqkv", "du"], ["dx"]),
+            prod("dWqkv=dqkvt.x", "dqkv", "x", 3 * hd, e, R, ["dqkv", "x"], ["slabs_dwqkv"],
+                 a_t=True),
+            rows("sum_slabs dWqkv", ["slabs_dwqkv"], ["dwqkv"]),
+            prod("dWout=ot.du", "o", "du_c", hd, e, R, ["o", "du_c"], ["slabs_dwout"], a_t=True),
+            rows("sum_slabs dWout", ["slabs_dwout"], ["dwout"]),
+        ],
+    }
+    return {"K8": k8, "K7": k7}
+
+
+def launch_bytes(seq: dict, launch: dict, es: int) -> int:
+    """Bytes a launch of ``seq`` must move: each buffer it reads read once,
+    each it writes written once (``es`` bytes an element of the compute
+    dtype)."""
+    import math
+
+    return sum(math.prod(seq["buffers"][n][0]) * (es if seq["buffers"][n][1] == "cd" else 4)
+               for n in launch["reads"] + launch["writes"])
+
+
+def bwd_flops(dims) -> dict:
+    """FLOPs of phase 8's work for K8 (six products of 2·e·nhid a row) and
+    K7's products (twelve of 2·e·h·d a token: the QKV and out-projection
+    recomputed, do, dx, dW_qkv, dW_out)."""
+    b, t, S, _, e, h, d, nhid = dims
+    R = b * t * S
+    return {"K8": 12 * R * e * nhid, "K7": 2 * R * e * h * d * 12}
+
+
+# the kernels of K7's and K8's launch sequences, by profiler name
+SEQ_KERNELS = ("gemm::", "ln_bwd_kernel", "attn_o_kernel", "attn_bwd_kernel", "sum_slabs_kernel")
+
+
+def sequence_ms(fn, device, iters: int, names: list) -> dict | None:
+    """Device ms per call of each launch of ``fn``'s launch sequence, by
+    position: the profiler's kernels whose names hold one of `SEQ_KERNELS`
+    (weight casts and copies left out), in start order, ``len(names)`` a
+    call; {name: (ms, profiler name)}, or None off the card or where the
+    count does not match."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and any(k in ev.name for k in SEQ_KERNELS)),
+                 key=lambda ev: ev.time_range.start)
+    if len(evs) != iters * len(names):
+        print(f"  launch sequence: {len(evs)} kernels in {iters} calls, expected "
+              f"{iters * len(names)}: not split", flush=True)
+        return None
+    out = {}
+    for i, name in enumerate(names):
+        mine = evs[i::len(names)]
+        out[name] = (sum(ev.time_range.elapsed_us() for ev in mine) / 1e3 / iters, mine[0].name)
+    return out
+
+
+def matmul_ms(seq: dict, device, iters: int) -> dict:
+    """``torch.matmul`` of bf16 operands of each product's shapes and
+    storage orders (A (M, K) or stored (K, M); B (K, N) or stored (N, K)):
+    the product alone, with no epilogue. Timed here, used nowhere in the
+    port."""
+    import torch
+
+    out = {}
+    for ln in seq["launches"]:
+        if "M" not in ln:
+            continue
+        M, N, K = ln["M"], ln["N"], ln["K"]
+        a = torch.randn((K, M) if ln["a_t"] else (M, K), device=device, dtype=torch.bfloat16)
+        bb = torch.randn((N, K) if ln["b_t"] else (K, N), device=device, dtype=torch.bfloat16)
+        a, bb = (a.t() if ln["a_t"] else a), (bb.t() if ln["b_t"] else bb)
+        out[ln["name"]] = timed(lambda: torch.matmul(a, bb), device, iters)
+        del a, bb
+    return out
 
 
 def exact_grid(a, step: float = 0.25, lim: int = 8):
@@ -618,7 +784,7 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
     return results
 
 
-def phase_bwd_kernels(device, dims, iters) -> dict:
+def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
     """The backward kernels K7-K10, K7s and K11 against their plain versions
     on the same inputs, at the fine-tune shapes, in float32 and bf16. Each
     output (dx, each dW, K10's du, do and delta, K11's dq, dk, dv) is held
@@ -626,7 +792,11 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
     inputs, and the two results must be the same bits (the weight gradients
     are summed in a fixed order, and no kernel uses atomics). K11 runs at the
     flash path's three blocks: the train block (every head), the test block
-    unfolded (no multiquery) and folded (the heads against KV head 0)."""
+    unfolded (no multiquery) and folded (the heads against KV head 0). For
+    K7 and K8 in bf16 it also times each launch of their sequence by
+    profiler name (`sequence_ms`), each product beside ``torch.matmul`` on
+    operands of its shapes, and the sequence's bytes over the HBM rate
+    (`bwd_products`). ``only`` restricts the kernels run."""
     import torch
     import torch.nn.functional as F
 
@@ -722,11 +892,11 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
                lambda dt: (x.to(dt), w_qkv, w_out, g.to(dt)),
                # QKV and out-projection recomputed, do, dx, dW_qkv, dW_out;
                # per row and head: scores, p·v, dp, dq, dk, dv over t × t
-               lambda es: (2 * R * e * hd * 12 + 12 * b * S * h * t * t * d,
+               lambda es: (bwd_flops(dims)["K7"] + 12 * b * S * h * t * t * d,
                            3 * R * e * es + 4 * hd * e * (es + 4))),
         "K8": (fused.mlp_ln_bwd, fused.mlp_ln_bwd_plain,
                lambda dt: (x.to(dt), w1, w2, g.to(dt)),
-               lambda es: (12 * R * e * nhid, 3 * R * e * es + 2 * e * nhid * (es + 4))),
+               lambda es: (bwd_flops(dims)["K8"], 3 * R * e * es + 2 * e * nhid * (es + 4))),
         "K10": (item_fused.item_epilogue_bwd, item_fused.item_epilogue_bwd_plain,
                 lambda dt: (lambda a: (a["x3"], a["o"], w_out, a["g3"]))(item_inputs(dt)),
                 lambda es: (6 * R * hd * e + 2 * R * hd,
@@ -752,8 +922,11 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
         cases[kid] = (flash.flash_attention_bwd, flash.flash_attention_bwd_plain,
                       lambda dt, G_=G_, Sq=Sq: flash_inputs(G_, Sq, dt), flash_work(G_, Sq))
     libraries = {"K9": item_sdpa_bwd} | {kid: flash_sdpa_bwd(*blk) for kid, blk in blocks.items()}
+    seqs = bwd_products(dims)
     results = {}
     for kid, (kern, plain, make, work) in cases.items():
+        if only is not None and kid not in only:
+            continue
         res = {"shape": list(make(torch.float32)[0].shape)}
         for dt, tag, rel_bound in (
             (torch.float32, "f32", F32_REL_BOUND),
@@ -797,6 +970,8 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
                    else f", library (SDPA backward) {lib:.3f} ms"),
                 flush=True,
             )
+            if kid in seqs and tag == "bf16":
+                res |= launch_sequence(kid, seqs[kid], lambda: kern(*args), device, iters)
             check(finite, f"{kid} {tag}: non-finite output")
             check(same, f"{kid} {tag}: two runs on the same inputs differ")
             check(max(rels) <= rel_bound, f"{kid} {tag}: rel err {max(rels):.3e} > {rel_bound:.3e}")
@@ -805,11 +980,37 @@ def phase_bwd_kernels(device, dims, iters) -> dict:
     return results
 
 
+def launch_sequence(kid, seq, fn, device, iters) -> dict:
+    """K7's or K8's bf16 launch sequence: each launch's device time by
+    profiler name, each product's ``torch.matmul`` time, each launch's bytes
+    over the HBM rate, all printed; the two measured ones are returned as
+    ``products_ms`` and ``matmul_ms`` (each {launch: ms}). The bytes bound is
+    computed, not measured, so it stays out of the ``kernels`` line."""
+    per = {ln["name"]: launch_bytes(seq, ln, 2) / HBM_BYTES_PER_S * 1e3 for ln in seq["launches"]}
+    per["total"] = sum(per.values())
+    got = sequence_ms(fn, device, iters, [ln["name"] for ln in seq["launches"]])
+    mm = matmul_ms(seq, device, iters) if device.type == "cuda" else {}
+    for ln in seq["launches"]:
+        name = ln["name"]
+        ms, prof_name = got[name] if got else (None, "not measured")
+        shape = f" {ln['M']}x{ln['N']}x{ln['K']}" if "M" in ln else ""
+        print(f"    {kid} {name}{shape}: "
+              + ("not measured" if ms is None else f"{ms:.4f} ms")
+              + (f", torch.matmul {mm[name]:.4f} ms" if name in mm else "")
+              + f", bytes bound {per[name]:.4f} ms [{prof_name[:70]}]", flush=True)
+    print(f"    {kid} launch sequence: bytes bound {per['total']:.4f} ms"
+          + (f", launches {sum(v[0] for v in got.values()):.4f} ms" if got else ""), flush=True)
+    return {"products_ms": {k: v[0] for k, v in got.items()} if got else None,
+            "matmul_ms": mm or None}
+
+
 def f32_fingerprints(device) -> dict:
     """sha256 (first 16 hex digits) of the float32 outputs of K9, K11, K4
-    and K2a and of their bf16 outputs at d = 8: the work of the CUDA-core
-    bodies of `csrc/attn_bwd.cuh` and `csrc/attn_tile.cuh`, which the bf16
-    redesigns left as they were. Inputs come from a seeded CPU generator
+    and K2a and of their bf16 outputs at d = 8, and of the float32 outputs
+    of K7, K7s, K8 and K10: the work of the CUDA-core bodies of
+    `csrc/attn_bwd.cuh`, `csrc/attn_tile.cuh` and `csrc/gemm_tile.cuh`
+    (cc_kernel) and of the backward row kernels, which the bf16 redesigns
+    left as they were. Inputs come from a seeded CPU generator
     and, for the backward kernels, the plain forward and epilogue backward on
     the card (no other kernel of the port, so the digests pin the CUDA-core
     bodies alone); phase 8 holds them equal to `PARENT_F32_SHA256`, the
@@ -818,7 +1019,7 @@ def f32_fingerprints(device) -> dict:
 
     import torch
 
-    from multimodalpfn_tpu_torch.ops import flash, item_fused
+    from multimodalpfn_tpu_torch.ops import flash, fused, item_fused
 
     gen = torch.Generator().manual_seed(6)
 
@@ -855,6 +1056,19 @@ def f32_fingerprints(device) -> dict:
             out[f"K4 {tag} d={d}"] = digest(flash.flash_attention(q, k, v))
             x3, w_qkv = rand(2, 300, 96).to(dt), rand(3, 6, d, 96, scale=96**-0.5)
             out[f"K2a {tag} d={d}"] = digest(item_fused.item_attention_core(x3, w_qkv, 237))
+        # the float32 body of `gemm_tile.cuh` (cc_kernel) with the row kernels
+        # of K7, K7s, K8 and K10, over 2400 rows (two weight-gradient slabs)
+        e, h, d, nhid = 96, 6, 16, 192
+        x, g = rand(1, 8, 300, e), rand(1, 8, 300, e)
+        w_qkv, w_out = rand(3, h, d, e, scale=e**-0.5), rand(h, d, e, scale=(h * d) ** -0.5)
+        w1, w2 = rand(e, nhid, scale=e**-0.5), rand(nhid, e, scale=nhid**-0.5)
+        out["K7 f32"] = digest(fused.feature_attention_ln_im_bwd(x, w_qkv, w_out, g))
+        out["K7s f32"] = digest(fused.feature_attention_ln_bwd(
+            x.transpose(1, 2).contiguous(), w_qkv, w_out, g.transpose(1, 2).contiguous()))
+        out["K8 f32"] = digest(fused.mlp_ln_bwd(x, w1, w2, g))
+        x3, g3 = x.reshape(8, 300, e), g.reshape(8, 300, e)
+        o, _ = item_fused.item_attention_core_plain(x3, w_qkv, 237)
+        out["K10 f32"] = digest(item_fused.item_epilogue_bwd(x3, o, w_out, g3))
     return out
 
 
@@ -1473,11 +1687,16 @@ def main() -> int:
         kernels.library()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"({kernels.library_path().name})", flush=True)
-        hgmma = wgmma_sass_counts(kernels.library_path())
+        hgmma, prods = wgmma_sass_counts(kernels.library_path())
         print(f"  HGMMA instructions in the SASS of the bf16 attention kernels (K2a and K4 forward, "
               f"K9 and K11 passes): {hgmma}", flush=True)
+        print(f"  (HGMMA, local loads and stores) in the SASS of the bf16 product tile "
+              f"(gemm_tile.cuh, the products of K7-K10): {prods}", flush=True)
         check(len(hgmma) == 18 and min(hgmma.values()) > 0,
               "the bf16 attention kernels do not all issue wgmma")
+        check({k.split()[0] for k in prods} == {"GeluEpi", "MulEpi", "AddStore", "Partial", "Store"}
+              and all(h > 0 and spills == 0 for h, spills in prods.values()),
+              "the bf16 products do not all issue wgmma without spilling")
     model_path = ROOT / "build" / "chip_smoke_model.npz"
     write_model(model_path)
     nmq_path = ROOT / "build" / "chip_smoke_model_no_multiquery.npz"
@@ -1530,7 +1749,7 @@ def main() -> int:
     kres |= phase_bwd_kernels(device, ft_dims, iters)
     if device.type == "cuda":
         prints = f32_fingerprints(device)
-        print(f"  K9/K11/K4/K2a CUDA-core outputs (sha256): {prints}", flush=True)
+        print(f"  K9/K11/K4/K2a/K7/K7s/K8/K10 CUDA-core outputs (sha256): {prints}", flush=True)
         check(prints == PARENT_F32_SHA256,
               f"CUDA-core outputs differ from the parent commits': {prints} != {PARENT_F32_SHA256}")
 

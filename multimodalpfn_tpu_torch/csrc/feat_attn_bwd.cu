@@ -10,16 +10,20 @@
 // (pallas_call in _attn_bwd_call, :1024/:1040); body _feat_attn_bwd_core
 // :898 for both.
 //
-// What bounds it on the H100: the products with the weights, 12 of 2·e·h·d
-// FLOPs per token (the QKV recompute, the out-projection recompute, do, dx,
-// and the weight gradients): 52 GFLOP at the flagship fine-tune shape
-// (1 × 30 × 1838 tokens, e = 192). The per-row attention (t ≤ 64 tokens) is
-// small beside them.
+// What bounds it on the H100: the bytes of its launches. Its 12 products of
+// 2·e·h·d FLOPs per token (the QKV recompute, the out-projection recompute,
+// do, dx, and the weight gradients: 49 GFLOP at the flagship fine-tune
+// shape, 1 × 30 × 1838 tokens, e = 192; 0.05 ms at the bf16 peak) and the
+// per-row attention move about 0.86 GB through device memory with the
+// intermediates below (0.26 ms at 3.35 TB/s). The two per-row attention
+// kernels on the CUDA cores take most of its time.
 //
 // Design: the Pallas kernel recomputes a block of rows in VMEM and carries
 // dW over a sequential grid. Here the sublayer is a sequence of launches,
-// each a kernel of this file or of gemm_tile.cuh, with the intermediates in
-// device memory:
+// each a kernel of this file or a product of gemm_tile.cuh (bf16: wgmma
+// from a TMA ring, transposed operands named MN-major by descriptor, the
+// epilogue staged through shared memory into vector loads and stores;
+// float32: the CUDA cores), with the intermediates in device memory:
 //   1. qkv = x·W_qkv^T, rounded to T (the forward's projection);
 //   2. o: per (row, head) a warp recomputes the softmax weights (q scaled and
 //      rounded as in K1) and o = rnd(rnd(p)·v);

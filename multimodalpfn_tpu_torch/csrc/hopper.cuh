@@ -1,11 +1,13 @@
-// Hopper primitives shared by the tensor-core attention kernels: the forward
-// tile of K2a and K4 (attn_tile.cuh) and the backward passes of K9 and K11
-// (attn_bwd.cuh). Each is a thin wrapper of one PTX instruction (or of the
+// Hopper primitives shared by the tensor-core kernels: the forward tile of
+// K2a and K4 (attn_tile.cuh), the backward passes of K9 and K11
+// (attn_bwd.cuh) and the bf16 products of the backward kernels
+// (gemm_tile.cuh). Each is a thin wrapper of one PTX instruction (or of the
 // driver's tensor-map encoder) for sm_90a:
-//  * mbarriers and TMA 3-D tile loads that complete on them;
-//  * the wgmma descriptor of a tile as TMA wrote it, and the products
-//    m64n64k16 (A and B from shared memory) and m64nNk16 (A from registers,
-//    B N-major);
+//  * mbarriers and TMA 3-D tile loads that complete on them (a 2-D map is
+//    one group);
+//  * the wgmma descriptor of a tile as TMA wrote it, K-major or MN-major,
+//    and the products m64n64k16 and m64n192k16 (A and B from shared memory)
+//    and m64nNk16 (A from registers, B N-major);
 //  * ex2.approx (one MUFU instruction), the register split of a
 //    warp-specialised block (setmaxnreg), and named barriers.
 #pragma once
@@ -94,14 +96,16 @@ __device__ __forceinline__ uint8_t* ring_smem(uint8_t* raw, int bars, int stages
 // The wgmma descriptor of a tile of rows of D bf16 as TMA wrote it: each row
 // 2·D bytes, the span of the tile's swizzle (32, 64, 128 bytes for D = 16,
 // 32, 64: layout types 3, 2, 1), groups of 8 rows 16·D bytes apart (the
-// stride offset). The leading offset is unused: one instruction's k extent
-// (K-major) or n extent (N-major) lies within one swizzled row. A K-major
-// k step of 16 columns adds 32 bytes (2 in the address field); an N-major
-// k step of 16 rows adds 32·D bytes (2·D).
+// stride offset). K-major (rows of m or n, D columns of k), one
+// instruction's k extent lies within a swizzled row. MN-major (rows of k, D
+// columns of m or n), an instruction wider than D spans several such tiles,
+// `lbo` bytes apart (the leading offset; unused, 16, where it is not wider).
+// A K-major k step of 16 columns adds 32 bytes (2 in the address field); an
+// MN-major k step of 16 rows adds 32·D bytes (2·D).
 template <int D>
-__device__ __forceinline__ uint64_t tile_desc(const void* p) {
+__device__ __forceinline__ uint64_t tile_desc(const void* p, uint32_t lbo = 16) {
   constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((16 * D) >> 4) << 32) | (layout << 62);
 }
 
@@ -109,9 +113,12 @@ __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.a
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups of products are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 
 // keep the compiler from moving accesses to wgmma accumulators across the
 // asynchronous products
@@ -144,6 +151,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 192) += A·B, A and B from shared memory (descriptors); TA, TB the
+// transpose bits (0: K-major, 1: M- or N-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n192(float (&d)[96], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d (64 x 16) += A·B, A (64 x 16) from registers in the accumulator-row
@@ -212,9 +230,10 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// A 3-D tensor map over `groups` groups of `rows` rows of `ld` bf16 at base,
-// read in boxes of 64 rows × D columns, swizzled for wgmma; rows past a
-// group's last read as zero. cuTensorMapEncodeTiled is reached through the
+// A 3-D tensor map over `groups` groups of `rows` rows of `ld` bf16 at base
+// (groups = 1: a 2-D map of a matrix), read in boxes of 64 rows × D columns,
+// swizzled for wgmma; rows past a group's last, and columns past ld, read as
+// zero. cuTensorMapEncodeTiled is reached through the
 // runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda. TMA
 // needs base, the row stride 2·ld and the group stride 2·ld·rows to be
 // multiples of 16 bytes; the encoder refuses them otherwise.

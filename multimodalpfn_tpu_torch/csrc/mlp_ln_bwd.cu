@@ -5,13 +5,17 @@
 // Replaces multimodalpfn_tpu/ops/pallas_fused.py:_mlp_bwd_kernel_g and
 // _mlp_bwd_kernel (pallas_call in _mlp_bwd_call, :709/:720/:759).
 //
-// What bounds it on the H100: arithmetic, six products of 2·e·nhid FLOPs per
-// row (98 GFLOP at the flagship fine-tune shape, 55 140 rows × 192 × 768).
+// What bounds it on the H100: the bytes of its launches. Six products of
+// 2·e·nhid FLOPs per row (98 GFLOP at the flagship fine-tune shape, 55 140
+// rows × 192 × 768: 0.099 ms at the bf16 peak) move about 1.25 GB through
+// device memory with the float32 intermediates below (0.37 ms at 3.35 TB/s).
 //
 // Design: the Pallas kernel recomputes a block of rows in VMEM and carries
-// dW1, dW2 over a sequential grid. Here each product is a launch of the tiled
-// kernels of gemm_tile.cuh with its own epilogue, the intermediates in
-// device memory:
+// dW1, dW2 over a sequential grid. Here each product is a launch of
+// gemm_tile.cuh (bf16: wgmma from a TMA ring, transposed operands named
+// MN-major by descriptor, the epilogue staged through shared memory into
+// vector loads and stores; float32: the CUDA cores) with its own epilogue,
+// the intermediates in device memory:
 //   1. z = x·W1, epilogue: gz = rnd(gelu(z)) and gelu'(z) (exact erf, as K3;
 //      the Pallas kernel's Abramowitz-Stegun polynomial is not carried over);
 //   2. u = x + gz·W2 (float32); 3. du = LN'(u)·g (float32 and rounded);
@@ -23,15 +27,33 @@
 
 namespace {
 
+// gz = z·Φ(z) and gelu'(z) = Φ(z) + z·φ(z)
+__device__ __forceinline__ void gelu_and_grad(float z, float& gz, float& grad) {
+  const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
+  gz = z * cdf;
+  grad = cdf + z * expf(-0.5f * z * z) * 0.39894228040143268f;
+}
+
 template <typename T>
 struct GeluEpi {  // gz = rnd(gelu(v)), gzg = gelu'(v)
   T* gz;
   float* gzg;
   int ld;
+  using Res = gemm::NoRes;
+  bool aligned() const { return gemm::quad_aligned(gz, ld) && gemm::quad_aligned(gzg, ld); }
   __device__ __forceinline__ void operator()(long long m, int n, float z, int) const {
-    const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
-    gz[m * ld + n] = from_f<T>(z * cdf);
-    gzg[m * ld + n] = cdf + z * expf(-0.5f * z * z) * 0.39894228040143268f;
+    float a, b;
+    gelu_and_grad(z, a, b);
+    gz[m * ld + n] = from_f<T>(a);
+    gzg[m * ld + n] = b;
+  }
+  __device__ __forceinline__ Res load(long long, int) const { return {}; }
+  __device__ __forceinline__ void quad(long long m, int n, const float (&z)[4], Res, int) const {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gelu_and_grad(z[i], a[i], b[i]);
+    store4(gz + m * ld + n, a);
+    store4(gzg + m * ld + n, b);
   }
 };
 
@@ -40,8 +62,20 @@ struct MulEpi {  // out = rnd(v · r)
   T* out;
   const float* r;
   int ld;
+  using Res = gemm::Res4;
+  bool aligned() const { return gemm::quad_aligned(out, ld) && gemm::quad_aligned(r, ld); }
   __device__ __forceinline__ void operator()(long long m, int n, float v, int) const {
     out[m * ld + n] = from_f<T>(v * r[m * ld + n]);
+  }
+  __device__ __forceinline__ Res load(long long m, int n) const {
+    Res res;
+    load4(r + m * ld + n, res.v);
+    return res;
+  }
+  __device__ __forceinline__ void quad(long long m, int n, const float (&v)[4], const Res& res,
+                                       int) const {
+    const float o[4] = {v[0] * res.v[0], v[1] * res.v[1], v[2] * res.v[2], v[3] * res.v[3]};
+    store4(out + m * ld + n, o);
   }
 };
 

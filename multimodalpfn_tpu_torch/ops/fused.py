@@ -527,6 +527,24 @@ def mlp_ln_bwd_plain(
     return dx.to(cd).reshape(x.shape), x32.T @ dz, gz.T @ du_c
 
 
+def _mlp_bwd_buffers(x, rows: int, nhid: int) -> tuple[torch.Tensor, ...]:
+    """The outputs and scratch of K8's C entry over ``rows`` rows of x, in
+    the entry's order: gz, gzg (float32), u, du (float32), du_c, dz, dx,
+    dW1, dW2 (float32) and the weight gradients' slabs."""
+    e, cd, dev = x.shape[-1], x.dtype, x.device
+
+    def ws(n, dtype):
+        return torch.empty((rows, n), dtype=dtype, device=dev)
+
+    return (
+        ws(nhid, cd), ws(nhid, torch.float32), ws(e, torch.float32), ws(e, torch.float32),
+        ws(e, cd), ws(nhid, cd), torch.empty_like(x),
+        torch.empty((e, nhid), dtype=torch.float32, device=dev),
+        torch.empty((nhid, e), dtype=torch.float32, device=dev),
+        kernels.wgrad_workspace(rows, e, nhid, dev),
+    )
+
+
 def mlp_ln_bwd(
     x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -546,26 +564,15 @@ def mlp_ln_bwd(
     x = kernels.aligned(x.contiguous())
     g = kernels.aligned(g.to(cd).contiguous())
     kernels.require_cuda("K8", x, g, w1c, w2c)
-    rows, dev = x.numel() // e, x.device
-
-    def ws(n, dtype):
-        return torch.empty((rows, n), dtype=dtype, device=dev)
-
-    gz, gzg, dz = ws(nhid, cd), ws(nhid, torch.float32), ws(nhid, cd)
-    u, du, du_c = ws(e, torch.float32), ws(e, torch.float32), ws(e, cd)
-    dx = torch.empty_like(x)
-    dw1 = torch.empty((e, nhid), dtype=torch.float32, device=dev)
-    dw2 = torch.empty((nhid, e), dtype=torch.float32, device=dev)
-    work = kernels.wgrad_workspace(rows, e, nhid, dev)
+    rows = x.numel() // e
+    bufs = _mlp_bwd_buffers(x, rows, nhid)
     rc = kernels.library().mmpfn_mlp_ln_bwd(
-        x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), g.data_ptr(), gz.data_ptr(),
-        gzg.data_ptr(), u.data_ptr(), du.data_ptr(), du_c.data_ptr(), dz.data_ptr(),
-        dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), work.data_ptr(),
+        *(a.data_ptr() for a in (x, w1c, w2c, g) + bufs),
         rows, e, nhid, kernels.WGRAD_ROWS, *kernels.launch_args(x, "K8"),
     )
     kernels.check(rc, "K8")
     kernels.LAUNCHES["K8"] += 1
-    return dx, dw1, dw2
+    return bufs[6:9]
 
 
 class _MlpLn(torch.autograd.Function):

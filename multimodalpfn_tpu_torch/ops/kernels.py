@@ -92,6 +92,8 @@ _SIGNATURES = {
     # (x, o, wout, g, u, du_c, do32, do, delta, dw, work,
     #  rows, s, e, h, d, wgrad_rows, dtype, device, stream)
     "mmpfn_item_epilogue_bwd": [_P] * 11 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (a, b, c, work, M, N, K, a_t, b_t, k_chunk, device, stream)
+    "mmpfn_gemm_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -242,3 +244,39 @@ def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{kernel}: operands must share one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: operands must be contiguous")
+
+
+def gemm_bf16_plain(a: torch.Tensor, b: torch.Tensor, a_t: bool = False,
+                    b_t: bool = False) -> torch.Tensor:
+    """op(a)·op(b) in float32: a ``(M, K)``, or stored ``(K, M)`` when
+    ``a_t``; b ``(K, N)``, or stored ``(N, K)`` when ``b_t``."""
+    return (a.t() if a_t else a).float() @ (b.t() if b_t else b).float()
+
+
+def gemm_bf16(a: torch.Tensor, b: torch.Tensor, a_t: bool = False, b_t: bool = False,
+              k_chunk: int = 0) -> torch.Tensor:
+    """The bf16 product tile that K7, K8, K9 and K10 share
+    (`csrc/gemm_tile.cuh`, entry `csrc/gemm.cu`), alone: `gemm_bf16_plain`
+    of bf16 operands into float32, summed over K in chunks of ``k_chunk``
+    (float32 slabs added in order) when ``0 < k_chunk < K``. On the card a
+    chunk of a product with 16-byte aligned rows must be a multiple of 64.
+    For the CUDA tests and `tools/torch_kernel_ab.py --tile`; no kernel of the
+    main path calls it, so it has no launch count."""
+    if a.device.type == "cpu":
+        return gemm_bf16_plain(a, b, a_t, b_t)
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2 or b.dim() != 2:
+        raise ValueError("gemm_bf16: a and b must be 2-D bfloat16 tensors")
+    require_cuda("gemm_bf16", a, b)
+    (K, M), (N, Kb) = (a.shape if a_t else a.shape[::-1]), (b.shape if b_t else b.shape[::-1])
+    if K != Kb:
+        raise ValueError(f"gemm_bf16: contraction lengths differ ({K} and {Kb})")
+    c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    slabs = -(-K // k_chunk) if 0 < k_chunk < K else 0
+    work = torch.empty((slabs, M, N) if slabs else (1,), dtype=torch.float32,
+                       device=a.device)
+    rc = library().mmpfn_gemm_bf16(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), work.data_ptr(), M, N, K, int(a_t), int(b_t),
+        k_chunk, a.device.index, torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    check(rc, "gemm_bf16")
+    return c

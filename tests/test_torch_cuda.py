@@ -401,7 +401,8 @@ def _bwd_cases(gen, device, dtype, b, t, S, sep, e, h, d, nhid):
      (2, 7, 70, 48, 64, 2, 32, 128),    # two members
      (1, 3, 9, 1, 32, 4, 8, 64),        # one train row, d = 8
      (1, 4, 40, 40, 64, 2, 32, 128),    # no test rows
-     (1, 30, 150, 131, 192, 6, 32, 768)],  # the flagship's widths and tokens
+     (1, 30, 150, 131, 192, 6, 32, 768),   # the flagship's widths and tokens
+     (1, 30, 70, 51, 192, 6, 32, 768)],    # 2100 rows: a weight-gradient chunk edge at 2048
 )
 def test_backward_kernels_match_plain(cuda, dtype, b, t, S, sep, e, h, d, nhid):
     """K7, K8, K10 and K9 against their plain versions, every output
@@ -420,6 +421,40 @@ def test_backward_kernels_match_plain(cuda, dtype, b, t, S, sep, e, h, d, nhid):
             assert torch.isfinite(a.float()).all(), (kid, i)
             rel = (a.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)
             assert rel <= bound, f"{kid} output {i}: rel err {float(rel):.3e}"
+
+
+@pytest.mark.parametrize("k_chunk", [0, 2048])
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("K", [16, 192, 576, 2047, 2048, 2049, 4097])
+@pytest.mark.parametrize("N", [8, 192, 576, 768])
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 129, 192, 200, 776, 2049])
+def test_gemm_bf16_matches_matmul(cuda, M, N, K, a_t, b_t, k_chunk):
+    """The bf16 product tile of K7-K10 alone (`kernels.gemm_bf16`), every
+    storage order, ragged against its 128 × 192 tiles and 64-deep k-tiles,
+    with and without chunks of 2048: ``torch.matmul`` of the same bf16
+    operands in float32 (TF32 off), to 1e-5 of the largest output (summation
+    order only); a repeat gives the same bits. Odd K (a_t False or b_t True)
+    and M off a multiple of 8 (a_t True) take the CUDA-core body; M = 64,
+    192, 200 and 776 give the transposed A (the weight gradients' operand)
+    one warpgroup, both, several 128-row tiles and a partial one."""
+    gen = torch.Generator(device=cuda).manual_seed(M * 7919 + N * 31 + K)
+    a = torch.randn((K, M) if a_t else (M, K), generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn((N, K) if b_t else (K, N), generator=gen, device=cuda).to(torch.bfloat16)
+    got, again = kernels.gemm_bf16(a, b, a_t, b_t, k_chunk), kernels.gemm_bf16(a, b, a_t, b_t, k_chunk)
+    want = torch.matmul((a.t() if a_t else a).float(), (b.t() if b_t else b).float())
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max().clamp_min(1e-30)
+
+
+def test_gemm_bf16_refuses_a_chunk_off_the_k_tile(cuda):
+    """A chunk of a tensor-core product that is not a whole number of
+    64-deep k-tiles would make a TMA box straddle two chunks: refused."""
+    a = torch.ones((128, 256), device=cuda, dtype=torch.bfloat16)
+    b = torch.ones((256, 192), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="not supported"):
+        kernels.gemm_bf16(a, b, k_chunk=100)
+    assert torch.equal(kernels.gemm_bf16(a, b, k_chunk=128), kernels.gemm_bf16_plain(a, b))
 
 
 def test_inference_only_kernels_raise_under_autograd(cuda):

@@ -71,6 +71,22 @@ def test_feature_attention_im_backward_matches_jax(b, t, s):
         _close(func[i], auto[i], f"Function {name} vs autograd")
 
 
+# the flagship's widths (e = 192, h = 6, d = 32) with a few rows: ragged
+# samples against the Pallas block, ragged tokens
+@pytest.mark.parametrize("b,t,s", [(1, 30, 3), (1, 7, 5)])
+def test_feature_attention_im_backward_matches_jax_at_flagship_widths(b, t, s):
+    rng = np.random.default_rng(1000 + t * 10 + s)
+    e, h, d = 192, 6, 32
+    x = _rand(rng, (b, t, s, e))
+    w_qkv = _rand(rng, (3, h, d, e), e**-0.5)
+    w_out = _rand(rng, (h, d, e), (h * d) ** -0.5)
+    g = _rand(rng, (b, t, s, e))
+    want = _jax_vjp(jpf.fused_feature_attention_ln_im, (x, w_qkv, w_out), g)
+    plain = tf.feature_attention_ln_im_bwd_plain(*map(torch.from_numpy, (x, w_qkv, w_out, g)))
+    for i, name in enumerate(("dx", "dw_qkv", "dw_out")):
+        _close(plain[i].numpy(), want[i], f"plain {name} vs JAX")
+
+
 # ---- K8 (MLP + LN backward) --------------------------------------------------
 
 
@@ -92,6 +108,22 @@ def test_mlp_backward_matches_jax(lead):
         _close(plain[i].numpy(), auto[i], f"plain {name} vs autograd")
         _close(func[i], want[i], f"Function {name} vs JAX")
         _close(func[i], auto[i], f"Function {name} vs autograd")
+
+
+# the flagship's widths (e = 192, nhid = 768) with a few rows, ragged
+# against the Pallas block of 16
+@pytest.mark.parametrize("lead", [(1, 30, 3), (2, 9)])
+def test_mlp_backward_matches_jax_at_flagship_widths(lead):
+    rng = np.random.default_rng(2000 + sum(lead))
+    e, H = 192, 768
+    x = _rand(rng, (*lead, e))
+    w1 = _rand(rng, (e, H), e**-0.5)
+    w2 = _rand(rng, (H, e), H**-0.5)
+    g = _rand(rng, (*lead, e))
+    want = _jax_vjp(lambda *a: jpf.fused_mlp_ln(*a, block_rows=16), (x, w1, w2), g)
+    plain = tf.mlp_ln_bwd_plain(*map(torch.from_numpy, (x, w1, w2, g)))
+    for i, name in enumerate(("dx", "dw1", "dw2")):
+        _close(plain[i].numpy(), want[i], f"plain {name} vs JAX")
 
 
 # ---- K10 + K9 (item-attention sublayer backward) -----------------------------
