@@ -14,8 +14,9 @@ Phases, each of which must pass:
    forward of K2a and K4, the dq and dk/dv passes of K9 and K11, each at
    d = 16, 32, 64; ``cuobjdump``), each of which must issue wgmma, and of
    the 20 instantiations of the bf16 product tile of K7-K10
-   (``gemm_tile.cuh``: five epilogues by four storage orders), each of which
-   must issue wgmma with no local-memory load or store; write the
+   (``gemm_tile.cuh``: five epilogues by four storage orders) and of K3's
+   wgmma body (``mlp_ln.cu``, e = 64, 128, 192), each of which must issue
+   wgmma with no local-memory load or store; write the
    model every phase serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
    projections filled in from seed 1) to ``build/``.
@@ -35,7 +36,11 @@ Phases, each of which must pass:
    (4, 48, 2350, 192) and K6b at the merged prime (4·1838, 48, 192) and
    predict (4·512, 48, 192) shapes, with the masks of members 39/39/22/22
    features wide (+ 8 image tokens and the target: 17 keys of the narrow
-   members masked). The lse of K2a and K4 must match to 1e-4 abs in both
+   members masked); K3 also at the cache prime (4·1838, 48, 192), the cache
+   predict (4·512, 48, 192) and the fine-tune episode (1, 30, 1838, 192),
+   each repeat bit-equal and beside ``torch.matmul`` on its two products
+   (``matmul_ms``; two calls, so no ``library_ms``). The lse of K2a and K4
+   must match to 1e-4 abs in both
    dtypes (K2a's bf16 lse on inputs on which its projection is exact, so
    that it holds the attention alone); K2a's projection and attention are
    timed apart (profiler kernel names) and the attention is set against
@@ -47,14 +52,15 @@ Phases, each of which must pass:
    set and answers three ``predict_proba`` requests (460, 128 and 300 test
    rows); the members' widths and the planned groups are printed; the launch
    counters, zeroed just before, show the item-major kernels (K1, or K6a for
-   a merged group; K2a, K2b, K3) ran in every layer of every group; then the
-   same requests again, warm.
+   a merged group; K2a, K2b, K3) ran in every layer of every group, every
+   K3 launch through its wgmma body; then the same requests again, warm.
 4. Its kernel path against its plain path: float32 ``predict_proba`` (the
    plain path split by the memory estimate).
 5. ``fit_with_cache`` served: fit (which primes the KV cache) and the same
    three requests; the counters, zeroed just before the fit, show K4, K5 (or
-   K6b) and K3 ran in every layer of the prime and of each request, and no
-   item-major kernel ran; then the requests again, warm.
+   K6b) and K3 ran in every layer of the prime and of each request (K3
+   through its wgmma body), and no item-major kernel ran; then the requests
+   again, warm.
    ``predict_proba_many`` over the three requests equals the sequential
    answers exactly. The largest difference from phase
    3's answers is printed (the two differ by design where the encoder's
@@ -116,9 +122,10 @@ exponential floor beside the bound (every (query, key) pair exponentiated
 once a pass, 16 ex2 a clock per SM at the card's maximum SM clock), and it
 holds their float32 outputs (and K11's bf16 at d = 8), which the CUDA-core
 bodies compute, to the parent commit's bits (`PARENT_F32_SHA256`); so too
-K4's and K2a's float32 outputs and bf16 at d = 8 (`attn::cc_rows`), and the
+K4's and K2a's float32 outputs and bf16 at d = 8 (`attn::cc_rows`), the
 float32 outputs of K7, K7s, K8 and K10 (`gemm_tile.cuh`'s cc_kernel and the
-row kernels).
+row kernels), and K3's float32 outputs (its CUDA-core body) and bf16 outputs
+at e = 96 (its mma.sync body).
 
 ``--profile`` adds a phase 14: ``torch.profiler`` around one warm request of
 each size in both modes and around one warm training step of each item path
@@ -247,8 +254,9 @@ KERNELS = {
 # `f32_fingerprints` on an H100 80GB HBM3 of the commits before each bf16
 # redesign (K9, K11: 32e8513, before their passes moved to wgmma; K4, K2a:
 # 4f9071f, before their forward did; K7, K7s, K8, K10: 661c4b4, before the
-# product tile did): the CUDA-core bodies (float32, and bf16 at d = 8) must
-# go on giving these bits
+# product tile did; K3: ede4bbd, before its wgmma body): the CUDA-core
+# bodies (float32, and bf16 at d = 8) and K3's mma.sync body must go on
+# giving these bits
 PARENT_F32_SHA256 = {
     "K11 f32 d=8": "b9f0e3a2bc2964aa", "K11 f32 d=16": "b910ce43502031dc",
     "K11 f32 d=32": "4055da75ae152101", "K11 f32 d=64": "8d25581c0adcb482",
@@ -260,7 +268,7 @@ PARENT_F32_SHA256 = {
     "K2a f32 d=16": "ac6db837ce5d7a7e", "K2a f32 d=32": "50a91845e15f9ced",
     "K2a f32 d=64": "35568848dcbde803", "K2a bf16 d=8": "d4a47c31e5c7a20a",
     "K7 f32": "2e4e66085b349fd4", "K7s f32": "9ff86b363935af49", "K8 f32": "14c4dab8f5d35cd6",
-    "K10 f32": "050187159db35e72",
+    "K10 f32": "050187159db35e72", "K3 f32": "1fd70dde3def5c63", "K3 bf16 e=96": "85d7fbe399f1b6c3",
 }
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
@@ -335,9 +343,11 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict]:
     bf16 tensor-core kernel: the attention forward of K2a and K4
     (`csrc/attn_tile.cuh`) and the dq and dk/dv passes of K9 and K11
     (`csrc/attn_bwd.cuh`), each at d = 16, 32, 64 (18 kernels); and of the
-    product tile of `csrc/gemm_tile.cuh` by epilogue and transposes, with
-    its local-memory loads and stores (spills) beside. Returns (attention
-    counts, {product kernel: (HGMMA, LDL + STL)})."""
+    product tile of `csrc/gemm_tile.cuh` by epilogue and transposes and of
+    K3's wgmma body (`csrc/mlp_ln.cu`) by width, each with its
+    local-memory loads and stores (spills) beside. Returns (attention
+    counts, {product kernel: (HGMMA, LDL + STL)}, {K3 kernel: (HGMMA, LDL +
+    STL)})."""
     import os
     import re
     import shutil
@@ -345,13 +355,16 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict]:
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     proc = subprocess.Popen([tool, "--dump-sass", str(lib)], stdout=subprocess.PIPE, text=True)
-    counts, gemm, fn, gfn = {}, {}, None, None
+    counts, gemm, k3, fn, gfn = {}, {}, {}, None, None
     for line in proc.stdout:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
             fn = gfn = None
-            if "wg_kernel" in name:
+            if "mlp_ln_wg_kernel" in name:
+                gfn = f"K3 e={re.search(r'mlp_ln_wg_kernelILi(\d+)E', name).group(1)}"
+                k3.setdefault(gfn, [0, 0])
+            elif "wg_kernel" in name:
                 d = re.search(r"wg_kernelILi(\d+)", name).group(1)
                 if "fwd_wg_kernel" in name:
                     fn = f"{'K2a' if 'ItemFwdGeo' in name else 'K4'} fwd d={d}"
@@ -367,9 +380,9 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict]:
         elif fn and "HGMMA" in line:
             counts[fn] += 1
         elif gfn and ("HGMMA" in line or re.search(r"\b(LDL|STL)\b", line)):
-            gemm[gfn][0 if "HGMMA" in line else 1] += 1
+            (k3 if gfn.startswith("K3") else gemm)[gfn][0 if "HGMMA" in line else 1] += 1
     check(proc.wait(timeout=300) == 0, "cuobjdump failed")
-    return counts, {k: tuple(v) for k, v in gemm.items()}
+    return counts, {k: tuple(v) for k, v in gemm.items()}, {k: tuple(v) for k, v in k3.items()}
 
 
 def exp_floor_ms(pairs: float, device) -> float | None:
@@ -630,6 +643,7 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                  "K4@ft_test": (rand(ft_G, ft_test, d), kf, vf),
                  "K4@ft_folded": (rand(ft_t, ft_h * ft_test, d), kf[:ft_t], vf[:ft_t])}
     xp48 = rand(b, n_pred, 48, e)  # K6b at the merged predict shape
+    x_ft = rand(1, ft_t, ft_S, e)  # K3 at the fine-tune episode
     # the merged group's key masks: each member's own feature tokens, none of
     # its padded ones, the image tokens and the target
     widths = [MERGE_WIDTHS[i % len(MERGE_WIDTHS)] for i in range(b)]
@@ -682,8 +696,7 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         "K2b": (item_fused.item_epilogue_ln, item_fused.item_epilogue_ln_plain,
                 lambda dt: (x.reshape(G2, S, e).to(dt), o_in.to(dt), w_out),
                 lambda es: (2 * G2 * S * hd * e, (G2 * S * (2 * e + hd) + hd * e) * es), None),
-        "K3": (fused.fused_mlp_ln, fused.mlp_ln_plain, lambda dt: (x.to(dt), w1, w2),
-               lambda es: (4 * R * t * e * nhid, (2 * R * t * e + 2 * e * nhid) * es), None),
+
         "K4": (flash.flash_attention, flash.flash_attention_plain,
                lambda dt: (qp.to(dt), kp.to(dt), vp.to(dt)), flash_work(b * t * h, sep, sep),
                lambda dt: sdpa(qp.to(dt), kp.to(dt), vp.to(dt))),
@@ -704,6 +717,13 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                         lambda dt: (xp48.to(dt), w_qkv, w_out, None, mask[:, None]),
                         feat_work(b * n_pred, 48, keys), None),
     }
+    # K3 where it serves and trains: fit_preprocessors, the KV-cache prime
+    # and predict (the merged group of 48 tokens), the fine-tune episode
+    for kid, xk in {"K3": x, "K3@prime": xs48.reshape(b * sep, 48, e),
+                    "K3@predict": xp48.reshape(b * n_pred, 48, e), "K3@ft": x_ft}.items():
+        rows_k = xk.numel() // e
+        cases[kid] = (fused.fused_mlp_ln, fused.mlp_ln_plain, lambda dt, xk=xk: (xk.to(dt), w1, w2),
+                      lambda es, n=rows_k: (4 * n * e * nhid, (2 * n * e + 2 * e * nhid) * es), None)
     for kid, (qb, kb, vb) in ft_blocks.items():
         cases[kid] = (flash.flash_attention, flash.flash_attention_plain,
                       lambda dt, qkv=(qb, kb, vb): tuple(a.to(dt) for a in qkv),
@@ -725,6 +745,9 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         ):
             args = make(dt)
             got, want = kern(*args), plain(*args)
+            if kid.startswith("K3"):  # a repeat on the same inputs gives the same bits
+                res[f"repeat_bit_equal_{tag}"] = bool(torch.equal(got, kern(*args)))
+                check(res[f"repeat_bit_equal_{tag}"], f"{kid} {tag}: two runs on the same inputs differ")
             if isinstance(got, tuple):  # (o, lse)
                 (got, got_lse), (want, want_lse) = got, want
                 lse_err = float((got_lse - want_lse).abs().max())
@@ -760,6 +783,16 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                 for part, ms in profiled_ms(lambda: kern(*args), device, iters, K2A_PARTS).items():
                     res[f"{part}_ms_{tag}"] = ms
                     extra += f", {part} {ms:.3f} ms"
+            if kid.startswith("K3") and tag == "bf16" and device.type == "cuda":
+                # K3's two products alone, as torch.matmul calls (two calls,
+                # so not a library_ms): x·W1, then the bf16 hidden layer·W2
+                x2 = args[0].reshape(-1, e)
+                w1b, w2b = w1.to(dt), w2.to(dt)
+                hid = torch.randn((x2.shape[0], nhid), device=device, dtype=dt)
+                res["matmul_ms_bf16"] = (timed(lambda: torch.matmul(x2, w1b), device, iters)
+                                         + timed(lambda: torch.matmul(hid, w2b), device, iters))
+                extra += f", torch.matmul on its two products {res['matmul_ms_bf16']:.3f} ms"
+                del hid
             if kid in pairs:
                 # computed, not measured: printed here, kept out of the kernels line
                 floor = exp_floor_ms(pairs[kid], device)
@@ -1006,11 +1039,12 @@ def launch_sequence(kid, seq, fn, device, iters) -> dict:
 
 def f32_fingerprints(device) -> dict:
     """sha256 (first 16 hex digits) of the float32 outputs of K9, K11, K4
-    and K2a and of their bf16 outputs at d = 8, and of the float32 outputs
-    of K7, K7s, K8 and K10: the work of the CUDA-core bodies of
-    `csrc/attn_bwd.cuh`, `csrc/attn_tile.cuh` and `csrc/gemm_tile.cuh`
-    (cc_kernel) and of the backward row kernels, which the bf16 redesigns
-    left as they were. Inputs come from a seeded CPU generator
+    and K2a and of their bf16 outputs at d = 8, of the float32 outputs of
+    K7, K7s, K8, K10 and K3, and of K3's bf16 outputs at e = 96: the work of
+    the CUDA-core bodies of `csrc/attn_bwd.cuh`, `csrc/attn_tile.cuh`,
+    `csrc/gemm_tile.cuh` (cc_kernel) and `csrc/mlp_ln.cu`, of K3's mma.sync
+    body and of the backward row kernels, which the bf16 redesigns left as
+    they were. Inputs come from a seeded CPU generator
     and, for the backward kernels, the plain forward and epilogue backward on
     the card (no other kernel of the port, so the digests pin the CUDA-core
     bodies alone); phase 8 holds them equal to `PARENT_F32_SHA256`, the
@@ -1069,6 +1103,12 @@ def f32_fingerprints(device) -> dict:
         x3, g3 = x.reshape(8, 300, e), g.reshape(8, 300, e)
         o, _ = item_fused.item_attention_core_plain(x3, w_qkv, 237)
         out["K10 f32"] = digest(item_fused.item_epilogue_bwd(x3, o, w_out, g3))
+        # K3's CUDA-core body in float32 at the published widths, and its
+        # mma.sync body (bf16 at e = 96)
+        x, w1, w2 = rand(2, 300, 192), rand(192, 768, scale=192**-0.5), rand(768, 192, scale=768**-0.5)
+        out["K3 f32"] = digest(fused.fused_mlp_ln(x, w1, w2))
+        x, w1, w2 = rand(2, 300, 96), rand(96, 192, scale=96**-0.5), rand(192, 96, scale=192**-0.5)
+        out["K3 bf16 e=96"] = digest(fused.fused_mlp_ln(x.to(torch.bfloat16), w1, w2))
     return out
 
 
@@ -1471,6 +1511,7 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
         answers.append(p)
         print(f"  predict_proba({n} rows): {times[-1]:.1f} ms", flush=True)
     launches = dict(kernels.LAUNCHES)
+    bodies = dict(kernels.BODY_LAUNCHES)
     passes = len(request_sizes) + 1 if cached else len(request_sizes)
     # per kernel, the launches every layer of every planned group and pass
     # needs at least (a memory split of a group adds more)
@@ -1483,12 +1524,16 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
     need |= {feat: groups - merged, masked: merged}
     need = {k: n_layers * passes * n for k, n in need.items()}
     idle += tuple(k for k, n in need.items() if n == 0)
-    print(f"  launches {launches} (at least {need}; {', '.join(idle)} 0)", flush=True)
+    print(f"  launches {launches} (at least {need}; {', '.join(idle)} 0); K3 by body {bodies}",
+          flush=True)
     if device.type == "cuda":
         for kid, n in need.items():
             check(launches[kid] >= n, f"{kid} launched {launches[kid]} times, expected >= {n}")
         for kid in idle:
             check(launches[kid] == 0, f"{kid} launched {launches[kid]} times on the {fit_mode} path")
+        # bf16 at e = 192, nhid = 768: every K3 launch took the wgmma body
+        check(bodies["K3 wgmma"] == launches["K3"],
+              f"K3 ran {bodies} on the {fit_mode} path, not its wgmma body alone")
     warm = []  # the same requests again, each now at a sequence length seen before
     for n in request_sizes:
         t0 = time.perf_counter()
@@ -1632,7 +1677,8 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
     rows = []
     for kid, meta in KERNELS.items():
         r = dict(kres[kid])
-        for sub in ("t48", "predict", "test", "folded", "ft_train", "ft_test", "ft_folded"):
+        for sub in ("t48", "prime", "predict", "ft", "test", "folded", "ft_train", "ft_test",
+                    "ft_folded"):
             r.update({f"{k}_{sub}": v for k, v in kres.get(f"{kid}@{sub}", {}).items()})
         main = {"max_abs_err": "max_abs_err_f32", "ms": "ms_bf16", "plain_ms": "plain_ms_bf16",
                 "bound_ms": "bound_ms_bf16", "bound_by": "bound_by_bf16",
@@ -1642,6 +1688,8 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
         row.update({k: r[v] for k, v in main.items()})
         if kid == "K3":
             row["launches_cached"] = launches["cached"]["K3"]
+            row["launches_finetune"] = launches["finetune"]["K3"]
+            row["launches_flash_finetune"] = launches["flash_finetune"]["K3"]
         if kid == "K4":
             row["launches_flash_finetune"] = launches["flash_finetune"]["K4"]
         row.update({k: v for k, v in r.items() if k not in main.values()})
@@ -1687,7 +1735,7 @@ def main() -> int:
         kernels.library()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"({kernels.library_path().name})", flush=True)
-        hgmma, prods = wgmma_sass_counts(kernels.library_path())
+        hgmma, prods, k3_sass = wgmma_sass_counts(kernels.library_path())
         print(f"  HGMMA instructions in the SASS of the bf16 attention kernels (K2a and K4 forward, "
               f"K9 and K11 passes): {hgmma}", flush=True)
         print(f"  (HGMMA, local loads and stores) in the SASS of the bf16 product tile "
@@ -1697,6 +1745,11 @@ def main() -> int:
         check({k.split()[0] for k in prods} == {"GeluEpi", "MulEpi", "AddStore", "Partial", "Store"}
               and all(h > 0 and spills == 0 for h, spills in prods.values()),
               "the bf16 products do not all issue wgmma without spilling")
+        print(f"  (HGMMA, local loads and stores) in the SASS of K3's wgmma body (mlp_ln.cu, by "
+              f"width): {k3_sass}", flush=True)
+        check({k.split()[1] for k in k3_sass} == {"e=64", "e=128", "e=192"}
+              and all(h > 0 and spills == 0 for h, spills in k3_sass.values()),
+              "K3's wgmma body does not issue wgmma without spilling at every width")
     model_path = ROOT / "build" / "chip_smoke_model.npz"
     write_model(model_path)
     nmq_path = ROOT / "build" / "chip_smoke_model_no_multiquery.npz"

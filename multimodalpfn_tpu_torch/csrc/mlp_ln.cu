@@ -2,28 +2,24 @@
 //
 // Replaces multimodalpfn_tpu/ops/pallas_fused.py:_mlp_kernel_g (pallas_call in
 // _mlp_fwd_call, :160/:184). Pallas approximated erf (Abramowitz-Stegun,
-// :101) because Mosaic has none; this kernel uses CUDA's erff, the exact gelu.
+// :101) because Mosaic has none. The hidden layer is rounded to the operand
+// type after the gelu; the residual sum and the LN run in float32.
 //
 // What bounds it on the H100: arithmetic. Each row costs 2·e·nhid FMAs
 // (295 K at e = 192, nhid = 768) against 2·e·sizeof(T) bytes of activation
-// traffic, and the 1.2 MB (f32) of weights stay in L2. Two kernels: float32
-// operands run on the CUDA cores (the parity mode needs full float32
-// products); bf16 operands at the usual widths run on the tensor cores
-// (mlp_ln_tc_kernel below). wgmma and TMA pipelining are later work.
+// traffic, and the weights stay in L2. Three bodies, each with its own C
+// entry; the Python wrapper (ops/fused.py:mlp_ln_body) picks one:
+//  * mlp_ln_kernel (mmpfn_mlp_ln): float32 operands on the CUDA cores (the
+//    parity mode needs full float32 products, and CUDA's exact erff), and
+//    bf16 at widths no tensor-core body takes;
+//  * mlp_ln_tc_kernel (mmpfn_mlp_ln_mma): bf16 at e = 32, 96, 160 on
+//    mma.sync;
+//  * wg::mlp_ln_wg_kernel (mmpfn_mlp_ln_wg): bf16 at e = 64, 128, 192 on
+//    Hopper's wgmma, fed by TMA (below).
 //
-// CUDA-core design: a block owns 32 rows; the hidden layer is never written to device
-// memory. The x tile and each chunk of 128 hidden values sit transposed in
-// shared memory, so a warp's 4 rows come as one float4 broadcast. Per chunk,
-// each lane computes 4 consecutive hidden units of its warp's 4 rows (one
-// vector load of W1 feeds 16 FMAs), applies gelu, rounds to T as the Pallas
-// kernel does, and parks them; then each lane folds them into its 4 rows ×
-// pairs of output columns held in registers (one 2-wide W2 load feeds 8
-// FMAs). A warp holds whole rows, so residual and LN reduce with shuffles
-// only. Ragged tail rows are zeroed on load and never stored. Needs e even,
-// e <= 256 and nhid a multiple of 4.
-#include "common.cuh"
+#include "ln_tile.cuh"
 
-#include <type_traits>
+#include <algorithm>
 
 namespace {
 
@@ -246,19 +242,6 @@ int launch_tc(const void* x, const void* w1, const void* w2, void* out, long lon
 template <typename T>
 int launch(const void* x, const void* w1, const void* w2, void* out, long long rows, int e,
            int nhid, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (nhid % HC == 0) {
-      switch (e) {
-        case 32: return launch_tc<32>(x, w1, w2, out, rows, nhid, stream);
-        case 64: return launch_tc<64>(x, w1, w2, out, rows, nhid, stream);
-        case 96: return launch_tc<96>(x, w1, w2, out, rows, nhid, stream);
-        case 128: return launch_tc<128>(x, w1, w2, out, rows, nhid, stream);
-        case 160: return launch_tc<160>(x, w1, w2, out, rows, nhid, stream);
-        case 192: return launch_tc<192>(x, w1, w2, out, rows, nhid, stream);
-        default: break;
-      }
-    }
-  }
   const size_t smem = sizeof(float) * (size_t)RS * (e + CHUNK);
   int rc = mmpfn_allow_smem(mlp_ln_kernel<T>, smem);
   if (rc) return rc;
@@ -267,6 +250,263 @@ int launch(const void* x, const void* w1, const void* w2, void* out, long long r
       (const T*)x, (const T*)w1, (const T*)w2, (T*)out, rows, e, nhid);
   return (int)cudaGetLastError();
 }
+
+// ---- bf16 on Hopper: wgmma from a TMA ring of weight chunks ----------------
+// The same function for bf16 operands at e = 64, 128, 192 with nhid a
+// multiple of HC, designed for the H100 (PERF.md holds the A/B timings of
+// the designs this one beat):
+//  * a persistent, warp-specialised block per SM walks tiles of 128 rows:
+//    one producer thread and two consumer warpgroups, 64 rows each;
+//  * the producer loads each tile's x rows by TMA from a 2-D map over
+//    (rows, e) (its bounds zero-fill past the last row) and streams the
+//    weights through a ring of stages, each W1[:, c:c+64] and W2[c:c+64, :]
+//    as stored, in 64 × 64 boxes under the 128-byte swizzle; the ring runs
+//    on across tiles, so the next tile's weights arrive during this tile's
+//    epilogue;
+//  * per chunk, the first product h = x·W1[:, c:c+64] is e / 16 wgmma
+//    m64n64k16 with x K-major and the W1 chunk named MN-major in its
+//    descriptor; the gelu of h, rounded to bf16, is packed straight into
+//    the A fragments of the second product, out += h·W2[c:c+64, :], a
+//    wgmma m64nek16 with A from registers: the hidden layer never leaves
+//    registers, and the 64 × e float32 output accumulates over all chunks;
+//  * the two consumer warpgroups take turns (named barriers) to issue
+//    their products, chunk c - 1's second with chunk c's first, so that
+//    one's gelu runs beside the other's products;
+//  * the gelu is the Pallas kernel's erf, Abramowitz-Stegun 7.1.26, on one
+//    ex2 and one rcp (error 1.5e-7, far inside the hidden layer's bf16
+//    rounding; with CUDA's erff the kernel was 26-29 % slower on the H100);
+//  * no wgmma is issued under a condition: ptxas serializes every wgmma
+//    of a kernel that does (warnings C7514, C7515, C7520);
+//  * the epilogue adds the residual and normalises on the accumulator
+//    (ln_tile.cuh), writes the bf16 rows over the x rows, and a TMA store
+//    writes them out (rows past the last are not written); then the x
+//    buffer takes the next tile's rows.
+namespace wg {
+
+constexpr int BOX = 64 * 64 * 2;  // bytes of a 64 × 64 box
+constexpr int THREADS = 384;      // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int TM = 128;           // rows a tile, 64 a consumer warpgroup
+constexpr int TURN_BAR = 3;       // named barriers 3, 4: each warpgroup's turn (1, 2: epilogues)
+
+// Shared memory of a block at width E: XB buffers of x rows (two warpgroups'
+// 64 rows each, E / 64 boxes a warpgroup), then the ring of ST stages (W1's
+// chunk: E / 64 boxes of 64 rows of k; W2's: E / 64 boxes of 64 columns of
+// n), then the barriers. At E = 192 one x buffer and three stages fill 192
+// KB; a turn's two products keep two stages busy, so three is the least
+// that leaves one loading.
+template <int E>
+struct Geo {
+  static constexpr int NB = E / 64;
+  static constexpr int XWG = NB * BOX;  // a warpgroup's x rows
+  static constexpr int STAGE = 2 * NB * BOX;
+  static constexpr int XB = E == 192 ? 1 : 2;
+  static constexpr int ST = E == 192 ? 3 : 4;
+  static constexpr int RING = XB * 2 * XWG;
+  static constexpr int BARS = RING + ST * STAGE;  // full[ST], empty[ST], xfull[XB][2], xempty[XB][2]
+  static constexpr int SMEM = BARS + (2 * ST + 4 * XB) * 8 + 1024;  // + alignment slack
+  static_assert(SMEM <= MMPFN_MAX_SMEM, "shared memory");
+};
+
+// 0.5·z·(1 + erf(z/√2)) by Abramowitz-Stegun 7.1.26 (pallas_fused.py:_erf):
+// erf(|u|) = 1 - poly(t)·exp(-u²), t = 1/(1 + p|u|), u = z/√2, so that
+// gelu(z) = max(z, 0) - |z|·poly(t)·exp(-u²)/2; the 1/√2 and the 1/2 are
+// folded into the constants, exp(-u²) is one ex2 and t one rcp
+__device__ __forceinline__ float gelu(float z) {
+  float t;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(t) : "f"(fmaf(0.2316418882663604f, fabsf(z), 1.f)));
+  const float half_poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 0.5307027145f, -0.7265760135f), 0.7107068705f), -0.142248368f),
+               0.127414796f);
+  const float zc = z * 0.8493218002880191f;  // zc² = u²·log2(e)
+  return fmaf(-fabsf(z), half_poly * hopper::ex2(-zc * zc), fmaxf(z, 0.f));
+}
+
+// the tensor maps of x, W1, W2 and out, passed as a __grid_constant__
+struct Maps {
+  CUtensorMap x, w1, w2, out;
+};
+
+// Block b takes tiles b, b + gridDim.x, ...
+template <int E>
+__global__ void __launch_bounds__(THREADS, 1)
+    mlp_ln_wg_kernel(const __grid_constant__ Maps maps, int rows, int nc, int tiles) {
+  using namespace hopper;
+  using G = Geo<E>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = sm + G::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + G::BARS);
+  uint64_t* empty = full + G::ST;
+  uint64_t* xfull = empty + G::ST;       // [XB][2]
+  uint64_t* xempty = xfull + 2 * G::XB;  // [XB][2]
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < G::ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // every consumer warp
+    }
+    for (int i = 0; i < 2 * G::XB; ++i) {
+      mbar_init(xfull + i, 1);
+      mbar_init(xempty + i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    producer_registers();
+    if (tid == 256) {
+      int it = 0, xt = 0;
+      auto load_x = [&](int tile) {
+        const int xb = xt % G::XB;
+        for (int h = 0; h < 2; ++h) {
+          uint64_t* xf = xfull + 2 * xb + h;
+          if (xt >= G::XB) mbar_wait(xempty + 2 * xb + h, ((xt / G::XB) - 1) & 1);
+          mbar_arrive_tx(xf, G::XWG);
+          uint8_t* dst = sm + (2 * xb + h) * G::XWG;
+          for (int b = 0; b < G::NB; ++b) tma_load(dst + b * BOX, &maps.x, xf, 64 * b, TM * tile + 64 * h, 0);
+        }
+        ++xt;
+      };
+      // with one x buffer the next tile's first stages are issued before
+      // its x rows, which wait for this tile's epilogue
+      const int x_at = G::XB == 1 ? min(G::ST, nc) : 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int c = 0; c < nc; ++c, ++it) {
+          if (c == x_at) load_x(tile);
+          const int s = it % G::ST;
+          if (it >= G::ST) mbar_wait(empty + s, ((it / G::ST) - 1) & 1);
+          mbar_arrive_tx(full + s, G::STAGE);
+          uint8_t* st = ring + s * G::STAGE;
+          // W1 rows 64b.. of columns c·64..; W2 columns 64b.. of rows c·64..
+          for (int b = 0; b < G::NB; ++b) {
+            tma_load(st + b * BOX, &maps.w1, full + s, HC * c, 64 * b, 0);
+            tma_load(st + (G::NB + b) * BOX, &maps.w2, full + s, 64 * b, HC * c, 0);
+          }
+        }
+        if (x_at == nc) load_x(tile);
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows [64·wg, 64·wg + 64) of each tile
+    consumer_registers();
+    const int lane = tid & 31;
+    auto wait_full = [&](int i) { mbar_wait(full + i % G::ST, (i / G::ST) & 1); };
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + i % G::ST);
+    };
+    float acc[E / 2], h[HC / 2];
+    uint32_t a[HC / 16][4] = {}, xa[E / 16][4];
+    uint64_t xd = 0;  // descriptor of this warpgroup's x rows, K-major
+    // h = x·W1[:, chunk]: W1's chunk MN-major, its k steps of 16 rows 2048 bytes apart
+    auto p1 = [&](int i) {
+      const uint64_t bd = tile_desc<64>(ring + (i % G::ST) * G::STAGE);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < E / 16; ++j)
+        wgmma_ss_n64<0, 1>(h, xd + (j / 4) * (BOX >> 4) + 2 * (j % 4), bd + 128 * j, j);
+    };
+    // acc += bf16(gelu(h))·W2[chunk, :]: W2's chunk MN-major, its 64-column boxes BOX apart
+    auto p2 = [&](int i) {
+      const uint64_t bd = tile_desc<64>(ring + (i % G::ST) * G::STAGE + G::NB * BOX, BOX);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < HC / 16; ++j) wgmma_rs<E>(acc, a[j], bd + 128 * j);
+    };
+    // the gelu of h rounded to bf16, as the A fragments of p2 (hopper.cuh's layout)
+    auto hidden = [&]() {
+#pragma unroll
+      for (int i = 0; i < HC / 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          a[i / 2][r + 2 * (i & 1)] = pack_bf16(gelu(h[4 * i + 2 * r]), gelu(h[4 * i + 2 * r + 1]));
+    };
+    // a turn: this warpgroup's products, issued after the other's and
+    // waited for while the other issues its own
+    auto turn = [&](auto issue) {
+      bar_sync(TURN_BAR + wg, 256);
+      issue();
+      wgmma_commit();
+      bar_arrive(TURN_BAR + (wg ^ 1), 256);
+      wgmma_wait<0>();
+      keep(h);
+      keep(a);
+      keep(acc);
+    };
+    if (wg == 1) bar_arrive(TURN_BAR, 256);  // warpgroup 0 takes the first turn
+    int it = 0, xt = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++xt, it += nc) {
+      const int xb = xt % G::XB;
+      uint8_t* xs = sm + (2 * xb + wg) * G::XWG;
+      mbar_wait(xfull + 2 * xb + wg, (xt / G::XB) & 1);
+      xd = tile_desc<64>(xs);
+#pragma unroll
+      for (int i = 0; i < E / 2; ++i) acc[i] = 0.f;
+      // turn 0: chunk 0's first product; turn c: chunk c - 1's second and
+      // chunk c's first; turn nc: chunk nc - 1's second
+      wait_full(it);
+      turn([&] { p1(it); });
+      hidden();
+      for (int c = 1; c < nc; ++c) {
+        wait_full(it + c);
+        turn([&] {
+          p2(it + c - 1);
+          p1(it + c);
+        });
+        release(it + c - 1);
+        hidden();
+      }
+      turn([&] { p2(it + nc - 1); });
+      release(it + nc - 1);
+      x_frags<E>(xa, xs);
+      residual_ln_tile<E>(acc, xa, xs);
+      fence_proxy_async();
+      bar_sync(1 + wg, 128);
+      if ((tid & 127) == 0) {
+        const int row0 = TM * tile + 64 * wg;
+        if (row0 < rows) {
+          for (int b = 0; b < G::NB; ++b) tma_store(&maps.out, xs + b * BOX, 64 * b, row0, 0);
+          bulk_commit();
+          bulk_wait_read();
+        }
+        mbar_arrive(xempty + 2 * xb + wg);
+      }
+    }
+    if (wg == 0) bar_sync(TURN_BAR, 256);  // warpgroup 1's last turn
+    if ((tid & 127) == 0) bulk_wait();
+  }
+}
+
+template <int E>
+int launch_wg(const void* x, const void* w1, const void* w2, void* out, long long rows, int nhid,
+              cudaStream_t stream) {
+  using G = Geo<E>;
+  if (rows > 0x7fffffffLL - TM) return MMPFN_BAD_ARGS;
+  // TMA: 16-byte aligned bases (rows of 2·E and 2·nhid bytes are)
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w1) |
+       reinterpret_cast<uintptr_t>(w2) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return MMPFN_BAD_ARGS;
+  Maps maps;
+  int rc = hopper::make_map<64>(&maps.x, x, (int)rows, 1, E);
+  if (!rc) rc = hopper::make_map<64>(&maps.out, out, (int)rows, 1, E);
+  if (!rc) rc = hopper::make_map<64>(&maps.w1, w1, E, 1, nhid);
+  if (!rc) rc = hopper::make_map<64>(&maps.w2, w2, nhid, 1, E);
+  if (!rc) rc = mmpfn_allow_smem(mlp_ln_wg_kernel<E>, G::SMEM);
+  static int sms = 0;
+  if (!rc && !sms) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    rc = (int)err;
+  }
+  if (rc) return rc;
+  const int tiles = (int)((rows + TM - 1) / TM);
+  mlp_ln_wg_kernel<E><<<std::min(tiles, sms), THREADS, G::SMEM, stream>>>(maps, (int)rows, nhid / HC,
+                                                                            tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -279,6 +519,36 @@ extern "C" int mmpfn_mlp_ln(const void* x, const void* w1, const void* w2, void*
   if (dtype == MMPFN_F32) return launch<float>(x, w1, w2, out, rows, e, nhid, s);
   if (dtype == MMPFN_BF16) return launch<__nv_bfloat16>(x, w1, w2, out, rows, e, nhid, s);
   return MMPFN_BAD_ARGS;
+}
+
+// bf16 on mma.sync, e = 32, 96, 160, nhid a multiple of 64
+extern "C" int mmpfn_mlp_ln_mma(const void* x, const void* w1, const void* w2, void* out,
+                                long long rows, int e, int nhid, int device, void* stream) {
+  if (cudaError_t err = cudaSetDevice(device)) return (int)err;
+  if (rows <= 0) return 0;
+  if (nhid <= 0 || nhid % HC) return MMPFN_BAD_ARGS;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (e) {
+    case 32: return launch_tc<32>(x, w1, w2, out, rows, nhid, s);
+    case 96: return launch_tc<96>(x, w1, w2, out, rows, nhid, s);
+    case 160: return launch_tc<160>(x, w1, w2, out, rows, nhid, s);
+    default: return MMPFN_BAD_ARGS;
+  }
+}
+
+// bf16 on wgmma, e = 64, 128, 192, nhid a multiple of 64
+extern "C" int mmpfn_mlp_ln_wg(const void* x, const void* w1, const void* w2, void* out,
+                               long long rows, int e, int nhid, int device, void* stream) {
+  if (cudaError_t err = cudaSetDevice(device)) return (int)err;
+  if (rows <= 0) return 0;
+  if (nhid <= 0 || nhid % HC) return MMPFN_BAD_ARGS;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (e) {
+    case 64: return wg::launch_wg<64>(x, w1, w2, out, rows, nhid, s);
+    case 128: return wg::launch_wg<128>(x, w1, w2, out, rows, nhid, s);
+    case 192: return wg::launch_wg<192>(x, w1, w2, out, rows, nhid, s);
+    default: return MMPFN_BAD_ARGS;
+  }
 }
 
 extern "C" const char* mmpfn_error_string(int code) {

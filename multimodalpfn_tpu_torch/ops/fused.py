@@ -289,10 +289,31 @@ def mlp_ln_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.T
     return ln_rows(x32 + hid @ w2.to(cd).float()).to(cd)
 
 
+def mlp_ln_body(dtype: torch.dtype, e: int, nhid: int) -> str:
+    """Which body of K3 (`csrc/mlp_ln.cu`) runs on the card for operands of
+    ``dtype`` at width ``e`` and hidden width ``nhid``: ``"wgmma"`` (bf16, e
+    = 64, 128, 192, nhid a multiple of 64; Hopper's wgmma fed by TMA),
+    ``"mma_sync"`` (bf16, e = 32, 96, 160, nhid a multiple of 64) or
+    ``"cuda_cores"`` (float32, and bf16 at other widths). Raises TypeError
+    for another dtype and ValueError where no body takes the widths (e odd,
+    below 2 or above 256; nhid not a positive multiple of 4)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K3: dtype {dtype} is not supported (float32 or bfloat16)")
+    if e < 2 or e % 2 or e > 256 or nhid < 4 or nhid % 4:
+        raise ValueError(f"K3: unsupported widths e={e}, nhid={nhid}")
+    if dtype == torch.bfloat16 and nhid % 64 == 0:
+        if e in (64, 128, 192):
+            return "wgmma"
+        if e in (32, 96, 160):
+            return "mma_sync"
+    return "cuda_cores"
+
+
 def fused_mlp_ln(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """K3. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_mlp_kernel_g`
-    (called through `_mlp_fwd_call`); kernel in `csrc/mlp_ln.cu`.
-    Differentiable, with K8 as its backward (`_MlpLn`)."""
+    (called through `_mlp_fwd_call`); kernel in `csrc/mlp_ln.cu`, its body
+    chosen by `mlp_ln_body`. Differentiable, with K8 as its backward
+    (`_MlpLn`)."""
     if kernels.needs_grad(x, w1, w2):
         return _MlpLn.apply(x, w1, w2)
     if x.device.type == "cpu":
@@ -301,21 +322,25 @@ def fused_mlp_ln(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.T
     nhid = w1.shape[1]
     kernels.require_shape("K3", "w1", w1, (e, nhid))
     kernels.require_shape("K3", "w2", w2, (nhid, e))
-    if e > 256 or e % 2 or nhid % 4:
-        raise ValueError(f"K3: unsupported widths e={e}, nhid={nhid}")
+    body = mlp_ln_body(x.dtype, e, nhid)
     w1c = kernels.aligned(w1.to(x.dtype).contiguous())
     w2c = kernels.aligned(w2.to(x.dtype).contiguous())
     x = kernels.aligned(x)
     kernels.require_cuda("K3", x, w1c, w2c)
     out = torch.empty_like(x)
-    rc = kernels.library().mmpfn_mlp_ln(
-        x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), out.data_ptr(),
-        x.numel() // e, e, nhid, *kernels.launch_args(x, "K3"),
-    )
+    lib = kernels.library()
+    ptrs = (x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), out.data_ptr(), x.numel() // e, e, nhid)
+    dtype, device, stream = kernels.launch_args(x, "K3")
+    if body == "wgmma":
+        rc = lib.mmpfn_mlp_ln_wg(*ptrs, device, stream)
+    elif body == "mma_sync":
+        rc = lib.mmpfn_mlp_ln_mma(*ptrs, device, stream)
+    else:
+        rc = lib.mmpfn_mlp_ln(*ptrs, dtype, device, stream)
     kernels.check(rc, "K3")
     kernels.LAUNCHES["K3"] += 1
+    kernels.BODY_LAUNCHES[f"K3 {body}"] += 1
     return out
-
 
 
 # ---------------------------------------------------------------------------

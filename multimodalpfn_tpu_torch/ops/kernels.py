@@ -11,7 +11,7 @@ PyTorch's current stream), allocates nothing, does not synchronise, and returns
 ``cudaGetLastError()`` after its launches; `check` turns a non-zero code into
 an exception. `LAUNCHES` counts, per kernel, the wrapper calls that launched
 it on the card (the CPU path of a wrapper is its plain version and is not
-counted).
+counted); `BODY_LAUNCHES` splits a kernel's count by the body that ran.
 """
 
 from __future__ import annotations
@@ -44,6 +44,10 @@ LAUNCHES: dict[str, int] = {
     "K7": 0, "K7s": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0,
 }
 
+# kernel body -> launches since the last reset, for kernels with more than
+# one body (K3: `ops/fused.py:mlp_ln_body`); each also counts in LAUNCHES
+BODY_LAUNCHES: dict[str, int] = {"K3 wgmma": 0, "K3 mma_sync": 0, "K3 cuda_cores": 0}
+
 # Rows of the weight-gradient contractions per block: each chunk's float32
 # partial sums land in their own slab of a workspace, and a second kernel adds
 # the slabs in order, so the sums are the same bits on every run (no atomics).
@@ -68,6 +72,10 @@ _SIGNATURES = {
     "mmpfn_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # (x, w1, w2, out, rows, e, nhid, dtype, device, stream)
     "mmpfn_mlp_ln": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # (x, w1, w2, out, rows, e, nhid, device, stream): bf16 only
+    "mmpfn_mlp_ln_mma": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # (x, w1, w2, out, rows, e, nhid, device, stream): bf16 only
+    "mmpfn_mlp_ln_wg": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     # (a, b, c, M, N, K, dtype, device, stream)
     "mmpfn_proj_nt": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     # (qkv, o, lse, G, S, sep, h, d, dtype, device, stream)
@@ -101,8 +109,9 @@ _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODY_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _sources() -> list[Path]:

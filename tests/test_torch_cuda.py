@@ -253,13 +253,53 @@ def test_k2b_bf16_matches_plain(cuda, e, hd):
 
 @pytest.mark.parametrize("e,nhid", [(64, 128), (48, 200)])
 def test_k3_bf16_matches_plain(cuda, e, nhid):
-    """bf16 K3 (e = 64, nhid = 128 takes the tensor-core kernel, the other
-    shape the CUDA-core one) within two bf16 ulps of the largest output."""
+    """bf16 K3 (e = 64, nhid = 128 takes the wgmma body, the other shape the
+    CUDA-core one) within two bf16 ulps of the largest output."""
     g = torch.Generator().manual_seed(4)
     x = _rand(g, 77, e, device=cuda).to(torch.bfloat16)
     w1, w2 = _rand(g, e, nhid, scale=e**-0.5, device=cuda), _rand(g, nhid, e, scale=nhid**-0.5, device=cuda)
     got, want = fused.fused_mlp_ln(x, w1, w2), fused.mlp_ln_plain(x, w1, w2)
     assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+
+
+def _check_k3_body(device, lead, e, nhid, body, seed=4):
+    """bf16 K3 at x ``(*lead, e)`` runs ``body`` (`fused.mlp_ln_body`), is
+    within two bf16 ulps of the largest output of its plain version, and a
+    repeat gives the same bits."""
+    g = torch.Generator().manual_seed(seed)
+    x = _rand(g, *lead, e, device=device).to(torch.bfloat16)
+    w1, w2 = _rand(g, e, nhid, scale=e**-0.5, device=device), _rand(g, nhid, e, scale=nhid**-0.5, device=device)
+    kernels.reset_launches()
+    got, again = fused.fused_mlp_ln(x, w1, w2), fused.fused_mlp_ln(x, w1, w2)
+    assert kernels.BODY_LAUNCHES[f"K3 {body}"] == kernels.LAUNCHES["K3"] == 2
+    want = fused.mlp_ln_plain(x, w1, w2)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+    assert torch.equal(got, again)
+
+
+# row counts around the 128-row tile and the 132-block grid, and the
+# fit_preprocessors activation's 291,400 rows
+K3_ROWS = [1, 63, 127, 128, 129, 128 * 132 + 1, 4 * 31 * 2350]
+
+
+@pytest.mark.parametrize("rows", K3_ROWS)
+@pytest.mark.parametrize("nhid", [128, 768])
+@pytest.mark.parametrize("e", [64, 128, 192])
+def test_k3_wgmma_body_matches_plain(cuda, e, nhid, rows):
+    _check_k3_body(cuda, (rows,), e, nhid, "wgmma")
+
+
+@pytest.mark.parametrize("lead", [(4, 31, 2350), (4 * 1838, 48)])
+def test_k3_wgmma_body_at_served_shapes(cuda, lead):
+    """The fit_preprocessors activation and the KV-cache prime's merged group."""
+    _check_k3_body(cuda, lead, 192, 768, "wgmma")
+
+
+@pytest.mark.parametrize("rows", [1, 77, 129])
+@pytest.mark.parametrize("e", [32, 96, 160])
+def test_k3_mma_sync_body_matches_plain(cuda, e, rows):
+    _check_k3_body(cuda, (rows,), e, 128, "mma_sync")
 
 
 def _forward_case(device, n_features, S=40, sep=30):

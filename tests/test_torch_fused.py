@@ -85,7 +85,8 @@ def test_item_major_plain_is_sample_major_plain_transposed():
     assert torch.equal(im, sm.transpose(1, 2))
 
 
-@pytest.mark.parametrize("lead,e,nhid", [((2, 13, 37), 32, 64), ((3, 19), 16, 48)])
+# the last case is the published widths (e = 192, nhid = 768), a few rows
+@pytest.mark.parametrize("lead,e,nhid", [((2, 13, 37), 32, 64), ((3, 19), 16, 48), ((2, 7), 192, 768)])
 def test_mlp_ln_matches_jax(lead, e, nhid):
     rng = np.random.default_rng(1)
     x = rng.normal(size=(*lead, e)).astype(np.float32)
@@ -99,6 +100,48 @@ def test_mlp_ln_matches_jax(lead, e, nhid):
     # the Pallas MLP uses a polynomial erf (max abs error 1.5e-7,
     # pallas_fused.py:101), the port the exact erf: inside the same bound
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# (dtype, e, nhid) -> the body of K3 that runs on the card, or the error the
+# wrapper raises: wgmma at e = 64, 128, 192 and mma.sync at e = 32, 96, 160
+# (bf16, nhid a multiple of 64); the CUDA cores for float32 and the other
+# bf16 widths; no body for an odd e, e past 256, or nhid not a multiple of 4
+BODY_CASES = [
+    (torch.bfloat16, 192, 768, "wgmma"), (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 192, 1280, "wgmma"),
+    (torch.bfloat16, 32, 64, "mma_sync"), (torch.bfloat16, 96, 768, "mma_sync"),
+    (torch.bfloat16, 160, 128, "mma_sync"),
+    (torch.bfloat16, 192, 200, "cuda_cores"), (torch.bfloat16, 192, 96, "cuda_cores"),
+    (torch.bfloat16, 48, 128, "cuda_cores"), (torch.bfloat16, 256, 768, "cuda_cores"),
+    (torch.bfloat16, 224, 64, "cuda_cores"), (torch.bfloat16, 2, 4, "cuda_cores"),
+    (torch.float32, 192, 768, "cuda_cores"), (torch.float32, 64, 128, "cuda_cores"),
+    (torch.float32, 32, 64, "cuda_cores"), (torch.float32, 256, 4, "cuda_cores"),
+    (torch.bfloat16, 258, 768, ValueError), (torch.float32, 191, 768, ValueError),
+    (torch.bfloat16, 0, 64, ValueError), (torch.float32, 192, 2, ValueError),
+    (torch.bfloat16, 192, 766, ValueError), (torch.float32, 192, 0, ValueError),
+    (torch.float16, 192, 768, TypeError), (torch.float64, 64, 64, TypeError),
+]
+
+
+@pytest.mark.parametrize("dtype,e,nhid,want", BODY_CASES)
+def test_mlp_ln_body_choice(dtype, e, nhid, want):
+    if isinstance(want, str):
+        assert tf.mlp_ln_body(dtype, e, nhid) == want
+    else:
+        with pytest.raises(want, match="K3"):
+            tf.mlp_ln_body(dtype, e, nhid)
+
+
+def test_mlp_ln_wrapper_refuses_what_no_body_takes():
+    """Off the CPU the wrapper asks `mlp_ln_body` before anything else
+    launches: widths no body takes raise ValueError, other dtypes
+    TypeError."""
+    x = torch.empty((3, 5, 48), device="meta")
+    with pytest.raises(ValueError, match="nhid=766"):
+        tf.fused_mlp_ln(x, torch.empty((48, 766), device="meta"), torch.empty((766, 48), device="meta"))
+    x16 = torch.empty((3, 5, 64), device="meta", dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        tf.fused_mlp_ln(x16, torch.empty((64, 64), device="meta"), torch.empty((64, 64), device="meta"))
 
 
 def test_cpu_wrappers_run_plain_versions_without_counting():

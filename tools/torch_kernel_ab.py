@@ -5,7 +5,7 @@ parent) can be compared in one call.
 
 Run from the repository root on a machine with one NVIDIA GPU and ``nvcc``:
 
-    python3 tools/torch_kernel_ab.py [--package-root DIR] [--only K2a,K4,K7,K8,K9,K10]
+    python3 tools/torch_kernel_ab.py [--package-root DIR] [--only K2a,K3,K4,K7,K8,K9,K10]
                                      [--tile] [--iters 10] [--out FILE]
 
 ``--package-root`` names the directory that holds the ``multimodalpfn_tpu_torch``
@@ -14,9 +14,11 @@ unpacked with ``git archive`` into a directory that ``.gitignore`` lists; its
 kernels are built into its own ``build/kernels``. The cases, bounds and
 digests are this checkout's `chip_smoke.py`. ``--only`` names the kernels:
 forward ids run phase 2's cases (`chip_smoke.phase_kernels`: K2a at the
-``fit_preprocessors`` shape with its projection and attention apart, K4 at
-the KV-cache prime and predict shapes and at the flash fine-tune's three
-blocks), backward ids (K7, K7s, K8, K9, K10, K11) phase 8's at the fine-tune
+``fit_preprocessors`` shape with its projection and attention apart, K3 at
+the ``fit_preprocessors``, KV-cache prime and predict and fine-tune episode
+shapes beside ``torch.matmul`` on its two products, K4 at the KV-cache
+prime and predict shapes and at the flash fine-tune's three blocks),
+backward ids (K7, K7s, K8, K9, K10, K11) phase 8's at the fine-tune
 shape (`chip_smoke.phase_bwd_kernels`: for K7 and K8 each launch of the
 sequence by profiler name beside ``torch.matmul`` on operands of its shapes
 and its bytes bound); each in float32 and bf16 beside its plain version and
@@ -70,7 +72,7 @@ def tile_alone(smoke, kernels, device, iters) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-root", type=Path, default=ROOT)
-    ap.add_argument("--only", default="K2a,K4,K7,K8,K9,K10",
+    ap.add_argument("--only", default="K2a,K3,K4,K7,K8,K9,K10",
                     help="comma-separated kernel ids (default: %(default)s)")
     ap.add_argument("--tile", action="store_true",
                     help="also time the bf16 product tile alone on K7's and K8's products")
