@@ -14,9 +14,11 @@ Phases, each of which must pass:
    forward of K2a and K4, the dq and dk/dv passes of K9 and K11, each at
    d = 16, 32, 64; ``cuobjdump``), each of which must issue wgmma, and of
    the 20 instantiations of the bf16 product tile of K7-K10
-   (``gemm_tile.cuh``: five epilogues by four storage orders) and of K3's
-   wgmma body (``mlp_ln.cu``, e = 64, 128, 192), each of which must issue
-   wgmma with no local-memory load or store; write the
+   (``gemm_tile.cuh``: five epilogues by four storage orders), of K3's
+   wgmma body (``mlp_ln.cu``, e = 64, 128, 192) and of the wgmma body of
+   K1, K5, K6a and K6b (``feat_attn.cu``, e = 64 and 192), each of which
+   must issue wgmma with no local-memory load or store; the ``-Xptxas -v``
+   report must hold no serialization warning (C75xx) for the last; write the
    model every phase serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
    projections filled in from seed 1) to ``build/``.
@@ -27,8 +29,9 @@ Phases, each of which must pass:
    function, that call's time (``library_ms``). K1, K2a, K2b and K3 at the
    ``fit_preprocessors`` shapes (4 members, 1838 train + 460 test rows bucketed
    to 2350, 31 tokens, e = 192, h = 6, d = 32, nhid = 768), K1 also at 48
-   tokens; K4 at the KV-cache prime shape (G = 4·31·6, 1838 × 1838), the
-   multiquery predict shape (G = 4·31, 6·512 queries, 1838 keys) and the
+   tokens and at the fine-tune episode (1, 30, 1838, 192); K4 at the
+   KV-cache prime shape (G = 4·31·6, 1838 × 1838), the multiquery predict
+   shape (G = 4·31, 6·512 queries, 1838 keys) and the
    flash fine-tune's three blocks (train G = 180, 1655 × 1655; test G = 180,
    183 queries; folded G = 30, 6·183 queries; 1655 keys), each with SDPA
    beside it; K5 at the
@@ -39,7 +42,9 @@ Phases, each of which must pass:
    members masked); K3 also at the cache prime (4·1838, 48, 192), the cache
    predict (4·512, 48, 192) and the fine-tune episode (1, 30, 1838, 192),
    each repeat bit-equal and beside ``torch.matmul`` on its two products
-   (``matmul_ms``; two calls, so no ``library_ms``). The lse of K2a and K4
+   (``matmul_ms``; two calls, so no ``library_ms``); K1, K5, K6a and K6b
+   too repeat bit-equal, each beside ``torch.matmul`` on its QKV and out
+   projections (``matmul_ms``). The lse of K2a and K4
    must match to 1e-4 abs in both
    dtypes (K2a's bf16 lse on inputs on which its projection is exact, so
    that it holds the attention alone); K2a's projection and attention are
@@ -53,12 +58,13 @@ Phases, each of which must pass:
    rows); the members' widths and the planned groups are printed; the launch
    counters, zeroed just before, show the item-major kernels (K1, or K6a for
    a merged group; K2a, K2b, K3) ran in every layer of every group, every
-   K3 launch through its wgmma body; then the same requests again, warm.
+   K1, K6a and K3 launch through its wgmma body; then the same requests
+   again, warm.
 4. Its kernel path against its plain path: float32 ``predict_proba`` (the
    plain path split by the memory estimate).
 5. ``fit_with_cache`` served: fit (which primes the KV cache) and the same
    three requests; the counters, zeroed just before the fit, show K4, K5 (or
-   K6b) and K3 ran in every layer of the prime and of each request (K3
+   K6b) and K3 ran in every layer of the prime and of each request (each
    through its wgmma body), and no item-major kernel ran; then the requests
    again, warm.
    ``predict_proba_many`` over the three requests equals the sequential
@@ -72,7 +78,8 @@ Phases, each of which must pass:
    cost rule plans (its own choices are printed). In bf16, with the counters
    zeroed just before the fit: split groups launch K1 (K5 in the prime and
    every request) in every layer and no masked kernel; the merged group K6a
-   (K6b) and no unmasked one; warm requests of both plans are timed. In
+   (K6b) and no unmasked one, each launch on its wgmma body; warm requests
+   of both plans are timed. In
    float32 the merged answers equal the split ones to 1e-5, and the merged
    kernel path matches the merged plain path to 1e-4.
 8. Backward kernels: K7 (item-major), K8, K9 and K10 against their plain
@@ -87,7 +94,8 @@ Phases, each of which must pass:
    carries the two measured ones as ``products_ms`` and ``matmul_ms``.
 9. ``fine_tune_mmpfn`` served: 100 bf16 steps on the PAD-UFES-shaped set (the
    full 12 layers, validation after every step); the counters, zeroed just
-   before, show K7, K8, K9 and K10 launched 12 times per step; every loss and
+   before, show K7, K8, K9 and K10 launched 12 times per step, and every K1
+   launch (training and validation) on its wgmma body; every loss and
    gradient norm finite, no step skipped, no snapshot write failed; the
    snapshot on disk differs from the base model exactly when validation
    improved, and ``MMPFNClassifier`` serves it (rows sum to 1).
@@ -124,8 +132,9 @@ holds their float32 outputs (and K11's bf16 at d = 8), which the CUDA-core
 bodies compute, to the parent commit's bits (`PARENT_F32_SHA256`); so too
 K4's and K2a's float32 outputs and bf16 at d = 8 (`attn::cc_rows`), the
 float32 outputs of K7, K7s, K8 and K10 (`gemm_tile.cuh`'s cc_kernel and the
-row kernels), and K3's float32 outputs (its CUDA-core body) and bf16 outputs
-at e = 96 (its mma.sync body).
+row kernels), K3's float32 outputs (its CUDA-core body) and bf16 outputs
+at e = 96 (its mma.sync body), and the float32 outputs of K1, K5, K6a and
+K6b and K5's bf16 outputs at e = 96 (`feat_attn.cu`'s CUDA-core body).
 
 ``--profile`` adds a phase 14: ``torch.profiler`` around one warm request of
 each size in both modes and around one warm training step of each item path
@@ -254,9 +263,9 @@ KERNELS = {
 # `f32_fingerprints` on an H100 80GB HBM3 of the commits before each bf16
 # redesign (K9, K11: 32e8513, before their passes moved to wgmma; K4, K2a:
 # 4f9071f, before their forward did; K7, K7s, K8, K10: 661c4b4, before the
-# product tile did; K3: ede4bbd, before its wgmma body): the CUDA-core
-# bodies (float32, and bf16 at d = 8) and K3's mma.sync body must go on
-# giving these bits
+# product tile did; K3: ede4bbd, before its wgmma body; K1, K5, K6a, K6b:
+# 3db1a8b, before theirs): the CUDA-core bodies (float32, and bf16 at d = 8
+# or e = 96) and K3's mma.sync body must go on giving these bits
 PARENT_F32_SHA256 = {
     "K11 f32 d=8": "b9f0e3a2bc2964aa", "K11 f32 d=16": "b910ce43502031dc",
     "K11 f32 d=32": "4055da75ae152101", "K11 f32 d=64": "8d25581c0adcb482",
@@ -269,6 +278,8 @@ PARENT_F32_SHA256 = {
     "K2a f32 d=64": "35568848dcbde803", "K2a bf16 d=8": "d4a47c31e5c7a20a",
     "K7 f32": "2e4e66085b349fd4", "K7s f32": "9ff86b363935af49", "K8 f32": "14c4dab8f5d35cd6",
     "K10 f32": "050187159db35e72", "K3 f32": "1fd70dde3def5c63", "K3 bf16 e=96": "85d7fbe399f1b6c3",
+    "K1 f32": "da7fcfc122933dd0", "K5 f32": "293dd2d20ed420c1", "K6a f32": "5e65a88ded4555cb",
+    "K6b f32": "56943489eeb2bb17", "K5 bf16 e=96": "cb9035e58a023f42",
 }
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
@@ -311,6 +322,19 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+# the kernels with a wgmma body chosen by width (`ops/fused.py`:
+# `feat_attn_body`, `mlp_ln_body`)
+FEAT_IDS = ("K1", "K5", "K6a", "K6b")
+
+
+def check_wgmma_bodies(path: str, launches: dict, bodies: dict, kids=("K3",) + FEAT_IDS) -> None:
+    """Every launch of each of ``kids`` on ``path`` took its wgmma body."""
+    for kid in kids:
+        check(bodies[f"{kid} wgmma"] == launches[kid],
+              f"{kid} ran { {k: v for k, v in bodies.items() if k.startswith(kid + ' ')} } of its "
+              f"{launches[kid]} launches on the {path} path, not its wgmma body alone")
+
+
 def timed(fn, device, iters: int) -> float:
     """Mean ms per call over ``iters`` calls after one warm-up call."""
     import torch
@@ -338,16 +362,17 @@ def bound(flops: float, nbytes: float, tag: str) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def wgmma_sass_counts(lib: Path) -> tuple[dict, dict]:
+def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict]:
     """HGMMA instructions in the SASS (``cuobjdump --dump-sass``) of each
     bf16 tensor-core kernel: the attention forward of K2a and K4
     (`csrc/attn_tile.cuh`) and the dq and dk/dv passes of K9 and K11
     (`csrc/attn_bwd.cuh`), each at d = 16, 32, 64 (18 kernels); and of the
-    product tile of `csrc/gemm_tile.cuh` by epilogue and transposes and of
-    K3's wgmma body (`csrc/mlp_ln.cu`) by width, each with its
-    local-memory loads and stores (spills) beside. Returns (attention
-    counts, {product kernel: (HGMMA, LDL + STL)}, {K3 kernel: (HGMMA, LDL +
-    STL)})."""
+    product tile of `csrc/gemm_tile.cuh` by epilogue and transposes, of
+    K3's wgmma body (`csrc/mlp_ln.cu`) by width and of the wgmma body of K1,
+    K5, K6a and K6b (`csrc/feat_attn.cu`) by width, layout and mask, each
+    with its local-memory loads and stores (spills) beside. Returns
+    (attention counts, {product kernel: (HGMMA, LDL + STL)}, {K3 kernel:
+    (HGMMA, LDL + STL)}, {feature-attention kernel: (HGMMA, LDL + STL)})."""
     import os
     import re
     import shutil
@@ -355,7 +380,7 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict]:
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     proc = subprocess.Popen([tool, "--dump-sass", str(lib)], stdout=subprocess.PIPE, text=True)
-    counts, gemm, k3, fn, gfn = {}, {}, {}, None, None
+    counts, gemm, k3, feat, fn, gfn = {}, {}, {}, {}, None, None
     for line in proc.stdout:
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -364,6 +389,12 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict]:
             if "mlp_ln_wg_kernel" in name:
                 gfn = f"K3 e={re.search(r'mlp_ln_wg_kernelILi(\d+)E', name).group(1)}"
                 k3.setdefault(gfn, [0, 0])
+            elif "feat_attn_wg_kernel" in name:
+                e, d, sm, masked = re.search(
+                    r"feat_attn_wg_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", name).groups()
+                gfn = (f"{('K6b' if int(masked) else 'K5') if int(sm) else ('K6a' if int(masked) else 'K1')}"
+                       f" e={e} d={d}")
+                feat.setdefault(gfn, [0, 0])
             elif "wg_kernel" in name:
                 d = re.search(r"wg_kernelILi(\d+)", name).group(1)
                 if "fwd_wg_kernel" in name:
@@ -380,9 +411,19 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict]:
         elif fn and "HGMMA" in line:
             counts[fn] += 1
         elif gfn and ("HGMMA" in line or re.search(r"\b(LDL|STL)\b", line)):
-            (k3 if gfn.startswith("K3") else gemm)[gfn][0 if "HGMMA" in line else 1] += 1
+            table = k3 if gfn.startswith("K3") else gemm if gfn in gemm else feat
+            table[gfn][0 if "HGMMA" in line else 1] += 1
     check(proc.wait(timeout=300) == 0, "cuobjdump failed")
-    return counts, {k: tuple(v) for k, v in gemm.items()}, {k: tuple(v) for k, v in k3.items()}
+    return counts, *({k: tuple(v) for k, v in t.items()} for t in (gemm, k3, feat))
+
+
+def serialized_wgmma(log: str, pattern: str) -> list[str]:
+    """The lines of a ``-Xptxas -v`` report (`kernels.build_log`) in which
+    ptxas says it serialized the wgmma of a kernel whose name contains
+    ``pattern`` (warnings C7514-C7520)."""
+    import re
+
+    return [ln for ln in log.splitlines() if re.search(r"\(C75\d\d\)", ln) and pattern in ln]
 
 
 def exp_floor_ms(pairs: float, device) -> float | None:
@@ -643,7 +684,7 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                  "K4@ft_test": (rand(ft_G, ft_test, d), kf, vf),
                  "K4@ft_folded": (rand(ft_t, ft_h * ft_test, d), kf[:ft_t], vf[:ft_t])}
     xp48 = rand(b, n_pred, 48, e)  # K6b at the merged predict shape
-    x_ft = rand(1, ft_t, ft_S, e)  # K3 at the fine-tune episode
+    x_ft = rand(1, ft_t, ft_S, e)  # K1 and K3 at the fine-tune episode
     # the merged group's key masks: each member's own feature tokens, none of
     # its padded ones, the image tokens and the target
     widths = [MERGE_WIDTHS[i % len(MERGE_WIDTHS)] for i in range(b)]
@@ -653,12 +694,13 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         mask[i, w:g_max] = False
     keys = [w + N_IMG_TOKENS + 1 for w in widths]  # valid keys per member
 
-    def feat_work(rows, tt, valid=None):
+    def feat_work(rows, tt, valid=None, members=b):
         """K1 / K5 (K6a / K6b): projections and out-projection of every token,
-        attention of every query against the valid keys of its row."""
-        mask_bytes = 0 if valid is None else 8 * b  # a 64-bit word per member
-        valid = [tt] * b if valid is None else valid
-        attn = sum(4 * (rows // b) * h * tt * kv * d for kv in valid)
+        attention of every query against the valid keys of its row; ``rows``
+        split evenly over ``members`` members (``valid``: each one's keys)."""
+        mask_bytes = 0 if valid is None else 8 * members  # a 64-bit word per member
+        valid = [tt] * members if valid is None else valid
+        attn = sum(4 * (rows // members) * h * tt * kv * d for kv in valid)
         return lambda es: (2 * rows * tt * 4 * hd * e + attn,
                            2 * rows * tt * e * es + 4 * hd * e * es + mask_bytes)
 
@@ -688,6 +730,8 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                lambda dt: (x.to(dt), w_qkv, w_out), feat_work(R, t), None),
         "K1@t48": (fused.fused_feature_attention_ln_im, fused.feature_attention_ln_im_plain,
                    lambda dt: (x48.to(dt), w_qkv, w_out), feat_work(R, 48), None),
+        "K1@ft": (fused.fused_feature_attention_ln_im, fused.feature_attention_ln_im_plain,
+                  lambda dt: (x_ft.to(dt), w_qkv, w_out), feat_work(ft_S, ft_t, members=1), None),
         "K2a": (item_fused.item_attention_core, item_fused.item_attention_core_plain,
                 lambda dt: (x.reshape(G2, S, e).to(dt), w_qkv, sep),
                 lambda es: (2 * G2 * S * e * 3 * hd + 4 * G2 * h * S * sep * d,
@@ -745,7 +789,7 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         ):
             args = make(dt)
             got, want = kern(*args), plain(*args)
-            if kid.startswith("K3"):  # a repeat on the same inputs gives the same bits
+            if kid.startswith(("K1", "K3", "K5", "K6")):  # a repeat gives the same bits
                 res[f"repeat_bit_equal_{tag}"] = bool(torch.equal(got, kern(*args)))
                 check(res[f"repeat_bit_equal_{tag}"], f"{kid} {tag}: two runs on the same inputs differ")
             if isinstance(got, tuple):  # (o, lse)
@@ -793,6 +837,16 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                                          + timed(lambda: torch.matmul(hid, w2b), device, iters))
                 extra += f", torch.matmul on its two products {res['matmul_ms_bf16']:.3f} ms"
                 del hid
+            if kid.startswith(("K1", "K5", "K6")) and tag == "bf16" and device.type == "cuda":
+                # the QKV and out-projections alone, as torch.matmul calls:
+                # every token row·W_qkv^T, then the bf16 head outputs·W_out
+                x2 = args[0].reshape(-1, e)
+                wq, wo = w_qkv.reshape(3 * hd, e).to(dt).t(), w_out.reshape(hd, e).to(dt)
+                o2 = torch.randn((x2.shape[0], hd), device=device, dtype=dt)
+                res["matmul_ms_bf16"] = (timed(lambda: torch.matmul(x2, wq), device, iters)
+                                         + timed(lambda: torch.matmul(o2, wo), device, iters))
+                extra += f", torch.matmul on its two projections {res['matmul_ms_bf16']:.3f} ms"
+                del o2
             if kid in pairs:
                 # computed, not measured: printed here, kept out of the kernels line
                 floor = exp_floor_ms(pairs[kid], device)
@@ -1040,9 +1094,10 @@ def launch_sequence(kid, seq, fn, device, iters) -> dict:
 def f32_fingerprints(device) -> dict:
     """sha256 (first 16 hex digits) of the float32 outputs of K9, K11, K4
     and K2a and of their bf16 outputs at d = 8, of the float32 outputs of
-    K7, K7s, K8, K10 and K3, and of K3's bf16 outputs at e = 96: the work of
-    the CUDA-core bodies of `csrc/attn_bwd.cuh`, `csrc/attn_tile.cuh`,
-    `csrc/gemm_tile.cuh` (cc_kernel) and `csrc/mlp_ln.cu`, of K3's mma.sync
+    K7, K7s, K8, K10, K3, K1, K5, K6a and K6b, of K3's bf16 outputs at e =
+    96 and of K5's at e = 96: the work of the CUDA-core bodies of
+    `csrc/attn_bwd.cuh`, `csrc/attn_tile.cuh`, `csrc/gemm_tile.cuh`
+    (cc_kernel), `csrc/mlp_ln.cu` and `csrc/feat_attn.cu`, of K3's mma.sync
     body and of the backward row kernels, which the bf16 redesigns left as
     they were. Inputs come from a seeded CPU generator
     and, for the backward kernels, the plain forward and epilogue backward on
@@ -1109,6 +1164,21 @@ def f32_fingerprints(device) -> dict:
         out["K3 f32"] = digest(fused.fused_mlp_ln(x, w1, w2))
         x, w1, w2 = rand(2, 300, 96), rand(96, 192, scale=96**-0.5), rand(192, 96, scale=192**-0.5)
         out["K3 bf16 e=96"] = digest(fused.fused_mlp_ln(x.to(torch.bfloat16), w1, w2))
+        # the CUDA-core body of K1, K5, K6a and K6b (feat_attn_ln_kernel) in
+        # float32 at the published widths, with ragged member masks, and in
+        # bf16 at e = 96, a width the wgmma body does not take
+        e, h, d, t = 192, 6, 32, 31
+        w_qkv, w_out = rand(3, h, d, e, scale=e**-0.5), rand(h, d, e, scale=(h * d) ** -0.5)
+        x_im, x_sm = rand(2, t, 37, e), rand(2, 37, t, e)
+        mask = torch.ones((2, t), dtype=torch.bool)
+        mask[1, 9:t - 1] = False
+        out["K1 f32"] = digest(fused.fused_feature_attention_ln_im(x_im, w_qkv, w_out))
+        out["K5 f32"] = digest(fused.fused_feature_attention_ln(x_sm, w_qkv, w_out, 27))
+        out["K6a f32"] = digest(fused.fused_feature_attention_ln_im(x_im, w_qkv, w_out, mask))
+        out["K6b f32"] = digest(fused.fused_feature_attention_ln(x_sm, w_qkv, w_out, None, mask[:, None]))
+        w_qkv, w_out = rand(3, 6, 16, 96, scale=96**-0.5), rand(6, 16, 96, scale=96**-0.5)
+        out["K5 bf16 e=96"] = digest(fused.fused_feature_attention_ln(
+            rand(2, 37, t, 96).to(torch.bfloat16), w_qkv, w_out))
     return out
 
 
@@ -1193,7 +1263,7 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
         device=str(device), random_seed=0,
     )
     wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches, bodies = dict(kernels.LAUNCHES), dict(kernels.BODY_LAUNCHES)
     loss, gn = hist["train_loss"], hist["grad_norm"]
     step_ms = [s * 1e3 for s in hist["step_seconds"]]
     warm = float(np.median(step_ms[1:])) if len(step_ms) > 1 else step_ms[0]
@@ -1221,6 +1291,11 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
             check(launches[kid] == n, f"{kid} launched {launches[kid]} times in {steps} steps, expected {n}")
         for kid in ("K1", "K3") if flash else ("K1", "K2a", "K2b", "K3"):
             check(launches[kid] >= L * steps, f"{kid} launched {launches[kid]} times")
+        # training and validation in bf16: every K1 (and K5) launch took the
+        # wgmma body
+        check_wgmma_bodies("fine-tune", launches, bodies, FEAT_IDS)
+    print(f"  feature attention by body {({k: v for k, v in bodies.items() if v and k[:2] != 'K3'})}",
+          flush=True)
 
     check("snapshot_write_errors" not in hist, f"snapshot write failed: {hist.get('snapshot_write_errors')}")
     # the best snapshot replaces the initial one when validation improved
@@ -1524,16 +1599,16 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
     need |= {feat: groups - merged, masked: merged}
     need = {k: n_layers * passes * n for k, n in need.items()}
     idle += tuple(k for k, n in need.items() if n == 0)
-    print(f"  launches {launches} (at least {need}; {', '.join(idle)} 0); K3 by body {bodies}",
-          flush=True)
+    print(f"  launches {launches} (at least {need}; {', '.join(idle)} 0); by body "
+          f"{ {k: v for k, v in bodies.items() if v} }", flush=True)
     if device.type == "cuda":
         for kid, n in need.items():
             check(launches[kid] >= n, f"{kid} launched {launches[kid]} times, expected >= {n}")
         for kid in idle:
             check(launches[kid] == 0, f"{kid} launched {launches[kid]} times on the {fit_mode} path")
-        # bf16 at e = 192, nhid = 768: every K3 launch took the wgmma body
-        check(bodies["K3 wgmma"] == launches["K3"],
-              f"K3 ran {bodies} on the {fit_mode} path, not its wgmma body alone")
+        # bf16 at e = 192 (d = 32, nhid = 768): every K3, K1, K5, K6a and
+        # K6b launch took the wgmma body
+        check_wgmma_bodies(fit_mode, launches, bodies)
     warm = []  # the same requests again, each now at a sequence length seen before
     for n in request_sizes:
         t0 = time.perf_counter()
@@ -1602,12 +1677,13 @@ def phase_forced_plans(device, model_path, data, request_sizes, n_layers) -> dic
                 plans = planned_groups(clf, cached, request_sizes)
                 check(all(m == force for _, _, m in plans) and (len(plans) == 1) == force,
                       f"{fit_mode}: planned groups {plans} are not {plan}")
-                at_fit = dict(kernels.LAUNCHES)
+                at_fit, bodies = dict(kernels.LAUNCHES), dict(kernels.BODY_LAUNCHES)
                 kernels.reset_launches()
                 for n in request_sizes:
                     check_proba(clf.predict_proba(X_te[:n], img_te[:n]), n, clf.n_classes_,
                                 f"{plan} {fit_mode} request of {n} rows")
                 launches = dict(kernels.LAUNCHES)
+                bodies = {k: v + kernels.BODY_LAUNCHES[k] for k, v in bodies.items()}
                 kid, idle = {(False, False): ("K1", "K6a"), (False, True): ("K6a", "K1"),
                              (True, False): ("K5", "K6b"), (True, True): ("K6b", "K5")}[cached, force]
                 need = n_layers * len(plans)
@@ -1622,6 +1698,8 @@ def phase_forced_plans(device, model_path, data, request_sizes, n_layers) -> dic
                           f"{kid} launched {at_fit[kid]} times at the {plan} {fit_mode} fit")
                     check(launches[idle] == 0 and at_fit[idle] == 0,
                           f"{idle} ran in the {plan} {fit_mode} groups")
+                    check_wgmma_bodies(f"{plan} {fit_mode}",
+                                       {k: at_fit[k] + launches[k] for k in launches}, bodies)
                 warm = []
                 for n in request_sizes:
                     if device.type == "cuda":
@@ -1688,8 +1766,9 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
         row.update({k: r[v] for k, v in main.items()})
         if kid == "K3":
             row["launches_cached"] = launches["cached"]["K3"]
-            row["launches_finetune"] = launches["finetune"]["K3"]
-            row["launches_flash_finetune"] = launches["flash_finetune"]["K3"]
+        if kid in ("K1", "K3"):
+            row["launches_finetune"] = launches["finetune"][kid]
+            row["launches_flash_finetune"] = launches["flash_finetune"][kid]
         if kid == "K4":
             row["launches_flash_finetune"] = launches["flash_finetune"]["K4"]
         row.update({k: v for k, v in r.items() if k not in main.values()})
@@ -1735,7 +1814,7 @@ def main() -> int:
         kernels.library()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"({kernels.library_path().name})", flush=True)
-        hgmma, prods, k3_sass = wgmma_sass_counts(kernels.library_path())
+        hgmma, prods, k3_sass, feat_sass = wgmma_sass_counts(kernels.library_path())
         print(f"  HGMMA instructions in the SASS of the bf16 attention kernels (K2a and K4 forward, "
               f"K9 and K11 passes): {hgmma}", flush=True)
         print(f"  (HGMMA, local loads and stores) in the SASS of the bf16 product tile "
@@ -1750,6 +1829,17 @@ def main() -> int:
         check({k.split()[1] for k in k3_sass} == {"e=64", "e=128", "e=192"}
               and all(h > 0 and spills == 0 for h, spills in k3_sass.values()),
               "K3's wgmma body does not issue wgmma without spilling at every width")
+        print(f"  (HGMMA, local loads and stores) in the SASS of the wgmma body of K1, K5, K6a, K6b "
+              f"(feat_attn.cu, by width): {feat_sass}", flush=True)
+        check(set(feat_sass) == {f"{kid} {w}" for kid in FEAT_IDS for w in ("e=64 d=16", "e=192 d=32")}
+              and all(h > 0 and spills == 0 for h, spills in feat_sass.values()),
+              "the feature-attention wgmma body does not issue wgmma without spilling everywhere")
+        serial = serialized_wgmma(kernels.build_log(), "feat_attn_wg_kernel")
+        print(f"  ptxas serialization warnings (C75xx) for the feature-attention wgmma body: "
+              f"{len(serial)}", flush=True)
+        check(kernels.build_log() != "" and not serial,
+              "ptxas serialized the feature-attention body's wgmma (or printed no report): "
+              + "; ".join(serial[:2]))
     model_path = ROOT / "build" / "chip_smoke_model.npz"
     write_model(model_path)
     nmq_path = ROOT / "build" / "chip_smoke_model_no_multiquery.npz"
@@ -1802,7 +1892,7 @@ def main() -> int:
     kres |= phase_bwd_kernels(device, ft_dims, iters)
     if device.type == "cuda":
         prints = f32_fingerprints(device)
-        print(f"  K9/K11/K4/K2a/K7/K7s/K8/K10 CUDA-core outputs (sha256): {prints}", flush=True)
+        print(f"  CUDA-core (and mma.sync) outputs (sha256): {prints}", flush=True)
         check(prints == PARENT_F32_SHA256,
               f"CUDA-core outputs differ from the parent commits': {prints} != {PARENT_F32_SHA256}")
 

@@ -1,15 +1,19 @@
 // Hopper primitives shared by the tensor-core kernels: the forward tile of
 // K2a and K4 (attn_tile.cuh), the backward passes of K9 and K11
 // (attn_bwd.cuh), the bf16 products of the backward kernels
-// (gemm_tile.cuh) and K3's bf16 body (mlp_ln.cu). Each is a thin wrapper
+// (gemm_tile.cuh), K3's bf16 body (mlp_ln.cu) and the bf16 body of K1, K5,
+// K6a and K6b (feat_attn.cu). Each is a thin wrapper
 // of one PTX instruction (or of the driver's tensor-map encoder) for sm_90a:
 //  * mbarriers and TMA 3-D tile loads that complete on them (a 2-D map is
-//    one group), and TMA stores;
+//    one group), TMA stores and L2 prefetches;
 //  * the wgmma descriptor of a tile as TMA wrote it, K-major or MN-major,
 //    and the products m64n64k16 and m64n192k16 (A and B from shared memory)
 //    and m64nNk16 (A from registers, B N-major);
 //  * ex2.approx (one MUFU instruction), the register split of a
 //    warp-specialised block (setmaxnreg), and named barriers.
+// K1, K5, K6a and K6b (feat_attn.cu) add the products m64n48k16 and
+// m64n96k16 from shared memory, both operands K-major, and tensor maps of
+// any box (make_map_box).
 #pragma once
 
 #include "common.cuh"
@@ -84,6 +88,13 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// TMA: the box of `map` at (c0, c1, c2) fetched into L2, completing on nothing
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 // this thread's committed stores have read their shared memory
 __device__ __forceinline__ void bulk_wait_read() {
@@ -130,6 +141,17 @@ __device__ __forceinline__ uint64_t tile_desc(const void* p, uint32_t lbo = 16) 
   constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((16 * D) >> 4) << 32) | (layout << 62);
+}
+
+// Where threads write element (r, c) (c even: a pair of bf16) of a tile of
+// rows of D bf16 in the layout TMA writes under the swizzle of 2·D bytes
+// and tile_desc<D> describes: the 16-byte piece c / 8 of row r moves to
+// piece (c / 8) ^ ((r·D / 64) mod (D / 8)). The tile starts on a 1024-byte
+// boundary.
+template <int D>
+__device__ __forceinline__ uint32_t* swizzled(uint8_t* tile, int r, int c) {
+  return reinterpret_cast<uint32_t*>(tile + r * 2 * D + ((((c >> 3) ^ ((r * D >> 6) & (D / 8 - 1)))) << 4) +
+                                     (c & 7) * 2);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -249,6 +271,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n192(d, a, b);
 }
 
+// d (64 x 48) += A·B, A and B from shared memory, both K-major
+// (descriptors); d = A·B where `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 96) += A·B, A and B from shared memory, both K-major
+// (descriptors); d = A·B where `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+  static_assert(N == 48 || N == 96, "no such product");
+  if constexpr (N == 48) wgmma_ss_n48(d, a, b, accumulate);
+  else wgmma_ss_n96(d, a, b, accumulate);
+}
+
 // Accumulator layout of a 64-row wgmma product (and the operand layout of
 // its A from registers): warp w of the warpgroup holds rows 16w + g and
 // 16w + g + 8 (g = lane / 4); register 4i + 2r + c is row 16w + g + 8r,
@@ -278,15 +327,16 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// A 3-D tensor map over `groups` groups of `rows` rows of `ld` bf16 at base
-// (groups = 1: a 2-D map of a matrix), read in boxes of 64 rows × D columns,
-// swizzled for wgmma; rows past a group's last, and columns past ld, read as
-// zero. cuTensorMapEncodeTiled is reached through the
-// runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda. TMA
-// needs base, the row stride 2·ld and the group stride 2·ld·rows to be
-// multiples of 16 bytes; the encoder refuses them otherwise.
-template <int D>
-int make_map(CUtensorMap* map, const void* base, int rows, int groups, long long ld) {
+// A tensor map over bf16 at base with dims (dims[0] contiguous, dims[1],
+// dims[2]) and the byte strides of dims 1 and 2, read and written in boxes
+// of box[0] × box[1] × box[2] elements under the swizzle of its rows
+// (box[0] of 16, 32, 64 elements: 32, 64, 128 bytes); elements past the
+// dims read as zero and are not written. cuTensorMapEncodeTiled is reached
+// through the runtime's cudaGetDriverEntryPoint, so the library needs no
+// -lcuda. TMA needs base and the strides to be multiples of 16 bytes, and
+// each box extent at most 256; the encoder refuses them otherwise.
+inline int make_map_box(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3],
+                        const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
                               CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
@@ -300,17 +350,25 @@ int make_map(CUtensorMap* map, const void* base, int rows, int groups, long long
     if (found != cudaDriverEntryPointSuccess || !fn) return MMPFN_TMA_FAILED;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)groups};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * rows};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)BN, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = box[0] == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box[0] == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                              strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : MMPFN_TMA_FAILED;
+}
+
+// A 3-D tensor map over `groups` groups of `rows` rows of `ld` bf16 at base
+// (groups = 1: a 2-D map of a matrix), read in boxes of 64 rows × D columns,
+// swizzled for wgmma; rows past a group's last, and columns past ld, read as
+// zero. TMA needs base, the row stride 2·ld and the group stride 2·ld·rows
+// to be multiples of 16 bytes; the encoder refuses them otherwise.
+template <int D>
+int make_map(CUtensorMap* map, const void* base, int rows, int groups, long long ld) {
+  return make_map_box(map, base, {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)groups},
+                      {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * rows}, {(cuuint32_t)D, (cuuint32_t)BN, 1});
 }
 
 }  // namespace hopper

@@ -35,10 +35,12 @@ from multimodalpfn_tpu_torch.ops import kernels
 
 LN_EPS = 1e-5
 
-# Feature tokens K1 and K5 take: their float32 softmax gives each lane of a
-# warp two keys, and at 64 tokens (e = h·d = 192) their shared-memory tiles
-# take 140 KB of the 227 KB a block may use. The Pallas kernels stop at 48
-# (`multimodalpfn_tpu/ops/pallas_fused.py:42`), a bound from the TPU's VMEM.
+# Feature tokens K1 and K5 take: the CUDA-core body's softmax gives each lane
+# of a warp two keys, and at 64 tokens (e = h·d = 192) its shared-memory
+# tiles take 140 KB of the 227 KB a block may use; the wgmma body holds a
+# sample's keys in one 64-bit word and a warpgroup's tile in 64 rows. The
+# Pallas kernels stop at 48 (`multimodalpfn_tpu/ops/pallas_fused.py:42`), a
+# bound from the TPU's VMEM.
 # With more tokens the forward runs the sample-major layer and the KV-cache
 # path its feature attention plain, in both packages.
 MAX_FUSED_ATTN_TOKENS = 64
@@ -78,21 +80,74 @@ def softmax_pv(s: torch.Tensor, v: torch.Tensor, rnd) -> tuple[torch.Tensor, tor
     return (rnd(p) @ v) / l, (m + torch.log(l)).squeeze(-1)
 
 
+def feat_attn_body(dtype: torch.dtype, e: int, h: int, d: int) -> str:
+    """Which body of K1, K5, K6a and K6b (`csrc/feat_attn.cu`) runs on the
+    card for operands of ``dtype`` at width ``e`` with ``h`` heads of width
+    ``d``: ``"wgmma"`` (bf16, h·d = e, e = 192 with d = 32 or e = 64 with d
+    = 16; Hopper's wgmma fed by TMA) or ``"cuda_cores"`` (float32, and bf16
+    at other widths). Raises TypeError for another dtype and ValueError where
+    no body takes the widths (e, h·d not positive multiples of 4; d not a
+    positive even number)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K1/K5/K6: dtype {dtype} is not supported (float32 or bfloat16)")
+    if e < 4 or e % 4 or h < 1 or d < 2 or d % 2 or (h * d) % 4:
+        raise ValueError(f"K1/K5/K6: unsupported widths e={e}, h={h}, d={d}")
+    if dtype == torch.bfloat16 and h * d == e and (e, d) in ((192, 32), (64, 16)):
+        return "wgmma"
+    return "cuda_cores"
+
+
 def _attn_operands(kernel: str, x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor,
-                   t: int, token_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1's and K5's checks and weights: W_qkv^T ``(e, 3·h·d)`` and W_out
-    ``(h·d, e)`` in x's dtype."""
+                   t: int, token_valid: int) -> tuple[str, torch.Tensor, torch.Tensor]:
+    """K1's and K5's checks, body (`feat_attn_body`) and weights in x's
+    dtype: for the wgmma body W_qkv with each head's q, k, v rows together
+    ``(h·3·d, e)``, for the CUDA cores W_qkv^T ``(e, 3·h·d)``; W_out ``(h·d,
+    e)``."""
     e = x.shape[-1]
     _, h, d, _ = w_qkv.shape
     kernels.require_shape(kernel, "w_qkv", w_qkv, (3, h, d, e))
     kernels.require_shape(kernel, "w_out", w_out, (h, d, e))
-    if t > MAX_FUSED_ATTN_TOKENS or not 1 <= token_valid <= t or e % 4 or d % 2 or (h * d) % 4:
+    body = feat_attn_body(x.dtype, e, h, d)
+    if t > MAX_FUSED_ATTN_TOKENS or not 1 <= token_valid <= t:
         raise ValueError(
             f"{kernel}: unsupported shape t={t}, token_valid={token_valid}, e={e}, h={h}, d={d}"
         )
-    wqkv_t = kernels.aligned(w_qkv.reshape(3 * h * d, e).t().to(x.dtype).contiguous())
+    if body == "wgmma":
+        wqkv = w_qkv.transpose(0, 1).reshape(3 * h * d, e)
+    else:
+        wqkv = w_qkv.reshape(3 * h * d, e).t()
+    wqkv = kernels.aligned(wqkv.to(x.dtype).contiguous())
     wout = kernels.aligned(w_out.reshape(h * d, e).to(x.dtype).contiguous())
-    return wqkv_t, wout
+    return body, wqkv, wout
+
+
+def _launch_feat_attn(kid: str, body: str, x, wqkv, wout, words, rows_per_member: int, b: int,
+                      t: int, s: int, tv: int, h: int, d: int, sample_major: bool) -> torch.Tensor:
+    """Launch K1, K5, K6a or K6b on x (item-major ``(b, t, s, e)``, or
+    ``sample_major`` ``(s, t, e)``) through the C entry of ``body``, and
+    count it."""
+    e = x.shape[-1]
+    out = torch.empty_like(x)
+    lib = kernels.library()
+    ptrs = (x.data_ptr(), wqkv.data_ptr(), wout.data_ptr(), out.data_ptr())
+    mask = None if words is None else words.data_ptr()
+    dtype, device, stream = kernels.launch_args(x, kid)
+    if body == "wgmma":
+        rc = lib.mmpfn_feat_attn_ln_wg(*ptrs, mask, rows_per_member, b, t, s, e, h, d, tv,
+                                       int(sample_major), device, stream)
+    elif sample_major and words is None:
+        rc = lib.mmpfn_feat_attn_ln(*ptrs, s, t, e, h, d, tv, dtype, device, stream)
+    elif sample_major:
+        rc = lib.mmpfn_feat_attn_ln_masked(*ptrs, mask, s, t, e, h, d, rows_per_member, dtype,
+                                           device, stream)
+    elif words is None:
+        rc = lib.mmpfn_feat_attn_ln_im(*ptrs, b, t, s, e, h, d, dtype, device, stream)
+    else:
+        rc = lib.mmpfn_feat_attn_ln_im_masked(*ptrs, mask, b, t, s, e, h, d, dtype, device, stream)
+    kernels.check(rc, kid)
+    kernels.LAUNCHES[kid] += 1
+    kernels.BODY_LAUNCHES[f"{kid} {body}"] += 1
+    return out
 
 
 def _key_mask_words(
@@ -183,8 +238,8 @@ def fused_feature_attention_ln(
     row's last token a key) K6b. K5 replaces
     `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel`, K6b
     `_feat_attn_kernel_masked` (both called through `_attn_fwd_call`); kernel
-    in `csrc/feat_attn.cu`, K1's body with contiguous tokens and rows
-    flattened over x's leading axes. Without a mask (no ``token_valid_count``,
+    in `csrc/feat_attn.cu`, K1's bodies (`feat_attn_body`) with contiguous
+    tokens and rows flattened over x's leading axes. Without a mask (no ``token_valid_count``,
     no ``key_mask``) it is differentiable, with K7s as its backward
     (`_FeatAttnLn`)."""
     if token_valid_count is None and key_mask is None and kernels.needs_grad(x, w_qkv, w_out):
@@ -198,28 +253,18 @@ def fused_feature_attention_ln(
     t, e = x.shape[-2:]
     _, h, d, _ = w_qkv.shape
     tv = t if token_valid_count is None else token_valid_count
-    wqkv_t, wout = _attn_operands(kid, x, w_qkv, w_out, t, tv)
+    body, wqkv, wout = _attn_operands(kid, x, w_qkv, w_out, t, tv)
+    words, rows_per_member = None, 1
     if key_mask is not None:
         words, rows_per_member = _key_mask_words(kid, key_mask, tuple(x.shape[:-2]), t)
     x2 = kernels.aligned(x.reshape(-1, t, e).contiguous())
     if x2.shape[0] >= 2**31:
         raise ValueError(f"{kid}: {x2.shape[0]} rows exceed the kernel's grid")
-    kernels.require_cuda(kid, x2, wqkv_t, wout)
-    out = torch.empty_like(x2)
-    lib = kernels.library()
-    if key_mask is None:
-        rc = lib.mmpfn_feat_attn_ln(
-            x2.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(),
-            x2.shape[0], t, e, h, d, tv, *kernels.launch_args(x2, kid),
-        )
-    else:
+    kernels.require_cuda(kid, x2, wqkv, wout)
+    if words is not None:
         words = _words_to(words, x2.device)
-        rc = lib.mmpfn_feat_attn_ln_masked(
-            x2.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(), words.data_ptr(),
-            x2.shape[0], t, e, h, d, rows_per_member, *kernels.launch_args(x2, kid),
-        )
-    kernels.check(rc, kid)
-    kernels.LAUNCHES[kid] += 1
+    out = _launch_feat_attn(kid, body, x2, wqkv, wout, words, rows_per_member, 1, t, x2.shape[0],
+                            tv, h, d, sample_major=True)
     return out.reshape(x.shape)
 
 
@@ -242,7 +287,8 @@ def fused_feature_attention_ln_im(
     member's last token a key) K6a. K1 replaces
     `multimodalpfn_tpu/ops/pallas_fused.py:_feat_attn_kernel_im`, K6a
     `_feat_attn_kernel_im_masked` (both called through `_attn_fwd_call_im`);
-    kernel in `csrc/feat_attn.cu`. Without a mask it is differentiable, with
+    kernel in `csrc/feat_attn.cu`, its body chosen by `feat_attn_body`.
+    Without a mask it is differentiable, with
     K7 as its backward (`_FeatAttnLnIm`)."""
     if key_mask is None and kernels.needs_grad(x, w_qkv, w_out):
         return _FeatAttnLnIm.apply(x, w_qkv, w_out)
@@ -252,27 +298,16 @@ def fused_feature_attention_ln_im(
     kernels.forbid_autograd(kid, x, w_qkv, w_out)
     b, t, s, e = x.shape
     _, h, d, _ = w_qkv.shape
-    wqkv_t, wout = _attn_operands(kid, x, w_qkv, w_out, t, t)
+    body, wqkv, wout = _attn_operands(kid, x, w_qkv, w_out, t, t)
+    words = None
     if key_mask is not None:  # a word per member
         words, _ = _key_mask_words(kid, key_mask.expand(b, t), (b,), t)
     x = kernels.aligned(x)
-    kernels.require_cuda(kid, x, wqkv_t, wout)
-    out = torch.empty_like(x)
-    lib = kernels.library()
-    if key_mask is None:
-        rc = lib.mmpfn_feat_attn_ln_im(
-            x.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(),
-            b, t, s, e, h, d, *kernels.launch_args(x, kid),
-        )
-    else:
+    kernels.require_cuda(kid, x, wqkv, wout)
+    if words is not None:
         words = _words_to(words, x.device)
-        rc = lib.mmpfn_feat_attn_ln_im_masked(
-            x.data_ptr(), wqkv_t.data_ptr(), wout.data_ptr(), out.data_ptr(), words.data_ptr(),
-            b, t, s, e, h, d, *kernels.launch_args(x, kid),
-        )
-    kernels.check(rc, kid)
-    kernels.LAUNCHES[kid] += 1
-    return out
+    return _launch_feat_attn(kid, body, x, wqkv, wout, words, 1, b, t, s, t, h, d,
+                             sample_major=False)
 
 
 # ---------------------------------------------------------------------------

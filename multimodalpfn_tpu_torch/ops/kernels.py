@@ -45,8 +45,12 @@ LAUNCHES: dict[str, int] = {
 }
 
 # kernel body -> launches since the last reset, for kernels with more than
-# one body (K3: `ops/fused.py:mlp_ln_body`); each also counts in LAUNCHES
-BODY_LAUNCHES: dict[str, int] = {"K3 wgmma": 0, "K3 mma_sync": 0, "K3 cuda_cores": 0}
+# one body (K3: `ops/fused.py:mlp_ln_body`; K1, K5, K6a, K6b:
+# `ops/fused.py:feat_attn_body`); each also counts in LAUNCHES
+BODY_LAUNCHES: dict[str, int] = {"K3 wgmma": 0, "K3 mma_sync": 0, "K3 cuda_cores": 0} | {
+    f"{kid} {body}": 0 for kid in ("K1", "K5", "K6a", "K6b") for body in ("wgmma", "cuda_cores")
+}
+
 
 # Rows of the weight-gradient contractions per block: each chunk's float32
 # partial sums land in their own slab of a workspace, and a second kernel adds
@@ -68,6 +72,9 @@ _SIGNATURES = {
     "mmpfn_feat_attn_ln_im_masked": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # (x, wqkv_t, wout, out, masks, rows, t, e, h, d, rows_per_member, dtype, device, stream)
     "mmpfn_feat_attn_ln_masked": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (x, wqkv head-major, wout, out, masks, rows_per_member, b, t, s, e, h, d,
+    #  token_valid, sample_major, device, stream): bf16 only
+    "mmpfn_feat_attn_ln_wg": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
     # (q, k, v, o, lse, G, Sq, Skv, d, scale, dtype, device, stream)
     "mmpfn_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # (x, w1, w2, out, rows, e, nhid, dtype, device, stream)
@@ -136,12 +143,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def build_log() -> str:
+    """ptxas' per-kernel report (registers, shared memory, spills, warnings)
+    of the library, which `build` keeps beside it; empty before a build."""
+    path = library_path().with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels into `library_path()` unless it exists: one
     ``nvcc -c`` per source, all started together, then one link. The library
     is written to a temporary name and renamed, so concurrent builders never
-    load a half-written file. ``verbose`` prints ptxas' per-kernel registers
-    and shared memory."""
+    load a half-written file; ptxas' per-kernel report is kept beside it
+    (`build_log`), and ``verbose`` prints it."""
     out = library_path()
     if out.exists():
         return out
@@ -150,9 +164,8 @@ def build(verbose: bool = False) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
         procs = []
         for src in _sources():
-            cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(Path(objdir) / f"{src.stem}.o"), str(src)]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
+            cmd = [nvcc, "-Xptxas=-v", *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o",
+                   str(Path(objdir) / f"{src.stem}.o"), str(src)]
             procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         errors, logs = [], []
         for src, proc in procs:
@@ -171,6 +184,7 @@ def build(verbose: bool = False) -> Path:
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text("".join(logs))
         os.replace(tmp, out)
     return out
 

@@ -58,9 +58,9 @@ def test_k1_matches_plain(cuda, t, s):
 )
 def test_k1_bf16_matches_plain(cuda, e, h, d, t):
     """bf16 K1 within two bf16 ulps of the largest output of its plain
-    version: e = 64, d = 16 and the published e = 192, d = 32 take the
-    tensor-core kernel, as 32 token rows per sample up to t = 32 and 64 above
-    (37 samples leave a ragged last block); e = 32, d = 8 the CUDA-core one."""
+    version: e = 64, d = 16 and the published e = 192, d = 32 take the wgmma
+    body, 64 // t samples a warpgroup's tile (37 samples leave a ragged last
+    tile); e = 32, d = 8 the CUDA-core one."""
     g = torch.Generator().manual_seed(6)
     x = _rand(g, 2, t, 37, e, device=cuda).to(torch.bfloat16)
     w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
@@ -89,8 +89,8 @@ def test_k5_matches_plain(cuda, lead, t, e, h, d, tvc):
 @pytest.mark.parametrize("e,h,d,t,tvc", [(192, 6, 32, 31, None), (192, 6, 32, 48, None),
                                          (64, 4, 16, 31, 20), (64, 4, 16, 48, 33)])
 def test_k5_bf16_matches_plain(cuda, e, h, d, t, tvc):
-    """bf16 K5 takes the tensor-core body (32 token rows per sample up to
-    t = 32, 64 above), within two bf16 ulps of the largest output."""
+    """bf16 K5 takes the wgmma body (64 // t samples a warpgroup's tile),
+    within two bf16 ulps of the largest output."""
     g = torch.Generator().manual_seed(9)
     x = _rand(g, 2, 37, t, e, device=cuda).to(torch.bfloat16)
     w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
@@ -123,9 +123,9 @@ def _check(got, want, dtype):
                                      (64, 4, 16, 45), (32, 4, 8, 13)])
 def test_k6a_matches_plain(cuda, e, h, d, t, dtype):
     """K6a (item-major, a key mask per member) against its plain version on
-    ragged masks, one member keeping only the target key: the tensor-core body
-    in bf16 at e = 192 and 64, the CUDA-core body otherwise; 37 samples leave a
-    ragged last block."""
+    ragged masks, one member keeping only the target key: the wgmma body in
+    bf16 at e = 192 and 64, the CUDA-core body otherwise; 37 samples leave a
+    ragged last tile."""
     g = torch.Generator().manual_seed(12)
     x = _rand(g, 4, t, 37, e, device=cuda).to(dtype)
     w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
@@ -146,8 +146,8 @@ def test_k6a_matches_plain(cuda, e, h, d, t, dtype):
                                      (32, 4, 8, 13)])
 def test_k6b_matches_plain(cuda, e, h, d, t, dtype):
     """K6b (sample-major rows, the member's mask broadcast over its 37 rows,
-    so a 4-sample block of the tensor-core body straddles two members)
-    against its plain version."""
+    so a tile of the wgmma body straddles two members) against its plain
+    version."""
     g = torch.Generator().manual_seed(13)
     x = _rand(g, 4, 37, t, e, device=cuda).to(dtype)
     w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
@@ -157,6 +157,46 @@ def test_k6b_matches_plain(cuda, e, h, d, t, dtype):
     got = fused.fused_feature_attention_ln(x, w_qkv, w_out, key_mask=mask)
     assert kernels.LAUNCHES["K6b"] == before + 1
     _check(got, fused.feature_attention_ln_plain(x, w_qkv, w_out, key_mask=mask), dtype)
+
+
+# every token count the feature-attention kernels take that changes how a
+# warpgroup's 64-row tile packs samples (64 // t of them)
+FEAT_TOKENS = [1, 8, 17, 30, 31, 32, 33, 48, 64]
+
+
+@pytest.mark.parametrize("s", [37, 301])
+@pytest.mark.parametrize("t", FEAT_TOKENS)
+@pytest.mark.parametrize("kid", ["K1", "K5", "K5 token_valid", "K6a", "K6b"])
+@pytest.mark.parametrize("e,h,d", [(64, 4, 16), (192, 6, 32)])
+def test_feat_attn_wgmma_body_matches_plain(cuda, e, h, d, kid, t, s):
+    """bf16 K1, K5 (also with token_valid), K6a and K6b on their wgmma body
+    (`fused.feat_attn_body`), three members of s samples (ragged tiles of
+    64 // t samples; K6b's tiles straddle members), within two bf16 ulps of
+    the plain version's largest output; a repeat gives the same bits."""
+    g = torch.Generator().manual_seed(t + s)
+    sample_major = kid.startswith(("K5", "K6b"))
+    x = _rand(g, *((3, s, t, e) if sample_major else (3, t, s, e)), device=cuda).to(torch.bfloat16)
+    w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
+    w_out = _rand(g, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    mask = _member_masks(3, t, "cpu")
+    if sample_major:
+        tv = max(1, t - 3) if kid == "K5 token_valid" else None
+        km = mask[:, None] if kid == "K6b" else None
+        args = (x, w_qkv, w_out, tv, km)
+        fn, plain = fused.fused_feature_attention_ln, fused.feature_attention_ln_plain
+    else:
+        args = (x, w_qkv, w_out, mask if kid == "K6a" else None)
+        fn, plain = fused.fused_feature_attention_ln_im, fused.feature_attention_ln_im_plain
+    assert fused.feat_attn_body(x.dtype, e, h, d) == "wgmma"
+    name = kid.split()[0]
+    before = kernels.BODY_LAUNCHES[f"{name} wgmma"]
+    got = fn(*args)
+    again = fn(*args)
+    assert kernels.BODY_LAUNCHES[f"{name} wgmma"] == before + 2
+    assert torch.equal(got, again)
+    want = plain(*args)
+    assert bool(torch.isfinite(got.float()).all())
+    assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,5 +1,6 @@
 """Port K1, K5 and K3 (multimodalpfn_tpu_torch/ops/fused.py) against the JAX
-package's Pallas kernels run in TPU interpret mode on the CPU.
+package's Pallas kernels run in TPU interpret mode on the CPU, and the
+wrappers' choice of body and operands for the card.
 
 On the CPU the port's wrappers run their plain versions, so these tests pin the
 plain PyTorch versions (which the CUDA kernels are held to on the card) to the
@@ -142,6 +143,92 @@ def test_mlp_ln_wrapper_refuses_what_no_body_takes():
     x16 = torch.empty((3, 5, 64), device="meta", dtype=torch.float16)
     with pytest.raises(TypeError, match="float16"):
         tf.fused_mlp_ln(x16, torch.empty((64, 64), device="meta"), torch.empty((64, 64), device="meta"))
+
+
+# (dtype, e, h, d) -> the body of K1, K5, K6a and K6b that runs on the card,
+# or the error the wrapper raises: wgmma for bf16 at e = 192, d = 32 and e =
+# 64, d = 16 (h·d = e); the CUDA cores for float32 and the other bf16 widths;
+# no body for e or h·d not a positive multiple of 4, or d not even
+FEAT_BODY_CASES = [
+    (torch.bfloat16, 192, 6, 32, "wgmma"), (torch.bfloat16, 64, 4, 16, "wgmma"),
+    (torch.bfloat16, 192, 12, 16, "cuda_cores"), (torch.bfloat16, 192, 3, 64, "cuda_cores"),
+    (torch.bfloat16, 64, 2, 16, "cuda_cores"), (torch.bfloat16, 96, 6, 16, "cuda_cores"),
+    (torch.bfloat16, 128, 4, 32, "cuda_cores"), (torch.bfloat16, 32, 4, 8, "cuda_cores"),
+    (torch.float32, 192, 6, 32, "cuda_cores"), (torch.float32, 64, 4, 16, "cuda_cores"),
+    (torch.float32, 16, 2, 8, "cuda_cores"),
+    (torch.bfloat16, 190, 5, 38, ValueError), (torch.float32, 192, 6, 31, ValueError),
+    (torch.bfloat16, 192, 3, 2, ValueError), (torch.float32, 0, 4, 8, ValueError),
+    (torch.bfloat16, 192, 0, 32, ValueError),
+    (torch.float16, 192, 6, 32, TypeError), (torch.float64, 64, 4, 16, TypeError),
+]
+
+
+@pytest.mark.parametrize("dtype,e,h,d,want", FEAT_BODY_CASES)
+def test_feat_attn_body_choice(dtype, e, h, d, want):
+    if isinstance(want, str):
+        assert tf.feat_attn_body(dtype, e, h, d) == want
+    else:
+        with pytest.raises(want, match=f"e={e}, h={h}, d={d}" if want is ValueError else "float"):
+            tf.feat_attn_body(dtype, e, h, d)
+
+
+@pytest.mark.parametrize("body_dtype", [torch.bfloat16, torch.float32])
+def test_feat_attn_operands_match_each_body(body_dtype):
+    """`_attn_operands` hands the wgmma body W_qkv with each head's q, k, v
+    rows together (row (head·3 + which)·d + c is w_qkv[which, head, c]) and
+    the CUDA-core body W_qkv^T (column which·h·d + head·d + c); W_out as
+    stored, both in x's dtype."""
+    rng = np.random.default_rng(5)
+    h, d, e = (6, 32, 192)
+    w_qkv = torch.from_numpy(rng.normal(size=(3, h, d, e)).astype(np.float32))
+    w_out = torch.from_numpy(rng.normal(size=(h, d, e)).astype(np.float32))
+    x = torch.zeros((2, 31, 5, e), dtype=body_dtype)
+    body, wqkv, wout = tf._attn_operands("K1", x, w_qkv, w_out, 31, 31)
+    want = w_qkv.to(body_dtype)
+    assert wqkv.dtype == wout.dtype == body_dtype
+    assert torch.equal(wout, w_out.reshape(h * d, e).to(body_dtype))
+    if body == "wgmma":
+        assert body_dtype == torch.bfloat16 and wqkv.shape == (3 * h * d, e)
+        for head, which, c in ((0, 0, 0), (2, 1, 7), (5, 2, 31), (3, 0, 16)):
+            assert torch.equal(wqkv[(head * 3 + which) * d + c], want[which, head, c])
+    else:
+        assert body_dtype == torch.float32 and wqkv.shape == (e, 3 * h * d)
+        for head, which, c in ((0, 0, 0), (2, 1, 7), (5, 2, 31)):
+            assert torch.equal(wqkv[:, which * h * d + head * d + c], want[which, head, c])
+
+
+def test_feat_attn_wrappers_refuse_what_no_body_takes():
+    """Off the CPU the K1 and K5 wrappers ask `feat_attn_body` before anything
+    else launches: widths no body takes raise ValueError naming them, other
+    dtypes TypeError."""
+    x = torch.empty((1, 5, 9, 36), device="meta")
+    w_qkv, w_out = torch.empty((3, 3, 6, 36), device="meta"), torch.empty((3, 6, 36), device="meta")
+    with pytest.raises(ValueError, match="e=36, h=3, d=6"):
+        tf.fused_feature_attention_ln_im(x, w_qkv, w_out)
+    x = torch.empty((1, 5, 9, 18), device="meta")
+    w_qkv, w_out = torch.empty((3, 3, 6, 18), device="meta"), torch.empty((3, 6, 18), device="meta")
+    with pytest.raises(ValueError, match="e=18, h=3, d=6"):
+        tf.fused_feature_attention_ln(x, w_qkv, w_out)
+    x16 = torch.empty((1, 5, 9, 16), device="meta", dtype=torch.float16)
+    w_qkv, w_out = torch.empty((3, 2, 8, 16), device="meta"), torch.empty((2, 8, 16), device="meta")
+    with pytest.raises(TypeError, match="float16"):
+        tf.fused_feature_attention_ln_im(x16, w_qkv, w_out)
+
+
+@pytest.mark.parametrize("name", ["no_attention", "no_weight_feed", "clock"])
+def test_feat_attn_probe_diagnostics_apply(name):
+    """Each diagnostic build of `tools/torch_feat_attn_probe.py` finds the text
+    it edits in `csrc/feat_attn.cu` exactly once, so the tool keeps working
+    as the kernel changes (it raises otherwise)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "torch_feat_attn_probe.py"
+    spec = importlib.util.spec_from_file_location("torch_feat_attn_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    text = probe.edited_source(name)
+    assert text != (path.parents[1] / "multimodalpfn_tpu_torch" / "csrc" / "feat_attn.cu").read_text()
 
 
 def test_cpu_wrappers_run_plain_versions_without_counting():

@@ -5,7 +5,7 @@ parent) can be compared in one call.
 
 Run from the repository root on a machine with one NVIDIA GPU and ``nvcc``:
 
-    python3 tools/torch_kernel_ab.py [--package-root DIR] [--only K2a,K3,K4,K7,K8,K9,K10]
+    python3 tools/torch_kernel_ab.py [--package-root DIR] [--only K1,K5,K6a,K6b]
                                      [--tile] [--iters 10] [--out FILE]
 
 ``--package-root`` names the directory that holds the ``multimodalpfn_tpu_torch``
@@ -13,7 +13,11 @@ package to measure (default: this checkout), for example the parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists; its
 kernels are built into its own ``build/kernels``. The cases, bounds and
 digests are this checkout's `chip_smoke.py`. ``--only`` names the kernels:
-forward ids run phase 2's cases (`chip_smoke.phase_kernels`: K2a at the
+forward ids run phase 2's cases (`chip_smoke.phase_kernels`, every case
+whose id starts with one of them: K1 at the ``fit_preprocessors`` shape, at
+48 tokens and at the fine-tune episode, K5 at the KV-cache prime shape and
+at 48 tokens, K6a at 48 tokens, K6b at the merged prime and predict shapes,
+each beside ``torch.matmul`` on its QKV and out projections; K2a at the
 ``fit_preprocessors`` shape with its projection and attention apart, K3 at
 the ``fit_preprocessors``, KV-cache prime and predict and fine-tune episode
 shapes beside ``torch.matmul`` on its two products, K4 at the KV-cache
