@@ -13,13 +13,15 @@ Phases, each of which must pass:
    build time; count HGMMA in the SASS of the 18 bf16 attention kernels (the
    forward of K2a and K4, the dq and dk/dv passes of K9 and K11, each at
    d = 16, 32, 64; ``cuobjdump``), each of which must issue wgmma, and of
-   the 20 instantiations of the bf16 product tile of K7-K10
-   (``gemm_tile.cuh``: five epilogues by four storage orders), of K3's
-   wgmma body (``mlp_ln.cu``, e = 64, 128, 192) and of the wgmma body of
-   K1, K5, K6a and K6b (``feat_attn.cu``, e = 64 and 192), each of which
-   must issue wgmma with no local-memory load or store; the ``-Xptxas -v``
-   report must hold no serialization warning (C75xx) for the last; write the
-   model every phase serves (the published 192×12
+   the 20 instantiations of the bf16 product tile of K7-K10 and of K2a's
+   projection (``gemm_tile.cuh``: five epilogues by four storage orders),
+   of K3's wgmma body (``mlp_ln.cu``, e = 64, 128, 192), of the wgmma body
+   of K1, K5, K6a and K6b (``feat_attn.cu``, e = 64 and 192) and of K2b's
+   (``item_epilogue.cu``, e = 64, 128, 192), each of which must issue wgmma
+   with no local-memory load or store; the ``-Xptxas -v`` report must hold
+   no serialization warning (C75xx) for the last two (those of the
+   projection's instantiation are printed); write the model every phase
+   serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
    projections filled in from seed 1) to ``build/``.
 2. Kernel checks: each kernel against its plain PyTorch version at the shapes
@@ -28,8 +30,9 @@ Phases, each of which must pass:
    the same work (``bound_ms``) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``). K1, K2a, K2b and K3 at the
    ``fit_preprocessors`` shapes (4 members, 1838 train + 460 test rows bucketed
-   to 2350, 31 tokens, e = 192, h = 6, d = 32, nhid = 768), K1 also at 48
-   tokens and at the fine-tune episode (1, 30, 1838, 192); K4 at the
+   to 2350, 31 tokens, e = 192, h = 6, d = 32, nhid = 768), K1, K2a and K2b
+   also at the fine-tune episode (1, 30, 1838, 192; sep 1655), K1 also at
+   48 tokens; K4 at the
    KV-cache prime shape (G = 4·31·6, 1838 × 1838), the multiquery predict
    shape (G = 4·31, 6·512 queries, 1838 keys) and the
    flash fine-tune's three blocks (train G = 180, 1655 × 1655; test G = 180,
@@ -44,7 +47,9 @@ Phases, each of which must pass:
    each repeat bit-equal and beside ``torch.matmul`` on its two products
    (``matmul_ms``; two calls, so no ``library_ms``); K1, K5, K6a and K6b
    too repeat bit-equal, each beside ``torch.matmul`` on its QKV and out
-   projections (``matmul_ms``). The lse of K2a and K4
+   projections (``matmul_ms``); K2b repeats bit-equal beside
+   ``torch.matmul`` on its out-product, K2a's projection beside it on the
+   same product. The lse of K2a and K4
    must match to 1e-4 abs in both
    dtypes (K2a's bf16 lse on inputs on which its projection is exact, so
    that it holds the attention alone); K2a's projection and attention are
@@ -58,8 +63,8 @@ Phases, each of which must pass:
    rows); the members' widths and the planned groups are printed; the launch
    counters, zeroed just before, show the item-major kernels (K1, or K6a for
    a merged group; K2a, K2b, K3) ran in every layer of every group, every
-   K1, K6a and K3 launch through its wgmma body; then the same requests
-   again, warm.
+   K1, K6a, K2b and K3 launch through its wgmma body; then the same
+   requests again, warm.
 4. Its kernel path against its plain path: float32 ``predict_proba`` (the
    plain path split by the memory estimate).
 5. ``fit_with_cache`` served: fit (which primes the KV cache) and the same
@@ -95,7 +100,7 @@ Phases, each of which must pass:
 9. ``fine_tune_mmpfn`` served: 100 bf16 steps on the PAD-UFES-shaped set (the
    full 12 layers, validation after every step); the counters, zeroed just
    before, show K7, K8, K9 and K10 launched 12 times per step, and every K1
-   launch (training and validation) on its wgmma body; every loss and
+   and K2b launch (training and validation) on its wgmma body; every loss and
    gradient norm finite, no step skipped, no snapshot write failed; the
    snapshot on disk differs from the base model exactly when validation
    improved, and ``MMPFNClassifier`` serves it (rows sum to 1).
@@ -132,9 +137,10 @@ holds their float32 outputs (and K11's bf16 at d = 8), which the CUDA-core
 bodies compute, to the parent commit's bits (`PARENT_F32_SHA256`); so too
 K4's and K2a's float32 outputs and bf16 at d = 8 (`attn::cc_rows`), the
 float32 outputs of K7, K7s, K8 and K10 (`gemm_tile.cuh`'s cc_kernel and the
-row kernels), K3's float32 outputs (its CUDA-core body) and bf16 outputs
-at e = 96 (its mma.sync body), and the float32 outputs of K1, K5, K6a and
-K6b and K5's bf16 outputs at e = 96 (`feat_attn.cu`'s CUDA-core body).
+row kernels), K3's and K2b's float32 outputs (their CUDA-core bodies) and
+bf16 outputs at e = 96 (their mma.sync bodies), and the float32 outputs of
+K1, K5, K6a and K6b and K5's bf16 outputs at e = 96 (`feat_attn.cu`'s
+CUDA-core body).
 
 ``--profile`` adds a phase 14: ``torch.profiler`` around one warm request of
 each size in both modes and around one warm training step of each item path
@@ -264,8 +270,10 @@ KERNELS = {
 # redesign (K9, K11: 32e8513, before their passes moved to wgmma; K4, K2a:
 # 4f9071f, before their forward did; K7, K7s, K8, K10: 661c4b4, before the
 # product tile did; K3: ede4bbd, before its wgmma body; K1, K5, K6a, K6b:
-# 3db1a8b, before theirs): the CUDA-core bodies (float32, and bf16 at d = 8
-# or e = 96) and K3's mma.sync body must go on giving these bits
+# 3db1a8b, before theirs; K2b: 4125216, before its wgmma body, whose
+# "K2a bf16 d=8" equals 4f9071f's although K2a's bf16 projection moved to
+# the product tile): the CUDA-core bodies (float32, and bf16 at d = 8 or e =
+# 96) and the mma.sync bodies of K3 and K2b must go on giving these bits
 PARENT_F32_SHA256 = {
     "K11 f32 d=8": "b9f0e3a2bc2964aa", "K11 f32 d=16": "b910ce43502031dc",
     "K11 f32 d=32": "4055da75ae152101", "K11 f32 d=64": "8d25581c0adcb482",
@@ -280,6 +288,7 @@ PARENT_F32_SHA256 = {
     "K10 f32": "050187159db35e72", "K3 f32": "1fd70dde3def5c63", "K3 bf16 e=96": "85d7fbe399f1b6c3",
     "K1 f32": "da7fcfc122933dd0", "K5 f32": "293dd2d20ed420c1", "K6a f32": "5e65a88ded4555cb",
     "K6b f32": "56943489eeb2bb17", "K5 bf16 e=96": "cb9035e58a023f42",
+    "K2b f32": "7ab68ec6b93b7270", "K2b bf16 e=96": "89ff1226d8fa41fc",
 }
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
@@ -323,11 +332,12 @@ def check(cond: bool, msg: str) -> None:
 
 
 # the kernels with a wgmma body chosen by width (`ops/fused.py`:
-# `feat_attn_body`, `mlp_ln_body`)
+# `feat_attn_body`, `mlp_ln_body`; `ops/item_fused.py`: `item_epilogue_body`)
 FEAT_IDS = ("K1", "K5", "K6a", "K6b")
 
 
-def check_wgmma_bodies(path: str, launches: dict, bodies: dict, kids=("K3",) + FEAT_IDS) -> None:
+def check_wgmma_bodies(path: str, launches: dict, bodies: dict,
+                       kids=("K2b", "K3") + FEAT_IDS) -> None:
     """Every launch of each of ``kids`` on ``path`` took its wgmma body."""
     for kid in kids:
         check(bodies[f"{kid} wgmma"] == launches[kid],
@@ -362,17 +372,19 @@ def bound(flops: float, nbytes: float, tag: str) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict]:
+def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict]:
     """HGMMA instructions in the SASS (``cuobjdump --dump-sass``) of each
     bf16 tensor-core kernel: the attention forward of K2a and K4
     (`csrc/attn_tile.cuh`) and the dq and dk/dv passes of K9 and K11
     (`csrc/attn_bwd.cuh`), each at d = 16, 32, 64 (18 kernels); and of the
     product tile of `csrc/gemm_tile.cuh` by epilogue and transposes, of
-    K3's wgmma body (`csrc/mlp_ln.cu`) by width and of the wgmma body of K1,
-    K5, K6a and K6b (`csrc/feat_attn.cu`) by width, layout and mask, each
-    with its local-memory loads and stores (spills) beside. Returns
-    (attention counts, {product kernel: (HGMMA, LDL + STL)}, {K3 kernel:
-    (HGMMA, LDL + STL)}, {feature-attention kernel: (HGMMA, LDL + STL)})."""
+    K3's wgmma body (`csrc/mlp_ln.cu`) by width, of the wgmma body of K1,
+    K5, K6a and K6b (`csrc/feat_attn.cu`) by width, layout and mask and of
+    K2b's wgmma body (`csrc/item_epilogue.cu`) by width, each with its
+    local-memory loads and stores (spills) beside. Returns (attention
+    counts, {product kernel: (HGMMA, LDL + STL)}, {K3 kernel: (HGMMA, LDL +
+    STL)}, {feature-attention kernel: (HGMMA, LDL + STL)}, {K2b kernel:
+    (HGMMA, LDL + STL)})."""
     import os
     import re
     import shutil
@@ -380,7 +392,7 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict]:
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     proc = subprocess.Popen([tool, "--dump-sass", str(lib)], stdout=subprocess.PIPE, text=True)
-    counts, gemm, k3, feat, fn, gfn = {}, {}, {}, {}, None, None
+    counts, gemm, k3, feat, k2b, fn, gfn = {}, {}, {}, {}, {}, None, None
     for line in proc.stdout:
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -389,6 +401,9 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict]:
             if "mlp_ln_wg_kernel" in name:
                 gfn = f"K3 e={re.search(r'mlp_ln_wg_kernelILi(\d+)E', name).group(1)}"
                 k3.setdefault(gfn, [0, 0])
+            elif "epilogue_ln_wg_kernel" in name:
+                gfn = f"K2b e={re.search(r'epilogue_ln_wg_kernelILi(\d+)E', name).group(1)}"
+                k2b.setdefault(gfn, [0, 0])
             elif "feat_attn_wg_kernel" in name:
                 e, d, sm, masked = re.search(
                     r"feat_attn_wg_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", name).groups()
@@ -411,10 +426,16 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict]:
         elif fn and "HGMMA" in line:
             counts[fn] += 1
         elif gfn and ("HGMMA" in line or re.search(r"\b(LDL|STL)\b", line)):
-            table = k3 if gfn.startswith("K3") else gemm if gfn in gemm else feat
+            table = (k3 if gfn.startswith("K3") else k2b if gfn.startswith("K2b")
+                     else gemm if gfn in gemm else feat)
             table[gfn][0 if "HGMMA" in line else 1] += 1
     check(proc.wait(timeout=300) == 0, "cuobjdump failed")
-    return counts, *({k: tuple(v) for k, v in t.items()} for t in (gemm, k3, feat))
+    return counts, *({k: tuple(v) for k, v in t.items()} for t in (gemm, k3, feat, k2b))
+
+
+# the mangled name of `gemm_tile.cuh`'s wgmma_kernel<false, true,
+# Store<__nv_bfloat16>>: K2a's projection and K9's recomputed qkv
+PROJ_INSTANTIATION = "wgmma_kernelILb0ELb1ENS_5StoreI13__nv_bfloat16"
 
 
 def serialized_wgmma(log: str, pattern: str) -> list[str]:
@@ -442,7 +463,7 @@ def exp_floor_ms(pairs: float, device) -> float | None:
 
 def profiled_ms(fn, device, iters: int, patterns: dict) -> dict:
     """Device ms per call of ``fn``'s kernels whose profiler names contain
-    each pattern: {key: pattern} -> {key: ms}."""
+    each pattern (a string, or a tuple of them): {key: pattern} -> {key: ms}."""
     import torch
 
     if device.type != "cuda":
@@ -456,15 +477,16 @@ def profiled_ms(fn, device, iters: int, patterns: dict) -> dict:
     out = dict.fromkeys(patterns, 0.0)
     for ms, _, name in device_kernel_rows(prof):
         for key, pattern in patterns.items():
-            if pattern in name:
+            if any(p in name for p in ((pattern,) if isinstance(pattern, str) else pattern)):
                 out[key] += ms / iters
     return out
 
 
 # the two passes of `csrc/attn_bwd.cuh` (K9, K11) and K2a's two kernels (its
-# projection, then the attention of both regions), by profiler name
+# projection: float32 `proj_nt_kernel`, bf16 `gemm_tile.cuh`'s product; then
+# the attention of both regions), by profiler name
 BWD_PASSES = {"dq_pass": "attn_bwd::dq_", "dkv_pass": "attn_bwd::dkv_"}
-K2A_PARTS = {"proj": "proj_nt", "attn": "attn"}
+K2A_PARTS = {"proj": ("proj_nt", "gemm::"), "attn": "attn"}
 
 
 def bwd_products(dims) -> dict:
@@ -684,7 +706,8 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                  "K4@ft_test": (rand(ft_G, ft_test, d), kf, vf),
                  "K4@ft_folded": (rand(ft_t, ft_h * ft_test, d), kf[:ft_t], vf[:ft_t])}
     xp48 = rand(b, n_pred, 48, e)  # K6b at the merged predict shape
-    x_ft = rand(1, ft_t, ft_S, e)  # K1 and K3 at the fine-tune episode
+    x_ft = rand(1, ft_t, ft_S, e)  # K1, K2a, K2b and K3 at the fine-tune episode
+    o_ft = rand(ft_t, ft_S, hd)  # K2b's attention output there
     # the merged group's key masks: each member's own feature tokens, none of
     # its padded ones, the image tokens and the target
     widths = [MERGE_WIDTHS[i % len(MERGE_WIDTHS)] for i in range(b)]
@@ -710,19 +733,31 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
     def sdpa(q, k, v):  # (G, S, d) -> one call with the G groups as heads
         return lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])
 
-    def item_sdpa(dt):
-        """K2a's attention core as PyTorch calls: the projection is done
-        before timing, then one call per block (train rows on every head,
-        test rows on KV head 0)."""
-        w2_ = w_qkv.reshape(3 * hd, e).to(dt)
-        qkv = (x.reshape(b * t, S, e).to(dt) @ w2_.T).reshape(b * t, S, 3, h, d).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1][:, :, :sep], qkv[2][:, :, :sep]
-        k0, v0 = k[:, :1].expand_as(k), v[:, :1].expand_as(v)
+    def item_sdpa(x3, sep_):
+        """K2a's attention core on x3 ``(G, S, e)`` as PyTorch calls: the
+        projection is done before timing, then one call per block (train
+        rows on every head, test rows on KV head 0)."""
+        def make(dt):
+            G_, S_, _ = x3.shape
+            w2_ = w_qkv.reshape(3 * hd, e).to(dt)
+            qkv = (x3.to(dt) @ w2_.T).reshape(G_, S_, 3, h, d).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv[0], qkv[1][:, :, :sep_], qkv[2][:, :, :sep_]
+            k0, v0 = k[:, :1].expand_as(k), v[:, :1].expand_as(v)
 
-        def run():
-            F.scaled_dot_product_attention(q[:, :, :sep], k, v)
-            F.scaled_dot_product_attention(q[:, :, sep:], k0, v0)
-        return run
+            def run():
+                F.scaled_dot_product_attention(q[:, :, :sep_], k, v)
+                F.scaled_dot_product_attention(q[:, :, sep_:], k0, v0)
+            return run
+        return make
+
+    def k2a_work(G, S_, sep_):
+        """The projection of every row, the attention of every row against
+        the train keys."""
+        return lambda es: (2 * G * S_ * e * 3 * hd + 4 * G * h * S_ * sep_ * d,
+                           (G * S_ * e + 3 * hd * e + G * S_ * hd) * es + G * h * S_ * 4)
+
+    def k2b_work(G, S_):
+        return lambda es: (2 * G * S_ * hd * e, (G * S_ * (2 * e + hd) + hd * e) * es)
 
     G2, R = b * t, b * S
     cases = {
@@ -733,13 +768,18 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         "K1@ft": (fused.fused_feature_attention_ln_im, fused.feature_attention_ln_im_plain,
                   lambda dt: (x_ft.to(dt), w_qkv, w_out), feat_work(ft_S, ft_t, members=1), None),
         "K2a": (item_fused.item_attention_core, item_fused.item_attention_core_plain,
-                lambda dt: (x.reshape(G2, S, e).to(dt), w_qkv, sep),
-                lambda es: (2 * G2 * S * e * 3 * hd + 4 * G2 * h * S * sep * d,
-                            (G2 * S * e + 3 * hd * e + G2 * S * hd) * es + G2 * h * S * 4),
-                item_sdpa),
+                lambda dt: (x.reshape(G2, S, e).to(dt), w_qkv, sep), k2a_work(G2, S, sep),
+                item_sdpa(x.reshape(G2, S, e), sep)),
         "K2b": (item_fused.item_epilogue_ln, item_fused.item_epilogue_ln_plain,
-                lambda dt: (x.reshape(G2, S, e).to(dt), o_in.to(dt), w_out),
-                lambda es: (2 * G2 * S * hd * e, (G2 * S * (2 * e + hd) + hd * e) * es), None),
+                lambda dt: (x.reshape(G2, S, e).to(dt), o_in.to(dt), w_out), k2b_work(G2, S),
+                None),
+        # the fused-path fine-tune's episode: 30 groups of 1655 train + 183 test rows
+        "K2a@ft": (item_fused.item_attention_core, item_fused.item_attention_core_plain,
+                   lambda dt: (x_ft.reshape(ft_t, ft_S, e).to(dt), w_qkv, ft_sep),
+                   k2a_work(ft_t, ft_S, ft_sep), item_sdpa(x_ft.reshape(ft_t, ft_S, e), ft_sep)),
+        "K2b@ft": (item_fused.item_epilogue_ln, item_fused.item_epilogue_ln_plain,
+                   lambda dt: (x_ft.reshape(ft_t, ft_S, e).to(dt), o_ft.to(dt), w_out),
+                   k2b_work(ft_t, ft_S), None),
 
         "K4": (flash.flash_attention, flash.flash_attention_plain,
                lambda dt: (qp.to(dt), kp.to(dt), vp.to(dt)), flash_work(b * t * h, sep, sep),
@@ -777,7 +817,7 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         cases = {kid: case for kid, case in cases.items() if kid.startswith(tuple(only))}
     # the (query, key) pairs each attention forward exponentiates once: K2a's
     # train rows (every head) and test rows (KV head 0) against the train keys
-    pairs = {"K2a": G2 * h * S * sep} | {
+    pairs = {"K2a": G2 * h * S * sep, "K2a@ft": ft_t * h * ft_S * ft_sep} | {
         kid: (lambda a: a[0].shape[0] * a[0].shape[1] * a[1].shape[1])(make(torch.float32))
         for kid, (_, _, make, _, _) in cases.items() if kid.startswith("K4")}
     results = {}
@@ -789,20 +829,20 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         ):
             args = make(dt)
             got, want = kern(*args), plain(*args)
-            if kid.startswith(("K1", "K3", "K5", "K6")):  # a repeat gives the same bits
+            if kid.startswith(("K1", "K2b", "K3", "K5", "K6")):  # a repeat gives the same bits
                 res[f"repeat_bit_equal_{tag}"] = bool(torch.equal(got, kern(*args)))
                 check(res[f"repeat_bit_equal_{tag}"], f"{kid} {tag}: two runs on the same inputs differ")
             if isinstance(got, tuple):  # (o, lse)
                 (got, got_lse), (want, want_lse) = got, want
                 lse_err = float((got_lse - want_lse).abs().max())
                 res[f"lse_max_abs_err_{tag}"] = lse_err
-                if kid == "K2a" and tag == "bf16":
+                if kid.startswith("K2a") and tag == "bf16":
                     # K2a's projection and the plain version's sum in other
                     # orders, so a q or k element may round to its bf16
                     # neighbour and shift a score (lse_max_abs_err_bf16);
                     # on inputs whose sums are exact the two round alike,
                     # and the lse holds the attention alone
-                    exact = (exact_grid(args[0]), exact_grid(args[1], 1 / 256, 96), sep)
+                    exact = (exact_grid(args[0]), exact_grid(args[1], 1 / 256, 96), args[2])
                     lse_err = float((kern(*exact)[1] - plain(*exact)[1]).abs().max())
                     res["lse_exact_proj_max_abs_err_bf16"] = lse_err
                 check(lse_err <= LSE_ABS_BOUND, f"{kid} {tag} lse err {lse_err:.3e} > {LSE_ABS_BOUND:.0e}")
@@ -816,17 +856,23 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
             res[f"rel_err_{tag}"] = rel
             res[f"ms_{tag}"] = timed(lambda: kern(*args), device, iters)
             res[f"plain_ms_{tag}"] = timed(lambda: plain(*args), device, max(1, iters // 2))
-            flops, nbytes = work(2 if tag == "bf16" else 4)
+            es = 2 if tag == "bf16" else 4
+            flops, nbytes = work(es)
             res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = bound(flops, nbytes, tag)
             res[f"library_ms_{tag}"] = None
             if library is not None and tag == "bf16":
                 res[f"library_ms_{tag}"] = timed(library(dt), device, iters)
             lib = res[f"library_ms_{tag}"]
             extra = ""
-            if kid == "K2a":  # the projection and the attention apart
+            if kid.startswith("K2a"):  # the projection and the attention apart
                 for part, ms in profiled_ms(lambda: kern(*args), device, iters, K2A_PARTS).items():
                     res[f"{part}_ms_{tag}"] = ms
                     extra += f", {part} {ms:.3f} ms"
+                # the projection's own bound: x and W_qkv read, qkv written once
+                G_, S_, _ = args[0].shape
+                res[f"proj_bound_ms_{tag}"], by = bound(
+                    2 * G_ * S_ * e * 3 * hd, (G_ * S_ * e + 3 * hd * e + G_ * S_ * 3 * hd) * es, tag)
+                extra += f", projection bound {res[f'proj_bound_ms_{tag}']:.3f} ms ({by})"
             if kid.startswith("K3") and tag == "bf16" and device.type == "cuda":
                 # K3's two products alone, as torch.matmul calls (two calls,
                 # so not a library_ms): x·W1, then the bf16 hidden layer·W2
@@ -837,6 +883,16 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                                          + timed(lambda: torch.matmul(hid, w2b), device, iters))
                 extra += f", torch.matmul on its two products {res['matmul_ms_bf16']:.3f} ms"
                 del hid
+            if kid.startswith(("K2a", "K2b")) and tag == "bf16" and device.type == "cuda":
+                # K2a's projection (x·W_qkv^T, the product that K9 shares)
+                # or K2b's out-projection (o·W_out) alone, as one
+                # torch.matmul call: neither is the kernel's whole function
+                a2 = args[0].reshape(-1, e) if kid.startswith("K2a") else args[1].reshape(-1, hd)
+                wm = (w_qkv.reshape(3 * hd, e).to(dt).t() if kid.startswith("K2a")
+                      else w_out.reshape(hd, e).to(dt))
+                res["matmul_ms_bf16"] = timed(lambda: torch.matmul(a2, wm), device, iters)
+                extra += (f", torch.matmul on its {'projection' if kid.startswith('K2a') else 'out-product'}"
+                          f" {res['matmul_ms_bf16']:.3f} ms")
             if kid.startswith(("K1", "K5", "K6")) and tag == "bf16" and device.type == "cuda":
                 # the QKV and out-projections alone, as torch.matmul calls:
                 # every token row·W_qkv^T, then the bf16 head outputs·W_out
@@ -862,8 +918,8 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
                    else f", library {lib:.3f} ms"),
                 flush=True,
             )
-            if kid == "K2a" and lib is not None and res.get(f"attn_ms_{tag}"):
-                print(f"  K2a {tag}: its attention against the library's attention core: "
+            if kid.startswith("K2a") and lib is not None and res.get(f"attn_ms_{tag}"):
+                print(f"  {kid} {tag}: its attention against the library's attention core: "
                       f"{res[f'attn_ms_{tag}'] / lib:.2f}x", flush=True)
             check(finite, f"{kid} {tag}: non-finite output")
             check(rel <= rel_bound, f"{kid} {tag}: rel err {rel:.3e} > {rel_bound:.3e}")
@@ -1094,12 +1150,12 @@ def launch_sequence(kid, seq, fn, device, iters) -> dict:
 def f32_fingerprints(device) -> dict:
     """sha256 (first 16 hex digits) of the float32 outputs of K9, K11, K4
     and K2a and of their bf16 outputs at d = 8, of the float32 outputs of
-    K7, K7s, K8, K10, K3, K1, K5, K6a and K6b, of K3's bf16 outputs at e =
-    96 and of K5's at e = 96: the work of the CUDA-core bodies of
+    K7, K7s, K8, K10, K3, K1, K5, K6a, K6b and K2b, of K3's, K5's and K2b's
+    bf16 outputs at e = 96: the work of the CUDA-core bodies of
     `csrc/attn_bwd.cuh`, `csrc/attn_tile.cuh`, `csrc/gemm_tile.cuh`
-    (cc_kernel), `csrc/mlp_ln.cu` and `csrc/feat_attn.cu`, of K3's mma.sync
-    body and of the backward row kernels, which the bf16 redesigns left as
-    they were. Inputs come from a seeded CPU generator
+    (cc_kernel), `csrc/mlp_ln.cu`, `csrc/feat_attn.cu` and
+    `csrc/item_epilogue.cu`, of K3's and K2b's mma.sync bodies and of the
+    backward row kernels, which the bf16 redesigns left as they were. Inputs come from a seeded CPU generator
     and, for the backward kernels, the plain forward and epilogue backward on
     the card (no other kernel of the port, so the digests pin the CUDA-core
     bodies alone); phase 8 holds them equal to `PARENT_F32_SHA256`, the
@@ -1179,6 +1235,13 @@ def f32_fingerprints(device) -> dict:
         w_qkv, w_out = rand(3, 6, 16, 96, scale=96**-0.5), rand(6, 16, 96, scale=96**-0.5)
         out["K5 bf16 e=96"] = digest(fused.fused_feature_attention_ln(
             rand(2, 37, t, 96).to(torch.bfloat16), w_qkv, w_out))
+        # K2b's CUDA-core body in float32 at the published widths (a ragged
+        # last block of 32 rows), and its mma.sync body (bf16 at e = 96)
+        x3, o, w_out = rand(2, 300, 192), rand(2, 300, 192), rand(6, 32, 192, scale=192**-0.5)
+        out["K2b f32"] = digest(item_fused.item_epilogue_ln(x3, o, w_out))
+        x3, o, w_out = rand(2, 300, 96), rand(2, 300, 96), rand(6, 16, 96, scale=96**-0.5)
+        out["K2b bf16 e=96"] = digest(item_fused.item_epilogue_ln(
+            x3.to(torch.bfloat16), o.to(torch.bfloat16), w_out))
     return out
 
 
@@ -1291,10 +1354,11 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
             check(launches[kid] == n, f"{kid} launched {launches[kid]} times in {steps} steps, expected {n}")
         for kid in ("K1", "K3") if flash else ("K1", "K2a", "K2b", "K3"):
             check(launches[kid] >= L * steps, f"{kid} launched {launches[kid]} times")
-        # training and validation in bf16: every K1 (and K5) launch took the
-        # wgmma body
-        check_wgmma_bodies("fine-tune", launches, bodies, FEAT_IDS)
-    print(f"  feature attention by body {({k: v for k, v in bodies.items() if v and k[:2] != 'K3'})}",
+        # training and validation in bf16: every K1 (and K5) and K2b launch
+        # took the wgmma body
+        check_wgmma_bodies("fine-tune", launches, bodies, ("K2b",) + FEAT_IDS)
+    print(f"  feature attention and K2b by body "
+          f"{({k: v for k, v in bodies.items() if v and k[:2] != 'K3'})}",
           flush=True)
 
     check("snapshot_write_errors" not in hist, f"snapshot write failed: {hist.get('snapshot_write_errors')}")
@@ -1606,8 +1670,8 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
             check(launches[kid] >= n, f"{kid} launched {launches[kid]} times, expected >= {n}")
         for kid in idle:
             check(launches[kid] == 0, f"{kid} launched {launches[kid]} times on the {fit_mode} path")
-        # bf16 at e = 192 (d = 32, nhid = 768): every K3, K1, K5, K6a and
-        # K6b launch took the wgmma body
+        # bf16 at e = 192 (d = 32, nhid = 768): every K2b, K3, K1, K5, K6a
+        # and K6b launch took the wgmma body
         check_wgmma_bodies(fit_mode, launches, bodies)
     warm = []  # the same requests again, each now at a sequence length seen before
     for n in request_sizes:
@@ -1766,7 +1830,7 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
         row.update({k: r[v] for k, v in main.items()})
         if kid == "K3":
             row["launches_cached"] = launches["cached"]["K3"]
-        if kid in ("K1", "K3"):
+        if kid in ("K1", "K2a", "K2b", "K3"):
             row["launches_finetune"] = launches["finetune"][kid]
             row["launches_flash_finetune"] = launches["flash_finetune"][kid]
         if kid == "K4":
@@ -1814,7 +1878,7 @@ def main() -> int:
         kernels.library()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"({kernels.library_path().name})", flush=True)
-        hgmma, prods, k3_sass, feat_sass = wgmma_sass_counts(kernels.library_path())
+        hgmma, prods, k3_sass, feat_sass, k2b_sass = wgmma_sass_counts(kernels.library_path())
         print(f"  HGMMA instructions in the SASS of the bf16 attention kernels (K2a and K4 forward, "
               f"K9 and K11 passes): {hgmma}", flush=True)
         print(f"  (HGMMA, local loads and stores) in the SASS of the bf16 product tile "
@@ -1840,6 +1904,20 @@ def main() -> int:
         check(kernels.build_log() != "" and not serial,
               "ptxas serialized the feature-attention body's wgmma (or printed no report): "
               + "; ".join(serial[:2]))
+        print(f"  (HGMMA, local loads and stores) in the SASS of K2b's wgmma body (item_epilogue.cu, "
+              f"by width): {k2b_sass}", flush=True)
+        check({k.split()[1] for k in k2b_sass} == {"e=64", "e=128", "e=192"}
+              and all(h > 0 and spills == 0 for h, spills in k2b_sass.values()),
+              "K2b's wgmma body does not issue wgmma without spilling at every width")
+        serial = serialized_wgmma(kernels.build_log(), "epilogue_ln_wg_kernel")
+        print(f"  ptxas serialization warnings (C75xx) for K2b's wgmma body: {len(serial)}", flush=True)
+        check(not serial, "ptxas serialized K2b's wgmma body: " + "; ".join(serial[:2]))
+        # K2a's bf16 projection is the instantiation through which K9
+        # recomputes qkv: its warnings are reported, not gated
+        serial = serialized_wgmma(kernels.build_log(), PROJ_INSTANTIATION)
+        print(f"  ptxas serialization warnings (C75xx) for the product tile of K2a's projection "
+              f"(<false, true, Store<bf16>>, shared with K9): {len(serial)} "
+              f"{sorted({ln[ln.rfind('('):] for ln in serial})}", flush=True)
     model_path = ROOT / "build" / "chip_smoke_model.npz"
     write_model(model_path)
     nmq_path = ROOT / "build" / "chip_smoke_model_no_multiquery.npz"

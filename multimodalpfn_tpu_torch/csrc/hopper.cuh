@@ -1,14 +1,14 @@
 // Hopper primitives shared by the tensor-core kernels: the forward tile of
 // K2a and K4 (attn_tile.cuh), the backward passes of K9 and K11
 // (attn_bwd.cuh), the bf16 products of the backward kernels
-// (gemm_tile.cuh), K3's bf16 body (mlp_ln.cu) and the bf16 body of K1, K5,
-// K6a and K6b (feat_attn.cu). Each is a thin wrapper
+// (gemm_tile.cuh), K3's bf16 body (mlp_ln.cu), K2b's (item_epilogue.cu) and
+// the bf16 body of K1, K5, K6a and K6b (feat_attn.cu). Each is a thin wrapper
 // of one PTX instruction (or of the driver's tensor-map encoder) for sm_90a:
 //  * mbarriers and TMA 3-D tile loads that complete on them (a 2-D map is
 //    one group), TMA stores and L2 prefetches;
 //  * the wgmma descriptor of a tile as TMA wrote it, K-major or MN-major,
-//    and the products m64n64k16 and m64n192k16 (A and B from shared memory)
-//    and m64nNk16 (A from registers, B N-major);
+//    and the products m64n64k16, m64n128k16 and m64n192k16 (A and B from
+//    shared memory) and m64nNk16 (A from registers, B N-major);
 //  * ex2.approx (one MUFU instruction), the register split of a
 //    warp-specialised block (setmaxnreg), and named barriers.
 // K1, K5, K6a and K6b (feat_attn.cu) add the products m64n48k16 and
@@ -200,6 +200,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
+// d (64 x 128) += A·B, A and B from shared memory (descriptors); TA, TB the
+// transpose bits (0: K-major, 1: M- or N-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 // d (64 x 192) += A·B, A and B from shared memory (descriptors); TA, TB the
 // transpose bits (0: K-major, 1: M- or N-major)
 template <int TA, int TB>
@@ -291,11 +302,17 @@ __device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-template <int N>
+// d (64 x N) += A·B from shared memory: N = 48, 96 with both operands
+// K-major; N = 64, 128, 192 with the transpose bits TA, TB
+template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
-  static_assert(N == 48 || N == 96, "no such product");
+  static_assert(N == 48 || N == 64 || N == 96 || N == 128 || N == 192, "no such product");
+  static_assert((N != 48 && N != 96) || (TA == 0 && TB == 0), "n48 and n96 are K-major only here");
   if constexpr (N == 48) wgmma_ss_n48(d, a, b, accumulate);
-  else wgmma_ss_n96(d, a, b, accumulate);
+  else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, a, b, accumulate);
+  else if constexpr (N == 96) wgmma_ss_n96(d, a, b, accumulate);
+  else if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, a, b, accumulate);
+  else wgmma_ss_n192<TA, TB>(d, a, b, accumulate);
 }
 
 // Accumulator layout of a 64-row wgmma product (and the operand layout of

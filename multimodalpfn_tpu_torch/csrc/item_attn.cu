@@ -16,13 +16,16 @@
 // SFU is the floor of the attention.
 //
 // Design:
-//  * proj_nt_kernel: a classic shared-memory tiled product, 64×64 outputs per
-//    block, 4×4 per thread, k-slabs of 16; outputs rounded to T as the Pallas
-//    kernel casts its projections. It is a kernel of this file, not a library
-//    call. Test rows' k/v columns are computed and unused (13% of the
-//    projection at the flagship shape) to keep one plain product.
-//    proj_nt_tc_kernel is its bf16 tensor-core twin (mma.sync, synchronous
-//    loads).
+//  * the projection, qkv = x3 · W^T with outputs rounded to T as the Pallas
+//    kernel casts its projections. Test rows' k/v columns are computed and
+//    unused (13% of the projection at the flagship shape) to keep one plain
+//    product. bf16 runs gemm_tile.cuh's product (the wgmma tile, 128 × 192
+//    outputs a tile from a TMA ring; its CUDA-core kernel where the operands
+//    are not 16-byte aligned), the same call by which K9 recomputes qkv,
+//    so the forward and the backward see the same bits; its bound is the
+//    bytes (x read, qkv written: 0.134 ms at the flagship shape). float32
+//    (the parity mode) runs proj_nt_kernel: a classic shared-memory tiled
+//    product, 64×64 outputs per block, 4×4 per thread, k-slabs of 16.
 //  * item_attn_kernel (float32, and bf16 at d = 8): one block per (group,
 //    head, 64-query tile); a thread owns one query row: its q and its float32
 //    output accumulator live in registers, K/V tiles of 64 train rows are
@@ -45,6 +48,7 @@
 // shared-memory ceiling (the Pallas kernel kept K/V resident in VMEM and was
 // capped at 4096 rows).
 #include "attn_tile.cuh"
+#include "gemm_tile.cuh"
 
 #include <type_traits>
 
@@ -98,65 +102,6 @@ proj_nt_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
       if (gn < N) C[gm * N + gn] = from_f<T>(acc[i][j]);
-    }
-  }
-}
-
-// The same product for bf16 operands with K a multiple of 8 and N even, on the
-// tensor cores: 64×64 outputs per block, a warp owns 16 rows, k-slabs of 32
-// staged in shared memory with 16-byte loads (zero past M, N and K), mma.sync
-// m16n8k16 with float32 accumulation, outputs rounded to bf16. B's rows are
-// the contraction-major b fragments as they lie, so no transpose is needed.
-constexpr int TM = 64, TN = 64, TK = 32, TTHREADS = 128;
-
-__global__ void __launch_bounds__(TTHREADS)
-proj_nt_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-                  __nv_bfloat16* __restrict__ C, long long M, int N, int K) {
-  constexpr int LD = TK + 8;  // padded rows: fragment reads hit distinct banks
-  __shared__ __align__(16) __nv_bfloat16 As[TM * LD];
-  __shared__ __align__(16) __nv_bfloat16 Bs[TN * LD];
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
-  const int wr = 16 * (tid >> 5);
-  const long long m0 = (long long)blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  float acc[TN / 8][4];
-#pragma unroll
-  for (int n = 0; n < TN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int i = tid; i < TM * TK / 8; i += TTHREADS) {
-      const int r = i / (TK / 8), c = (i - r * (TK / 8)) * 8;
-      const long long gm = m0 + r;
-      const int gn = n0 + r, gk = k0 + c;
-      *reinterpret_cast<uint4*>(As + r * LD + c) =
-          gm < M && gk < K ? *reinterpret_cast<const uint4*>(A + gm * K + gk) : zero;
-      *reinterpret_cast<uint4*>(Bs + r * LD + c) =
-          gn < N && gk < K ? *reinterpret_cast<const uint4*>(B + (long long)gn * K + gk) : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < TK / 16; ++ks) {
-      uint32_t a[4];
-      lds_a(a, As + wr * LD + ks * 16, LD);
-#pragma unroll
-      for (int n = 0; n < TN / 8; ++n) {
-        const __nv_bfloat16* br = Bs + (n * 8 + g) * LD + ks * 16 + 2 * q4;
-        mma_bf16_16816(acc[n], a, *reinterpret_cast<const uint32_t*>(br),
-                       *reinterpret_cast<const uint32_t*>(br + 8));
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long gm = m0 + wr + g + 8 * r;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int n = 0; n < TN / 8; ++n) {
-      const int gn = n0 + n * 8 + 2 * q4;  // even, and N is even: gn + 1 < N too
-      if (gn < N)
-        *reinterpret_cast<uint32_t*>(C + gm * N + gn) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
 }
@@ -226,21 +171,21 @@ struct ItemFwdGeo {
   }
 };
 
+// bf16: gemm_tile.cuh's product, the call K9 makes to recompute the same
+// qkv (item_attn_bwd.cu), so the two give the same bits; float32: proj_nt_kernel
 template <typename T>
 int launch_proj(const void* a, const void* b, void* c, long long M, int N, int K,
                 cudaStream_t stream) {
-  const long long mblocks = (M + PM - 1) / PM;
-  if (mblocks > 2147483647LL) return MMPFN_BAD_ARGS;
-  dim3 grid((N + PN - 1) / PN, (unsigned)mblocks);
-  static_assert(PM == TM && PN == TN, "both projection kernels tile the outputs alike");
-  if (std::is_same_v<T, __nv_bfloat16> && K % 8 == 0 && N % 2 == 0) {
-    proj_nt_tc_kernel<<<grid, TTHREADS, 0, stream>>>((const __nv_bfloat16*)a,
-                                                     (const __nv_bfloat16*)b, (__nv_bfloat16*)c,
-                                                     M, N, K);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return gemm::run<T>((const T*)a, (const T*)b, M, N, K, false, true, 0, gemm::Store<T>{(T*)c, N},
+                        stream);
   } else {
+    const long long mblocks = (M + PM - 1) / PM;
+    if (mblocks > 2147483647LL) return MMPFN_BAD_ARGS;
+    dim3 grid((N + PN - 1) / PN, (unsigned)mblocks);
     proj_nt_kernel<T><<<grid, PTHREADS, 0, stream>>>((const T*)a, (const T*)b, (T*)c, M, N, K);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>

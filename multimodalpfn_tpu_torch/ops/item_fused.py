@@ -83,8 +83,8 @@ def item_attention_core(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2a. Replaces `multimodalpfn_tpu/ops/pallas_item_fused.py:_fwd_kernel`
     (called twice through `_fwd_region` from `_fwd_call`); kernels in
-    `csrc/item_attn.cu`: the QKV projection, then both regions' attention in
-    one launch."""
+    `csrc/item_attn.cu`: the QKV projection (`_project_qkv`), then both
+    regions' attention in one launch."""
     if x3.device.type == "cpu":
         return item_attention_core_plain(x3, w_qkv, single_eval_pos)
     G, S, e = x3.shape
@@ -92,28 +92,38 @@ def item_attention_core(
     kernels.require_shape("K2a", "w_qkv", w_qkv, (3, h, d, e))
     if d not in (8, 16, 32, 64) or not 1 <= single_eval_pos <= S:
         raise ValueError(f"K2a: unsupported d={d} or single_eval_pos={single_eval_pos}")
-    w2 = kernels.aligned(w_qkv.reshape(3 * h * d, e).to(x3.dtype).contiguous())
-    x3 = kernels.aligned(x3)
-    kernels.require_cuda("K2a", x3, w2)
+    qkv = _project_qkv(x3, w_qkv)
     tail = kernels.launch_args(x3, "K2a")
-    lib = kernels.library()
-    qkv = torch.empty((G, S, 3 * h * d), dtype=x3.dtype, device=x3.device)
-    kernels.check(
-        lib.mmpfn_proj_nt(
-            x3.data_ptr(), w2.data_ptr(), qkv.data_ptr(), G * S, 3 * h * d, e, *tail
-        ),
-        "K2a",
-    )
     o = torch.empty((G, S, h * d), dtype=x3.dtype, device=x3.device)
     lse = torch.empty((G, h, S), dtype=torch.float32, device=x3.device)
     kernels.check(
-        lib.mmpfn_item_attn(
+        kernels.library().mmpfn_item_attn(
             qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), G, S, single_eval_pos, h, d, *tail
         ),
         "K2a",
     )
     kernels.LAUNCHES["K2a"] += 1
     return o, lse
+
+
+def _project_qkv(x3: torch.Tensor, w_qkv: torch.Tensor) -> torch.Tensor:
+    """K2a's first launch on the card: qkv ``(G, S, 3·h·d)`` = x3 · W_qkvᵀ in
+    x3's dtype (bf16 on `csrc/gemm_tile.cuh`'s product, as K9 recomputes
+    it)."""
+    G, S, e = x3.shape
+    _, h, d, _ = w_qkv.shape
+    w2 = kernels.aligned(w_qkv.reshape(3 * h * d, e).to(x3.dtype).contiguous())
+    x3 = kernels.aligned(x3)
+    kernels.require_cuda("K2a", x3, w2)
+    qkv = torch.empty((G, S, 3 * h * d), dtype=x3.dtype, device=x3.device)
+    kernels.check(
+        kernels.library().mmpfn_proj_nt(
+            x3.data_ptr(), w2.data_ptr(), qkv.data_ptr(), G * S, 3 * h * d, e,
+            *kernels.launch_args(x3, "K2a"),
+        ),
+        "K2a",
+    )
+    return qkv
 
 
 # ---------------------------------------------------------------------------
@@ -131,27 +141,55 @@ def item_epilogue_ln_plain(x3: torch.Tensor, o: torch.Tensor, w_out: torch.Tenso
     return ln_rows(x3.float() + acc).to(cd)
 
 
+def item_epilogue_body(dtype: torch.dtype, e: int, hd: int) -> str:
+    """Which body of K2b (`csrc/item_epilogue.cu`) runs on the card for
+    operands of ``dtype`` at width ``e`` and ``hd`` = h·d: ``"wgmma"`` (bf16,
+    e = 64, 128, 192, hd a multiple of 64 up to 256; Hopper's wgmma fed by
+    TMA, W_out resident), ``"mma_sync"`` (bf16 at other multiples of 32 up to
+    192 with hd a multiple of 8) or ``"cuda_cores"`` (float32, and bf16 at
+    other widths). Raises TypeError for another dtype and ValueError where
+    no body takes the widths (e above 256, hd above 1816)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K2b: dtype {dtype} is not supported (float32 or bfloat16)")
+    if not 1 <= e <= 256 or not 1 <= hd <= 1816:
+        raise ValueError(f"K2b: unsupported widths e={e}, h·d={hd}")
+    if dtype == torch.bfloat16:
+        if e in (64, 128, 192) and hd % 64 == 0 and hd <= 256:
+            return "wgmma"
+        if e % 32 == 0 and e <= 192 and hd % 8 == 0:
+            return "mma_sync"
+    return "cuda_cores"
+
+
 def item_epilogue_ln(x3: torch.Tensor, o: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
     """K2b. Replaces `multimodalpfn_tpu/ops/pallas_item_fused.py:_epi_fwd_kernel`
-    (called through `_epi_fwd_call`); kernel in `csrc/item_epilogue.cu`."""
+    (called through `_epi_fwd_call`); kernel in `csrc/item_epilogue.cu`, its
+    body chosen by `item_epilogue_body`."""
     if x3.device.type == "cpu":
         return item_epilogue_ln_plain(x3, o, w_out)
     e = x3.shape[-1]
     hd = o.shape[-1]
     if w_out.numel() != hd * e:
         raise ValueError(f"K2b: w_out has shape {tuple(w_out.shape)}, expected h·d = {hd} by e = {e}")
-    if e > 256 or o.shape[:-1] != x3.shape[:-1] or o.dtype != x3.dtype:
+    if o.shape[:-1] != x3.shape[:-1] or o.dtype != x3.dtype:
         raise ValueError(f"K2b: unsupported operands x {tuple(x3.shape)}, o {tuple(o.shape)}")
+    body = item_epilogue_body(x3.dtype, e, hd)
     wout = kernels.aligned(w_out.reshape(hd, e).to(x3.dtype).contiguous())
     x3, o = kernels.aligned(x3), kernels.aligned(o)
     kernels.require_cuda("K2b", x3, o, wout)
     out = torch.empty_like(x3)
-    rc = kernels.library().mmpfn_item_epilogue_ln(
-        x3.data_ptr(), o.data_ptr(), wout.data_ptr(), out.data_ptr(),
-        x3.numel() // e, e, hd, *kernels.launch_args(x3, "K2b"),
-    )
+    lib = kernels.library()
+    ptrs = (x3.data_ptr(), o.data_ptr(), wout.data_ptr(), out.data_ptr(), x3.numel() // e, e, hd)
+    dtype, device, stream = kernels.launch_args(x3, "K2b")
+    if body == "wgmma":
+        rc = lib.mmpfn_item_epilogue_ln_wg(*ptrs, device, stream)
+    elif body == "mma_sync":
+        rc = lib.mmpfn_item_epilogue_ln_mma(*ptrs, device, stream)
+    else:
+        rc = lib.mmpfn_item_epilogue_ln(*ptrs, dtype, device, stream)
     kernels.check(rc, "K2b")
     kernels.LAUNCHES["K2b"] += 1
+    kernels.BODY_LAUNCHES[f"K2b {body}"] += 1
     return out
 
 
@@ -339,6 +377,13 @@ def item_attention_bwd(
     kernel in `csrc/item_attn_bwd.cu`. Results as `item_attention_bwd_plain`."""
     if x3.device.type == "cpu":
         return item_attention_bwd_plain(x3, w_qkv, do, delta, lse, single_eval_pos, dx_epi)
+    dx, dw_qkv, _ = _launch_item_attention_bwd(x3, w_qkv, do, delta, lse, single_eval_pos, dx_epi)
+    return dx, dw_qkv
+
+
+def _launch_item_attention_bwd(x3, w_qkv, do, delta, lse, single_eval_pos, dx_epi):
+    """K9 on the card: dx and dw_qkv as `item_attention_bwd`, and the qkv
+    ``(G·S, 3·h·d)`` it recomputed from x3."""
     G, S, e = x3.shape
     _, h, d, _ = w_qkv.shape
     hd, sep = h * d, single_eval_pos
@@ -370,7 +415,7 @@ def item_attention_bwd(
     )
     kernels.check(rc, "K9")
     kernels.LAUNCHES["K9"] += 1
-    return dx, _fold_dw_ext(dw, h, d)
+    return dx, _fold_dw_ext(dw, h, d), qkv
 
 
 class _ItemSublayer(torch.autograd.Function):

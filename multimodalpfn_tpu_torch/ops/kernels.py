@@ -45,11 +45,12 @@ LAUNCHES: dict[str, int] = {
 }
 
 # kernel body -> launches since the last reset, for kernels with more than
-# one body (K3: `ops/fused.py:mlp_ln_body`; K1, K5, K6a, K6b:
+# one body (K3: `ops/fused.py:mlp_ln_body`; K2b:
+# `ops/item_fused.py:item_epilogue_body`; K1, K5, K6a, K6b:
 # `ops/fused.py:feat_attn_body`); each also counts in LAUNCHES
-BODY_LAUNCHES: dict[str, int] = {"K3 wgmma": 0, "K3 mma_sync": 0, "K3 cuda_cores": 0} | {
-    f"{kid} {body}": 0 for kid in ("K1", "K5", "K6a", "K6b") for body in ("wgmma", "cuda_cores")
-}
+BODY_LAUNCHES: dict[str, int] = {
+    f"{kid} {body}": 0 for kid in ("K3", "K2b") for body in ("wgmma", "mma_sync", "cuda_cores")
+} | {f"{kid} {body}": 0 for kid in ("K1", "K5", "K6a", "K6b") for body in ("wgmma", "cuda_cores")}
 
 
 # Rows of the weight-gradient contractions per block: each chunk's float32
@@ -89,6 +90,10 @@ _SIGNATURES = {
     "mmpfn_item_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # (x, o, wout, out, rows, e, hd, dtype, device, stream)
     "mmpfn_item_epilogue_ln": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # (x, o, wout, out, rows, e, hd, device, stream): bf16 only
+    "mmpfn_item_epilogue_ln_mma": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # (x, o, wout, out, rows, e, hd, device, stream): bf16 only
+    "mmpfn_item_epilogue_ln_wg": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     # (x, wqkv, wout, g, qkv, o, u, du, du_c, do, dqkv, dx, dwqkv, dwout, work,
     #  b, t, s, e, h, d, wgrad_rows, dtype, device, stream)
     "mmpfn_feat_attn_bwd_im": [_P] * 15 + [_I] * 7 + [_I, _I, _P],

@@ -278,17 +278,66 @@ def test_k2a_bf16_matches_plain(cuda, d, e):
     torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize("e,hd", [(64, 96), (48, 40)])
+@pytest.mark.parametrize("e,hd", [(64, 96), (48, 40), (96, 96), (48, 48)])
 def test_k2b_bf16_matches_plain(cuda, e, hd):
     """bf16 K2b within two bf16 ulps of the largest output: e = 64, h·d = 96
-    takes the tensor-core kernel (with a ragged last chunk of o), the other
-    shape the CUDA-core one."""
-    g = torch.Generator().manual_seed(5)
-    x3 = _rand(g, 2, 77, e, device=cuda).to(torch.bfloat16)
-    o = _rand(g, 2, 77, hd, device=cuda).to(torch.bfloat16)
-    w_out = _rand(g, hd, e, scale=hd**-0.5, device=cuda)
-    got, want = item_fused.item_epilogue_ln(x3, o, w_out), item_fused.item_epilogue_ln_plain(x3, o, w_out)
+    (with a ragged last chunk of o) and e = 96 take the mma.sync body, e =
+    48 the CUDA-core one."""
+    _check_k2b_body(cuda, (2, 77), e, hd, "cuda_cores" if e == 48 else "mma_sync", seed=5)
+
+
+def _check_k2b_body(device, lead, e, hd, body, seed=5):
+    """bf16 K2b at x ``(*lead, e)``, o ``(*lead, hd)`` runs ``body``
+    (`item_fused.item_epilogue_body`), is within two bf16 ulps of the
+    largest output of its plain version, and a repeat gives the same bits."""
+    g = torch.Generator().manual_seed(seed)
+    x3 = _rand(g, *lead, e, device=device).to(torch.bfloat16)
+    o = _rand(g, *lead, hd, device=device).to(torch.bfloat16)
+    w_out = _rand(g, hd, e, scale=hd**-0.5, device=device)
+    kernels.reset_launches()
+    got, again = item_fused.item_epilogue_ln(x3, o, w_out), item_fused.item_epilogue_ln(x3, o, w_out)
+    assert kernels.BODY_LAUNCHES[f"K2b {body}"] == kernels.LAUNCHES["K2b"] == 2
+    want = item_fused.item_epilogue_ln_plain(x3, o, w_out)
+    assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max() / want.float().abs().max() <= 2.0**-6
+    assert torch.equal(got, again)
+
+
+# row counts around the 64-row unit, a block's two units and the 132-block
+# grid (units split 2 a block until every SM has one)
+K2B_ROWS = [1, 77, 127, 129, 128 * 132 + 1]
+
+
+@pytest.mark.parametrize("rows", K2B_ROWS)
+@pytest.mark.parametrize("e,hd", [(64, 64), (128, 128), (192, 192), (192, 64)])
+def test_k2b_wgmma_body_matches_plain(cuda, e, hd, rows):
+    _check_k2b_body(cuda, (rows,), e, hd, "wgmma")
+
+
+@pytest.mark.parametrize("lead", [(124, 2350), (30, 1838)])
+def test_k2b_wgmma_body_at_served_shapes(cuda, lead):
+    """The fit_preprocessors activation (4 members × 31 tokens, 2350 rows)
+    and the fine-tune episode (30 tokens, 1838 rows)."""
+    _check_k2b_body(cuda, lead, 192, 192, "wgmma")
+
+
+@pytest.mark.parametrize("d,e", [(32, 192), (16, 32), (8, 96)])
+def test_k2a_bf16_qkv_equals_k9s(cuda, d, e):
+    """bf16 K2a's projection is the product through which K9 recomputes qkv
+    (`gemm_tile.cuh`): on the same operands the two give the same bits, and
+    K2a stays within two bf16 ulps of its plain version."""
+    g = torch.Generator().manual_seed(9)
+    G, S, sep, h = 3, 150, 100, 2
+    x3 = _rand(g, G, S, e, device=cuda).to(torch.bfloat16)
+    w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
+    qkv = item_fused._project_qkv(x3, w_qkv)
+    o, lse = item_fused.item_attention_core(x3, w_qkv, sep)
+    do = _rand(g, G, S, h * d, device=cuda).to(torch.bfloat16)
+    delta, du = _rand(g, G, h, S, device=cuda), _rand(g, G, S, e, device=cuda).to(torch.bfloat16)
+    *_, qkv9 = item_fused._launch_item_attention_bwd(x3, w_qkv, do, delta, lse, sep, du)
+    assert torch.equal(qkv.reshape(G * S, -1), qkv9)
+    o_ref, _ = item_fused.item_attention_core_plain(x3, w_qkv, sep)
+    assert (o.float() - o_ref.float()).abs().max() / o_ref.float().abs().max() <= 2.0**-6
 
 
 @pytest.mark.parametrize("e,nhid", [(64, 128), (48, 200)])

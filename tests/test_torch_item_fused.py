@@ -104,6 +104,76 @@ def test_attention_core_bf16_matches_jax(S, sep, d):
                                    rtol=0, atol=1e-5)
 
 
+# the widths of K2b's wgmma body on the card, (e, h·d): square at 64 and at
+# the published 192, and h·d below e; S = 130 leaves the card's 64-row units
+# and the Pallas kernel's 512-row block ragged
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,hd", [(64, 64), (192, 192), (192, 64)])
+def test_epilogue_plain_matches_jax(e, hd, dtype):
+    """`item_epilogue_ln_plain` against the Pallas `_epi_fwd_call` in
+    interpret mode: float32 within 1e-5 of the largest output (summation
+    order), bf16 within two bf16 ulps of it (2**-6: the kernels sum the
+    same bf16 products in float32 in another order, and each output is
+    rounded to bf16 once)."""
+    rng = np.random.default_rng(e + hd)
+    G, S = 2, 130
+    x = rng.standard_normal((G, S, e)).astype(np.float32)
+    o = rng.standard_normal((G, S, hd)).astype(np.float32)
+    w = (rng.standard_normal((hd, e)) * hd**-0.5).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(
+            pif._epi_fwd_call(jnp.asarray(x, jdt), jnp.asarray(np.swapaxes(o, 1, 2), jdt), jnp.asarray(w, jdt)),
+            dtype=np.float32,
+        )
+    got = tif.item_epilogue_ln(torch.from_numpy(x).to(tdt), torch.from_numpy(o).to(tdt),
+                               torch.from_numpy(w).reshape(hd // 8, 8, e))
+    assert got.dtype == tdt and got.shape == (G, S, e)
+    bound = 1e-5 if dtype == "float32" else 2.0**-6
+    assert np.abs(got.float().numpy() - want).max() <= bound * np.abs(want).max()
+
+
+# (dtype, e, h·d) -> the body of K2b that runs on the card, or the error the
+# wrapper raises: wgmma for bf16 at e = 64, 128, 192 with h·d a multiple of
+# 64 up to 256; mma.sync at the other multiples of 32 up to 192 with h·d a
+# multiple of 8; the CUDA cores for float32 and the other bf16 widths
+EPI_BODY_CASES = [
+    (torch.bfloat16, 192, 192, "wgmma"), (torch.bfloat16, 192, 64, "wgmma"),
+    (torch.bfloat16, 128, 128, "wgmma"), (torch.bfloat16, 64, 256, "wgmma"),
+    (torch.bfloat16, 64, 96, "mma_sync"), (torch.bfloat16, 96, 96, "mma_sync"),
+    (torch.bfloat16, 192, 320, "mma_sync"), (torch.bfloat16, 32, 8, "mma_sync"),
+    (torch.bfloat16, 160, 48, "mma_sync"),
+    (torch.bfloat16, 48, 40, "cuda_cores"), (torch.bfloat16, 224, 64, "cuda_cores"),
+    (torch.bfloat16, 192, 36, "cuda_cores"), (torch.bfloat16, 256, 256, "cuda_cores"),
+    (torch.float32, 192, 192, "cuda_cores"), (torch.float32, 64, 64, "cuda_cores"),
+    (torch.bfloat16, 257, 64, ValueError), (torch.float32, 0, 64, ValueError),
+    (torch.bfloat16, 192, 2048, ValueError), (torch.float32, 192, 0, ValueError),
+    (torch.float16, 192, 192, TypeError), (torch.float64, 64, 64, TypeError),
+]
+
+
+@pytest.mark.parametrize("dtype,e,hd,want", EPI_BODY_CASES)
+def test_epilogue_body_choice(dtype, e, hd, want):
+    if isinstance(want, str):
+        assert tif.item_epilogue_body(dtype, e, hd) == want
+    else:
+        with pytest.raises(want, match="K2b"):
+            tif.item_epilogue_body(dtype, e, hd)
+
+
+def test_epilogue_wrapper_refuses_what_no_body_takes():
+    """Off the CPU the wrapper asks `item_epilogue_body` before anything
+    launches: widths no body takes raise ValueError, other dtypes
+    TypeError."""
+    x = torch.empty((3, 5, 288), device="meta", dtype=torch.bfloat16)
+    o = torch.empty((3, 5, 64), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="e=288"):
+        tif.item_epilogue_ln(x, o, torch.empty((64, 288), device="meta"))
+    x16 = torch.empty((3, 5, 64), device="meta", dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        tif.item_epilogue_ln(x16, x16, torch.empty((64, 64), device="meta"))
+
+
 def test_plain_core_matches_plain_item_attention():
     """K2a + out-projection equals the plain two-block `item_attention`
     (train self-attention, test rows on KV head 0)."""
@@ -133,3 +203,46 @@ def test_gate_admits_any_train_split():
     assert not tatt.can_use_fused_item(0, 10, **kw)
     assert not tatt.can_use_fused_item(600, 10, fused_item=True, multiquery_test=False, ring_axis=None)
     assert not tatt.can_use_fused_item(600, 10, fused_item=False, multiquery_test=True, ring_axis=None)
+
+
+def _global_functions() -> list[str]:
+    """The qualified name (named namespaces only, as the profiler prints
+    them) of every ``__global__`` function in the port's CUDA sources."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(tif.__file__).resolve().parents[1] / "csrc"
+    kernel = re.compile(r"__global__\s+(?:static\s+)?void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    names = []
+    for path in sorted(csrc.glob("*.cu*")):
+        text = path.read_text()
+        # namespace opens and closes, and kernels, in the order they appear
+        events = sorted([(m.start(), "open", m.group(1))
+                         for m in re.finditer(r"^namespace (\w*)\s*\{", text, re.M)]
+                        + [(m.start(), "close", "") for m in re.finditer(r"^\}\s*// namespace", text, re.M)]
+                        + [(m.start(), "kernel", m.group(1)) for m in kernel.finditer(text)])
+        stack = []
+        for _, kind, name in events:
+            if kind == "open":
+                stack.append(name)
+            elif kind == "close":
+                stack.pop()
+            else:
+                names.append("::".join([ns for ns in stack if ns] + [name]))
+    return names
+
+
+@pytest.mark.parametrize("table,part", [("K2A_PARTS", "proj"), ("K2A_PARTS", "attn"),
+                                        ("BWD_PASSES", "dq_pass"), ("BWD_PASSES", "dkv_pass")])
+def test_profiler_names_match_kernels(table, part):
+    """Each profiler-name pattern by which `chip_smoke.py` splits a kernel's
+    time (K2a's projection and attention, the dq and dk/dv passes) matches
+    a ``__global__`` function of `csrc/`: a pattern left behind by a renamed
+    or deleted kernel would silently time nothing."""
+    import chip_smoke
+
+    patterns = getattr(chip_smoke, table)[part]
+    globals_ = _global_functions()
+    assert "gemm::wgmma_kernel" in globals_ and "attn_bwd::dq_wg_kernel" in globals_
+    for pattern in (patterns,) if isinstance(patterns, str) else patterns:
+        assert any(pattern in name for name in globals_), (pattern, globals_)

@@ -17,8 +17,10 @@ forward ids run phase 2's cases (`chip_smoke.phase_kernels`, every case
 whose id starts with one of them: K1 at the ``fit_preprocessors`` shape, at
 48 tokens and at the fine-tune episode, K5 at the KV-cache prime shape and
 at 48 tokens, K6a at 48 tokens, K6b at the merged prime and predict shapes,
-each beside ``torch.matmul`` on its QKV and out projections; K2a at the
-``fit_preprocessors`` shape with its projection and attention apart, K3 at
+each beside ``torch.matmul`` on its QKV and out projections; K2a and K2b
+at the ``fit_preprocessors`` shape and at the fine-tune episode, K2a's
+projection and attention apart, each beside ``torch.matmul`` on its
+projection or out-product; K3 at
 the ``fit_preprocessors``, KV-cache prime and predict and fine-tune episode
 shapes beside ``torch.matmul`` on its two products, K4 at the KV-cache
 prime and predict shapes and at the flash fine-tune's three blocks),
@@ -76,7 +78,7 @@ def tile_alone(smoke, kernels, device, iters) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-root", type=Path, default=ROOT)
-    ap.add_argument("--only", default="K2a,K3,K4,K7,K8,K9,K10",
+    ap.add_argument("--only", default="K2a,K2b,K3,K4,K7,K8,K9,K10",
                     help="comma-separated kernel ids (default: %(default)s)")
     ap.add_argument("--tile", action="store_true",
                     help="also time the bf16 product tile alone on K7's and K8's products")
