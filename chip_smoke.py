@@ -16,10 +16,12 @@ Phases, each of which must pass:
    the 20 instantiations of the bf16 product tile of K7-K10 and of K2a's
    projection (``gemm_tile.cuh``: five epilogues by four storage orders),
    of K3's wgmma body (``mlp_ln.cu``, e = 64, 128, 192), of the wgmma body
-   of K1, K5, K6a and K6b (``feat_attn.cu``, e = 64 and 192) and of K2b's
-   (``item_epilogue.cu``, e = 64, 128, 192), each of which must issue wgmma
+   of K1, K5, K6a and K6b (``feat_attn.cu``, e = 64 and 192), of K2b's
+   (``item_epilogue.cu``, e = 64, 128, 192) and of the per-row attention
+   of K7 and K7s (``feat_attn_bwd.cu``, ``row_wg``: forward and softmax
+   backward, both layouts, d = 16, 32, 64), each of which must issue wgmma
    with no local-memory load or store; the ``-Xptxas -v`` report must hold
-   no serialization warning (C75xx) for the last two (those of the
+   no serialization warning (C75xx) for the last three (those of the
    projection's instantiation are printed); write the model every phase
    serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
@@ -93,14 +95,18 @@ Phases, each of which must pass:
    bf16 (2**-6), each output relative to its own largest magnitude; each run
    twice on the same inputs must give the same bits. Times, bounds, and for
    K9 the backward of ``scaled_dot_product_attention`` over both regions.
-   For bf16 K7 and K8, each launch of the sequence by profiler name, each
-   product beside ``torch.matmul`` on operands of its shapes, and each
-   launch's bytes over the HBM rate (`bwd_products`); the kernels line
-   carries the two measured ones as ``products_ms`` and ``matmul_ms``.
+   For bf16 K7, K7s and K8, each launch of the sequence by profiler name,
+   each product beside ``torch.matmul`` on operands of its shapes, and each
+   launch's bytes over the HBM rate (`bwd_products`); K7's and K7s' two
+   per-row attention launches also beside their exponential floor and SDPA
+   (forward, and its backward) on the same shapes as (rows·h, t, d); the
+   kernels line carries the measured ones as ``products_ms``,
+   ``matmul_ms`` and ``attn_sdpa_ms``.
 9. ``fine_tune_mmpfn`` served: 100 bf16 steps on the PAD-UFES-shaped set (the
    full 12 layers, validation after every step); the counters, zeroed just
-   before, show K7, K8, K9 and K10 launched 12 times per step, and every K1
-   and K2b launch (training and validation) on its wgmma body; every loss and
+   before, show K7, K8, K9 and K10 launched 12 times per step, every K1
+   and K2b launch (training and validation) on its wgmma body and the
+   per-row attention of every K7 launch on its wgmma body; every loss and
    gradient norm finite, no step skipped, no snapshot write failed; the
    snapshot on disk differs from the base model exactly when validation
    improved, and ``MMPFNClassifier`` serves it (rows sum to 1).
@@ -113,8 +119,9 @@ Phases, each of which must pass:
 11. Fine-tuning with the fused item gate refused: the same random weights
    saved with ``multiquery_item_attention_for_test_set: false``,
    ``fine_tune_mmpfn`` for 100 bf16 steps; the counters show K4 forward and
-   K11 backward in both item blocks of every layer (K11 24 times a step) and
-   no K2a, K2b, K9 or K10; the snapshot keeps the key, is the best one, and
+   K11 backward in both item blocks of every layer (K11 24 times a step),
+   no K2a, K2b, K9 or K10, and the per-row attention of every K7 and K7s
+   launch on its wgmma body; the snapshot keeps the key, is the best one, and
    ``MMPFNClassifier`` serves it through K4. Before it, in the same zeroed
    count, the public sample-major sublayer ``fused_feature_attention_ln`` is
    differentiated once at the flagship episode's shape (K5 forward, K7s
@@ -137,7 +144,8 @@ holds their float32 outputs (and K11's bf16 at d = 8), which the CUDA-core
 bodies compute, to the parent commit's bits (`PARENT_F32_SHA256`); so too
 K4's and K2a's float32 outputs and bf16 at d = 8 (`attn::cc_rows`), the
 float32 outputs of K7, K7s, K8 and K10 (`gemm_tile.cuh`'s cc_kernel and the
-row kernels), K3's and K2b's float32 outputs (their CUDA-core bodies) and
+row kernels), K7's and K7s' bf16 outputs at d = 8 (their per-row warp
+kernels), K3's and K2b's float32 outputs (their CUDA-core bodies) and
 bf16 outputs at e = 96 (their mma.sync bodies), and the float32 outputs of
 K1, K5, K6a and K6b and K5's bf16 outputs at e = 96 (`feat_attn.cu`'s
 CUDA-core body).
@@ -272,8 +280,10 @@ KERNELS = {
 # product tile did; K3: ede4bbd, before its wgmma body; K1, K5, K6a, K6b:
 # 3db1a8b, before theirs; K2b: 4125216, before its wgmma body, whose
 # "K2a bf16 d=8" equals 4f9071f's although K2a's bf16 projection moved to
-# the product tile): the CUDA-core bodies (float32, and bf16 at d = 8 or e =
-# 96) and the mma.sync bodies of K3 and K2b must go on giving these bits
+# the product tile; the bf16 d = 8 keys of K7 and K7s: 7f26c34, before
+# their per-row attention's wgmma body): the CUDA-core bodies (float32,
+# and bf16 at d = 8 or e = 96) and the mma.sync bodies of K3 and K2b must
+# go on giving these bits
 PARENT_F32_SHA256 = {
     "K11 f32 d=8": "b9f0e3a2bc2964aa", "K11 f32 d=16": "b910ce43502031dc",
     "K11 f32 d=32": "4055da75ae152101", "K11 f32 d=64": "8d25581c0adcb482",
@@ -289,6 +299,7 @@ PARENT_F32_SHA256 = {
     "K1 f32": "da7fcfc122933dd0", "K5 f32": "293dd2d20ed420c1", "K6a f32": "5e65a88ded4555cb",
     "K6b f32": "56943489eeb2bb17", "K5 bf16 e=96": "cb9035e58a023f42",
     "K2b f32": "7ab68ec6b93b7270", "K2b bf16 e=96": "89ff1226d8fa41fc",
+    "K7 bf16 d=8": "6c8acd35f9c00bb0", "K7s bf16 d=8": "f7f80118ea150945",
 }
 # the served path each kernel's launch count comes from: phases 3 and 5 serve
 # the cost rule's plan; phase 7 the split groups (K1, K5) and the merged one
@@ -372,19 +383,21 @@ def bound(flops: float, nbytes: float, tag: str) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict]:
+def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict, dict]:
     """HGMMA instructions in the SASS (``cuobjdump --dump-sass``) of each
     bf16 tensor-core kernel: the attention forward of K2a and K4
     (`csrc/attn_tile.cuh`) and the dq and dk/dv passes of K9 and K11
     (`csrc/attn_bwd.cuh`), each at d = 16, 32, 64 (18 kernels); and of the
     product tile of `csrc/gemm_tile.cuh` by epilogue and transposes, of
     K3's wgmma body (`csrc/mlp_ln.cu`) by width, of the wgmma body of K1,
-    K5, K6a and K6b (`csrc/feat_attn.cu`) by width, layout and mask and of
-    K2b's wgmma body (`csrc/item_epilogue.cu`) by width, each with its
-    local-memory loads and stores (spills) beside. Returns (attention
-    counts, {product kernel: (HGMMA, LDL + STL)}, {K3 kernel: (HGMMA, LDL +
-    STL)}, {feature-attention kernel: (HGMMA, LDL + STL)}, {K2b kernel:
-    (HGMMA, LDL + STL)})."""
+    K5, K6a and K6b (`csrc/feat_attn.cu`) by width, layout and mask, of
+    K2b's wgmma body (`csrc/item_epilogue.cu`) by width and of the per-row
+    attention of K7 and K7s (`csrc/feat_attn_bwd.cu`, `row_wg`) by pass,
+    layout and d, each with its local-memory loads and stores (spills)
+    beside. Returns (attention counts, {product kernel: (HGMMA, LDL +
+    STL)}, {K3 kernel: (HGMMA, LDL + STL)}, {feature-attention kernel:
+    (HGMMA, LDL + STL)}, {K2b kernel: (HGMMA, LDL + STL)}, {row-attention
+    kernel: (HGMMA, LDL + STL)})."""
     import os
     import re
     import shutil
@@ -392,7 +405,7 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict]:
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     proc = subprocess.Popen([tool, "--dump-sass", str(lib)], stdout=subprocess.PIPE, text=True)
-    counts, gemm, k3, feat, k2b, fn, gfn = {}, {}, {}, {}, {}, None, None
+    counts, gemm, k3, feat, k2b, rows, fn, gfn = {}, {}, {}, {}, {}, {}, None, None
     for line in proc.stdout:
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -410,6 +423,10 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict]:
                 gfn = (f"{('K6b' if int(masked) else 'K5') if int(sm) else ('K6a' if int(masked) else 'K1')}"
                        f" e={e} d={d}")
                 feat.setdefault(gfn, [0, 0])
+            elif "row_wg" in name:
+                d, sm, bwd = re.search(r"attn_wg_kernelILi(\d+)ELb(\d)ELb(\d)E", name).groups()
+                gfn = f"{'K7s' if int(sm) else 'K7'} {'bwd' if int(bwd) else 'fwd'} d={d}"
+                rows.setdefault(gfn, [0, 0])
             elif "wg_kernel" in name:
                 d = re.search(r"wg_kernelILi(\d+)", name).group(1)
                 if "fwd_wg_kernel" in name:
@@ -427,10 +444,10 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict]:
             counts[fn] += 1
         elif gfn and ("HGMMA" in line or re.search(r"\b(LDL|STL)\b", line)):
             table = (k3 if gfn.startswith("K3") else k2b if gfn.startswith("K2b")
-                     else gemm if gfn in gemm else feat)
+                     else rows if gfn.startswith("K7") else gemm if gfn in gemm else feat)
             table[gfn][0 if "HGMMA" in line else 1] += 1
     check(proc.wait(timeout=300) == 0, "cuobjdump failed")
-    return counts, *({k: tuple(v) for k, v in t.items()} for t in (gemm, k3, feat, k2b))
+    return counts, *({k: tuple(v) for k, v in t.items()} for t in (gemm, k3, feat, k2b, rows))
 
 
 # the mangled name of `gemm_tile.cuh`'s wgmma_kernel<false, true,
@@ -579,7 +596,8 @@ def bwd_flops(dims) -> dict:
 
 
 # the kernels of K7's and K8's launch sequences, by profiler name
-SEQ_KERNELS = ("gemm::", "ln_bwd_kernel", "attn_o_kernel", "attn_bwd_kernel", "sum_slabs_kernel")
+SEQ_KERNELS = ("gemm::", "ln_bwd_kernel", "attn_o_kernel", "attn_bwd_kernel", "row_wg::attn_wg_kernel",
+               "sum_slabs_kernel")
 
 
 def sequence_ms(fn, device, iters: int, names: list) -> dict | None:
@@ -1066,6 +1084,7 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
                       lambda dt, G_=G_, Sq=Sq: flash_inputs(G_, Sq, dt), flash_work(G_, Sq))
     libraries = {"K9": item_sdpa_bwd} | {kid: flash_sdpa_bwd(*blk) for kid, blk in blocks.items()}
     seqs = bwd_products(dims)
+    seqs["K7s"] = seqs["K7"]
     results = {}
     for kid, (kern, plain, make, work) in cases.items():
         if only is not None and kid not in only:
@@ -1114,7 +1133,8 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
                 flush=True,
             )
             if kid in seqs and tag == "bf16":
-                res |= launch_sequence(kid, seqs[kid], lambda: kern(*args), device, iters)
+                res |= launch_sequence(kid, seqs[kid], lambda: kern(*args), device, iters,
+                                       dims if kid in ("K7", "K7s") else None)
             check(finite, f"{kid} {tag}: non-finite output")
             check(same, f"{kid} {tag}: two runs on the same inputs differ")
             check(max(rels) <= rel_bound, f"{kid} {tag}: rel err {max(rels):.3e} > {rel_bound:.3e}")
@@ -1123,35 +1143,78 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
     return results
 
 
-def launch_sequence(kid, seq, fn, device, iters) -> dict:
-    """K7's or K8's bf16 launch sequence: each launch's device time by
+# K7's per-row attention launches (`bwd_products`): the forward (o) and the
+# softmax backward (dq, dk, dv), each one pass over the (query, key) pairs
+ROW_ATTN = {"attn_o": False, "attn_bwd (softmax backward)": True}
+
+
+def row_attn_sdpa_ms(dims, device, iters) -> dict:
+    """The yardstick of K7's per-row attention, never called by the port:
+    ``scaled_dot_product_attention`` on random bf16 q, k, v of the
+    episode's rows as (rows·h, t, d), forward, and its backward (the
+    forward done before timing), in ms."""
+    import torch
+    import torch.nn.functional as F
+
+    if device.type != "cuda":
+        return {}
+    b, t, S, _, _, h, d, _ = dims
+    q, k, v = (torch.randn((b * S * h, t, d), device=device, dtype=torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    do = torch.randn((b * S * h, t, d), device=device, dtype=torch.bfloat16)
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(q, k, v)
+    qc, kc, vc = q.detach(), k.detach(), v.detach()
+    fwd = timed(lambda: F.scaled_dot_product_attention(qc, kc, vc), device, iters)
+    bwd = timed(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True), device, iters)
+    return {"attn_o": fwd, "attn_bwd (softmax backward)": bwd}
+
+
+def launch_sequence(kid, seq, fn, device, iters, attn_dims=None) -> dict:
+    """K7's, K7s' or K8's bf16 launch sequence: each launch's device time by
     profiler name, each product's ``torch.matmul`` time, each launch's bytes
     over the HBM rate, all printed; the two measured ones are returned as
-    ``products_ms`` and ``matmul_ms`` (each {launch: ms}). The bytes bound is
-    computed, not measured, so it stays out of the ``kernels`` line."""
+    ``products_ms`` and ``matmul_ms`` (each {launch: ms}). With
+    ``attn_dims`` (K7, K7s: the episode, `FT_DIMS`' layout) the per-row
+    attention launches also print their exponential floor (one ex2 per
+    (query, key) pair of a sample, a pass) and SDPA's time on the same
+    shapes (`row_attn_sdpa_ms`), returned as ``attn_sdpa_ms``. The bounds
+    and floors are computed, not measured, so they stay out of the
+    ``kernels`` line."""
     per = {ln["name"]: launch_bytes(seq, ln, 2) / HBM_BYTES_PER_S * 1e3 for ln in seq["launches"]}
     per["total"] = sum(per.values())
     got = sequence_ms(fn, device, iters, [ln["name"] for ln in seq["launches"]])
     mm = matmul_ms(seq, device, iters) if device.type == "cuda" else {}
+    sdpa, floor = {}, None
+    if attn_dims is not None:
+        b, t, S, _, _, h, _, _ = attn_dims
+        sdpa = row_attn_sdpa_ms(attn_dims, device, iters)
+        floor = exp_floor_ms(b * S * h * t * t, device)
     for ln in seq["launches"]:
         name = ln["name"]
         ms, prof_name = got[name] if got else (None, "not measured")
         shape = f" {ln['M']}x{ln['N']}x{ln['K']}" if "M" in ln else ""
+        attn = ""
+        if name in ROW_ATTN and attn_dims is not None:
+            attn = (f", exp floor {'not measured' if floor is None else f'{floor:.4f} ms'}, SDPA"
+                    f"{' backward' if ROW_ATTN[name] else ''} "
+                    + (f"{sdpa[name]:.4f} ms" if name in sdpa else "not measured"))
         print(f"    {kid} {name}{shape}: "
               + ("not measured" if ms is None else f"{ms:.4f} ms")
               + (f", torch.matmul {mm[name]:.4f} ms" if name in mm else "")
-              + f", bytes bound {per[name]:.4f} ms [{prof_name[:70]}]", flush=True)
+              + f", bytes bound {per[name]:.4f} ms{attn} [{prof_name[:70]}]", flush=True)
     print(f"    {kid} launch sequence: bytes bound {per['total']:.4f} ms"
           + (f", launches {sum(v[0] for v in got.values()):.4f} ms" if got else ""), flush=True)
     return {"products_ms": {k: v[0] for k, v in got.items()} if got else None,
-            "matmul_ms": mm or None}
+            "matmul_ms": mm or None} | ({"attn_sdpa_ms": sdpa or None} if attn_dims else {})
 
 
 def f32_fingerprints(device) -> dict:
     """sha256 (first 16 hex digits) of the float32 outputs of K9, K11, K4
     and K2a and of their bf16 outputs at d = 8, of the float32 outputs of
     K7, K7s, K8, K10, K3, K1, K5, K6a, K6b and K2b, of K3's, K5's and K2b's
-    bf16 outputs at e = 96: the work of the CUDA-core bodies of
+    bf16 outputs at e = 96 and of K7's and K7s' at d = 8: the work of the
+    CUDA-core bodies of
     `csrc/attn_bwd.cuh`, `csrc/attn_tile.cuh`, `csrc/gemm_tile.cuh`
     (cc_kernel), `csrc/mlp_ln.cu`, `csrc/feat_attn.cu` and
     `csrc/item_epilogue.cu`, of K3's and K2b's mma.sync bodies and of the
@@ -1242,6 +1305,13 @@ def f32_fingerprints(device) -> dict:
         x3, o, w_out = rand(2, 300, 96), rand(2, 300, 96), rand(6, 16, 96, scale=96**-0.5)
         out["K2b bf16 e=96"] = digest(item_fused.item_epilogue_ln(
             x3.to(torch.bfloat16), o.to(torch.bfloat16), w_out))
+        # K7's and K7s' per-row warp kernels in bf16 at d = 8, the width the
+        # wgmma body does not take (with the bf16 product tile around them)
+        x, g = rand(1, 8, 300, 96).to(torch.bfloat16), rand(1, 8, 300, 96).to(torch.bfloat16)
+        w_qkv, w_out = rand(3, 12, 8, 96, scale=96**-0.5), rand(12, 8, 96, scale=96**-0.5)
+        out["K7 bf16 d=8"] = digest(fused.feature_attention_ln_im_bwd(x, w_qkv, w_out, g))
+        out["K7s bf16 d=8"] = digest(fused.feature_attention_ln_bwd(
+            x.transpose(1, 2).contiguous(), w_qkv, w_out, g.transpose(1, 2).contiguous()))
     return out
 
 
@@ -1355,9 +1425,10 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
         for kid in ("K1", "K3") if flash else ("K1", "K2a", "K2b", "K3"):
             check(launches[kid] >= L * steps, f"{kid} launched {launches[kid]} times")
         # training and validation in bf16: every K1 (and K5) and K2b launch
-        # took the wgmma body
-        check_wgmma_bodies("fine-tune", launches, bodies, ("K2b",) + FEAT_IDS)
-    print(f"  feature attention and K2b by body "
+        # took the wgmma body, and so did the per-row attention of every K7
+        # (and K7s) launch
+        check_wgmma_bodies("fine-tune", launches, bodies, ("K2b",) + FEAT_IDS + ("K7", "K7s"))
+    print(f"  feature attention, K2b and K7's per-row attention by body "
           f"{({k: v for k, v in bodies.items() if v and k[:2] != 'K3'})}",
           flush=True)
 
@@ -1878,7 +1949,7 @@ def main() -> int:
         kernels.library()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
               f"({kernels.library_path().name})", flush=True)
-        hgmma, prods, k3_sass, feat_sass, k2b_sass = wgmma_sass_counts(kernels.library_path())
+        hgmma, prods, k3_sass, feat_sass, k2b_sass, row_sass = wgmma_sass_counts(kernels.library_path())
         print(f"  HGMMA instructions in the SASS of the bf16 attention kernels (K2a and K4 forward, "
               f"K9 and K11 passes): {hgmma}", flush=True)
         print(f"  (HGMMA, local loads and stores) in the SASS of the bf16 product tile "
@@ -1912,6 +1983,16 @@ def main() -> int:
         serial = serialized_wgmma(kernels.build_log(), "epilogue_ln_wg_kernel")
         print(f"  ptxas serialization warnings (C75xx) for K2b's wgmma body: {len(serial)}", flush=True)
         check(not serial, "ptxas serialized K2b's wgmma body: " + "; ".join(serial[:2]))
+        print(f"  (HGMMA, local loads and stores) in the SASS of the per-row attention of K7 and "
+              f"K7s (feat_attn_bwd.cu, row_wg, by pass and width): {row_sass}", flush=True)
+        check(set(row_sass) == {f"{kid} {pas} d={d}" for kid in ("K7", "K7s") for pas in ("fwd", "bwd")
+                                for d in (16, 32, 64)}
+              and all(h > 0 and spills == 0 for h, spills in row_sass.values()),
+              "K7's per-row attention does not issue wgmma without spilling everywhere")
+        serial = serialized_wgmma(kernels.build_log(), "row_wg")
+        print(f"  ptxas serialization warnings (C75xx) for K7's per-row attention: {len(serial)}",
+              flush=True)
+        check(not serial, "ptxas serialized K7's per-row attention: " + "; ".join(serial[:2]))
         # K2a's bf16 projection is the instantiation through which K9
         # recomputes qkv: its warnings are reported, not gated
         serial = serialized_wgmma(kernels.build_log(), PROJ_INSTANTIATION)

@@ -13,7 +13,8 @@
 //    warp-specialised block (setmaxnreg), and named barriers.
 // K1, K5, K6a and K6b (feat_attn.cu) add the products m64n48k16 and
 // m64n96k16 from shared memory, both operands K-major, and tensor maps of
-// any box (make_map_box).
+// any box (make_map_box); K7's per-row attention (feat_attn_bwd.cu) the
+// products m64n16k16 and m64n32k16 from shared memory with transpose bits.
 #pragma once
 
 #include "common.cuh"
@@ -189,6 +190,28 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// d (64 x 16) += A·B, A and B from shared memory (descriptors); TA, TB the
+// transpose bits (0: K-major, 1: M- or N-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 32) += A·B, A and B from shared memory (descriptors); TA, TB the
+// transpose bits (0: K-major, 1: M- or N-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 // d (64 x 64) += A·B, A and B from shared memory (descriptors); TA, TB the
 // transpose bits (0, the default: K-major; 1: M- or N-major)
 template <int TA = 0, int TB = 0>
@@ -303,12 +326,15 @@ __device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t a, uint64_
 }
 
 // d (64 x N) += A·B from shared memory: N = 48, 96 with both operands
-// K-major; N = 64, 128, 192 with the transpose bits TA, TB
+// K-major; N = 16, 32, 64, 128, 192 with the transpose bits TA, TB
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
-  static_assert(N == 48 || N == 64 || N == 96 || N == 128 || N == 192, "no such product");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 96 || N == 128 || N == 192,
+                "no such product");
   static_assert((N != 48 && N != 96) || (TA == 0 && TB == 0), "n48 and n96 are K-major only here");
-  if constexpr (N == 48) wgmma_ss_n48(d, a, b, accumulate);
+  if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, a, b, accumulate);
+  else if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, a, b, accumulate);
+  else if constexpr (N == 48) wgmma_ss_n48(d, a, b, accumulate);
   else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, a, b, accumulate);
   else if constexpr (N == 96) wgmma_ss_n96(d, a, b, accumulate);
   else if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, a, b, accumulate);

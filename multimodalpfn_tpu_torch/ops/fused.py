@@ -435,6 +435,21 @@ def feature_attention_ln_im_bwd_plain(
     return dx.transpose(1, 2).contiguous(), dwqkv, dwout
 
 
+def feat_attn_bwd_body(dtype: torch.dtype, d: int) -> str:
+    """Which body of K7's and K7s' per-row attention (`csrc/feat_attn_bwd.cu`,
+    steps 2 and 6) runs on the card for operands of ``dtype`` with heads of
+    width ``d``: ``"wgmma"`` (bf16 at d = 16, 32, 64; Hopper's wgmma over
+    packed 64-row tiles of whole samples, fed by TMA) or ``"cuda_cores"``
+    (float32, the parity mode, and bf16 at d = 8: a warp a (row, head)).
+    The products of the launch sequence are the same in both. Raises
+    TypeError for another dtype and ValueError for another d."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K7/K7s: dtype {dtype} is not supported (float32 or bfloat16)")
+    if d not in (8, 16, 32, 64):
+        raise ValueError(f"K7/K7s: unsupported head width d={d} (8, 16, 32 or 64)")
+    return "wgmma" if dtype == torch.bfloat16 and d != 8 else "cuda_cores"
+
+
 def _attn_bwd_buffers(x, rows: int, hd: int) -> tuple[torch.Tensor, ...]:
     """The outputs and scratch of K7's and K7s' C entries over ``rows``
     tokens of x, in the entries' order: qkv, o, u, du, du_c, do, dqkv, dx,
@@ -480,7 +495,8 @@ def feature_attention_ln_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K7s (sample-major). Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_attn_bwd_kernel`
     (called through `_attn_bwd_call`); kernel in `csrc/feat_attn_bwd.cu`, K7's
-    launches with contiguous tokens and rows flattened over x's leading axes.
+    launches with contiguous tokens and rows flattened over x's leading axes,
+    its per-row attention on the body `feat_attn_bwd_body` names.
     Results as `feature_attention_ln_bwd_plain`."""
     if x.device.type == "cpu":
         return feature_attention_ln_bwd_plain(x, w_qkv, w_out, g)
@@ -488,13 +504,16 @@ def feature_attention_ln_bwd(
     _, h, d, _ = w_qkv.shape
     rows = x.numel() // (t * e)
     operands = _attn_bwd_operands("K7s", x, w_qkv, w_out, g, t, rows * t)
+    body = feat_attn_bwd_body(x.dtype, d)
     bufs = _attn_bwd_buffers(operands[0], rows * t, h * d)
     rc = kernels.library().mmpfn_feat_attn_bwd(
         *(a.data_ptr() for a in operands + bufs),
-        rows, t, e, h, d, kernels.WGRAD_ROWS, *kernels.launch_args(operands[0], "K7s"),
+        rows, t, e, h, d, kernels.WGRAD_ROWS, int(body == "wgmma"),
+        *kernels.launch_args(operands[0], "K7s"),
     )
     kernels.check(rc, "K7s")
     kernels.LAUNCHES["K7s"] += 1
+    kernels.BODY_LAUNCHES[f"K7s {body}"] += 1
     dx, dwqkv, dwout = bufs[7:10]
     return dx.reshape(x.shape), dwqkv.reshape(3, h, d, e), dwout.reshape(h, d, e)
 
@@ -520,20 +539,24 @@ def feature_attention_ln_im_bwd(
     x: torch.Tensor, w_qkv: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K7 (item-major). Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_attn_bwd_kernel_im`
-    (called through `_attn_bwd_call_im`); kernel in `csrc/feat_attn_bwd.cu`.
+    (called through `_attn_bwd_call_im`); kernel in `csrc/feat_attn_bwd.cu`,
+    its per-row attention on the body `feat_attn_bwd_body` names.
     Results as `feature_attention_ln_im_bwd_plain`."""
     if x.device.type == "cpu":
         return feature_attention_ln_im_bwd_plain(x, w_qkv, w_out, g)
     b, t, s, e = x.shape
     _, h, d, _ = w_qkv.shape
     operands = _attn_bwd_operands("K7", x, w_qkv, w_out, g, t, b * s)
+    body = feat_attn_bwd_body(x.dtype, d)
     bufs = _attn_bwd_buffers(operands[0], b * t * s, h * d)
     rc = kernels.library().mmpfn_feat_attn_bwd_im(
         *(a.data_ptr() for a in operands + bufs),
-        b, t, s, e, h, d, kernels.WGRAD_ROWS, *kernels.launch_args(operands[0], "K7"),
+        b, t, s, e, h, d, kernels.WGRAD_ROWS, int(body == "wgmma"),
+        *kernels.launch_args(operands[0], "K7"),
     )
     kernels.check(rc, "K7")
     kernels.LAUNCHES["K7"] += 1
+    kernels.BODY_LAUNCHES[f"K7 {body}"] += 1
     dx, dwqkv, dwout = bufs[7:10]
     return dx, dwqkv.reshape(3, h, d, e), dwout.reshape(h, d, e)
 

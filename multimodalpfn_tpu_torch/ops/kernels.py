@@ -47,10 +47,12 @@ LAUNCHES: dict[str, int] = {
 # kernel body -> launches since the last reset, for kernels with more than
 # one body (K3: `ops/fused.py:mlp_ln_body`; K2b:
 # `ops/item_fused.py:item_epilogue_body`; K1, K5, K6a, K6b:
-# `ops/fused.py:feat_attn_body`); each also counts in LAUNCHES
+# `ops/fused.py:feat_attn_body`; K7, K7s, by the body of their per-row
+# attention: `ops/fused.py:feat_attn_bwd_body`); each also counts in LAUNCHES
 BODY_LAUNCHES: dict[str, int] = {
     f"{kid} {body}": 0 for kid in ("K3", "K2b") for body in ("wgmma", "mma_sync", "cuda_cores")
-} | {f"{kid} {body}": 0 for kid in ("K1", "K5", "K6a", "K6b") for body in ("wgmma", "cuda_cores")}
+} | {f"{kid} {body}": 0 for kid in ("K1", "K5", "K6a", "K6b", "K7", "K7s")
+     for body in ("wgmma", "cuda_cores")}
 
 
 # Rows of the weight-gradient contractions per block: each chunk's float32
@@ -95,11 +97,11 @@ _SIGNATURES = {
     # (x, o, wout, out, rows, e, hd, device, stream): bf16 only
     "mmpfn_item_epilogue_ln_wg": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     # (x, wqkv, wout, g, qkv, o, u, du, du_c, do, dqkv, dx, dwqkv, dwout, work,
-    #  b, t, s, e, h, d, wgrad_rows, dtype, device, stream)
-    "mmpfn_feat_attn_bwd_im": [_P] * 15 + [_I] * 7 + [_I, _I, _P],
+    #  b, t, s, e, h, d, wgrad_rows, wgmma, dtype, device, stream)
+    "mmpfn_feat_attn_bwd_im": [_P] * 15 + [_I] * 8 + [_I, _I, _P],
     # (x, wqkv, wout, g, qkv, o, u, du, du_c, do, dqkv, dx, dwqkv, dwout, work,
-    #  rows, t, e, h, d, wgrad_rows, dtype, device, stream)
-    "mmpfn_feat_attn_bwd": [_P] * 15 + [_I] * 6 + [_I, _I, _P],
+    #  rows, t, e, h, d, wgrad_rows, wgmma, dtype, device, stream)
+    "mmpfn_feat_attn_bwd": [_P] * 15 + [_I] * 7 + [_I, _I, _P],
     # (q, k, v, o, lse, do, do_c, delta, dq, dk, dv, G, Sq, Skv, d, scale,
     #  dtype, device, stream)
     "mmpfn_flash_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _P],

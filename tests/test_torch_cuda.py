@@ -552,6 +552,43 @@ def test_backward_kernels_match_plain(cuda, dtype, b, t, S, sep, e, h, d, nhid):
             assert rel <= bound, f"{kid} output {i}: rel err {float(rel):.3e}"
 
 
+# token counts that change how a 64-row tile of K7's per-row attention packs
+# whole samples (64 // t of them): one key, two, ragged rows, the episode's
+# 30, a tile of one sample from 33 on, no idle row at 64
+K7_TOKENS = [1, 2, 7, 21, 30, 31, 32, 33, 48, 63, 64]
+
+
+@pytest.mark.parametrize("s", [37, 150])
+@pytest.mark.parametrize("t", K7_TOKENS)
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("kid", ["K7", "K7s"])
+def test_k7_attention_wgmma_matches_plain(cuda, kid, d, t, s):
+    """bf16 K7 (item-major) and K7s (sample-major) with their per-row
+    attention on the wgmma body (`fused.feat_attn_bwd_body`), two members of
+    s samples (the last tile of 64 // t samples ragged), against the plain
+    backward: every output within 2**-6 of its own largest magnitude; a
+    repeat gives the same bits; every launch counted on the wgmma body."""
+    g = torch.Generator().manual_seed(1000 * d + 10 * t + s)
+    h, e = 2, 48
+    lead = (2, s, t) if kid == "K7s" else (2, t, s)
+    x, gr = (_rand(g, *lead, e, device=cuda).to(torch.bfloat16) for _ in range(2))
+    w_qkv = _rand(g, 3, h, d, e, scale=e**-0.5, device=cuda)
+    w_out = _rand(g, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    kern, plain = ((fused.feature_attention_ln_bwd, fused.feature_attention_ln_bwd_plain) if kid == "K7s"
+                   else (fused.feature_attention_ln_im_bwd, fused.feature_attention_ln_im_bwd_plain))
+    assert fused.feat_attn_bwd_body(x.dtype, d) == "wgmma"
+    before = {k: kernels.BODY_LAUNCHES[f"{kid} {k}"] for k in ("wgmma", "cuda_cores")}
+    got, again = kern(x, w_qkv, w_out, gr), kern(x, w_qkv, w_out, gr)
+    assert kernels.BODY_LAUNCHES[f"{kid} wgmma"] == before["wgmma"] + 2
+    assert kernels.BODY_LAUNCHES[f"{kid} cuda_cores"] == before["cuda_cores"]
+    for i, (a, c, w) in enumerate(zip(got, again, plain(x, w_qkv, w_out, gr))):
+        assert a.dtype == w.dtype and a.shape == w.shape, i
+        assert torch.equal(a, c), f"output {i} differs between runs"
+        assert torch.isfinite(a.float()).all(), i
+        rel = (a.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)
+        assert rel <= 2.0**-6, f"output {i}: rel err {float(rel):.3e}"
+
+
 @pytest.mark.parametrize("k_chunk", [0, 2048])
 @pytest.mark.parametrize("a_t,b_t", [(False, False), (False, True), (True, False), (True, True)])
 @pytest.mark.parametrize("K", [16, 192, 576, 2047, 2048, 2049, 4097])

@@ -139,11 +139,19 @@ def test_flash_backward_bf16_rounds_like_the_kernel():
 # ---- K7s (sample-major feature attention backward) -----------------------------
 
 
-# rows ragged against the Pallas block of 32, three lead axes, t 5 to 9
-@pytest.mark.parametrize("lead,t", [((2, 37), 5), ((1, 3, 20), 9), ((2, 37), 7), ((1, 33), 6)])
-def test_feature_attention_backward_matches_jax(lead, t):
-    rng = np.random.default_rng(sum(lead) * 10 + t)
-    e, h, d = 24, 3, 8
+# rows ragged against the Pallas block of 32, three lead axes, t 5 to 9;
+# then the head widths of K7s' wgmma body (d = 16, 64) at the token counts
+# where its 64-row tiles change packing (32, 33) up to the JAX gate (48),
+# with (h, e) = (3, 24) at d = 8, 16, (2, 48) at 64
+@pytest.mark.parametrize("lead,t,d", [
+    pytest.param((2, 37), 5, 8, id="lead0-5"), pytest.param((1, 3, 20), 9, 8, id="lead1-9"),
+    pytest.param((2, 37), 7, 8, id="lead2-7"), pytest.param((1, 33), 6, 8, id="lead3-6"),
+    ((1, 3), 32, 16), ((2, 2), 33, 16), ((1, 2), 48, 16), ((1, 5), 7, 64), ((1, 3), 32, 64),
+    ((2, 2), 33, 64), ((1, 2), 48, 64),
+])
+def test_feature_attention_backward_matches_jax(lead, t, d):
+    rng = np.random.default_rng(sum(lead) * 10 + t + (d != 8) * d * 1000)
+    h, e = (2, 48) if d == 64 else (3, 24)
     x = _rand(rng, (*lead, t, e))
     w_qkv = _rand(rng, (3, h, d, e), 0.3)
     w_out = _rand(rng, (h, d, e), 0.3)

@@ -172,6 +172,28 @@ def test_feat_attn_body_choice(dtype, e, h, d, want):
             tf.feat_attn_body(dtype, e, h, d)
 
 
+# K7's and K7s' per-row attention: the wgmma body for bf16 at d = 16, 32, 64;
+# the warp kernels on the CUDA cores for float32 and bf16 at d = 8; no body
+# for another d or dtype
+K7_BODY_CASES = [
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 8, "cuda_cores"), (torch.float32, 8, "cuda_cores"),
+    (torch.float32, 16, "cuda_cores"), (torch.float32, 32, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"),
+    (torch.bfloat16, 12, ValueError), (torch.bfloat16, 128, ValueError), (torch.float32, 4, ValueError),
+    (torch.float16, 32, TypeError), (torch.float64, 16, TypeError),
+]
+
+
+@pytest.mark.parametrize("dtype,d,want", K7_BODY_CASES)
+def test_feat_attn_bwd_body_choice(dtype, d, want):
+    if isinstance(want, str):
+        assert tf.feat_attn_bwd_body(dtype, d) == want
+    else:
+        with pytest.raises(want, match=f"d={d}" if want is ValueError else "float"):
+            tf.feat_attn_bwd_body(dtype, d)
+
+
 @pytest.mark.parametrize("body_dtype", [torch.bfloat16, torch.float32])
 def test_feat_attn_operands_match_each_body(body_dtype):
     """`_attn_operands` hands the wgmma body W_qkv with each head's q, k, v

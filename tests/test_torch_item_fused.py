@@ -246,3 +246,16 @@ def test_profiler_names_match_kernels(table, part):
     assert "gemm::wgmma_kernel" in globals_ and "attn_bwd::dq_wg_kernel" in globals_
     for pattern in (patterns,) if isinstance(patterns, str) else patterns:
         assert any(pattern in name for name in globals_), (pattern, globals_)
+
+
+@pytest.mark.parametrize("pattern", ["gemm::", "ln_bwd_kernel", "attn_o_kernel", "attn_bwd_kernel",
+                                     "row_wg::attn_wg_kernel", "sum_slabs_kernel"])
+def test_sequence_names_match_kernels(pattern):
+    """Each profiler-name pattern by which `chip_smoke.py` splits K7's, K7s'
+    and K8's launch sequences (`SEQ_KERNELS`: the products, the row kernels,
+    both bodies of K7's per-row attention) names a ``__global__`` function
+    of `csrc/`."""
+    import chip_smoke
+
+    assert pattern in chip_smoke.SEQ_KERNELS
+    assert any(pattern in name for name in _global_functions()), pattern

@@ -51,11 +51,19 @@ def _torch_grads(fn, args, g):
 # ---- K7 (item-major feature attention backward) ------------------------------
 
 
-# (b, t, s): ragged rows against the Pallas block of 32, ragged tokens, one row
-@pytest.mark.parametrize("b,t,s", [(2, 8, 37), (1, 13, 32), (2, 5, 1)])
-def test_feature_attention_im_backward_matches_jax(b, t, s):
-    rng = np.random.default_rng(b * 100 + t * 10 + s)
-    e, h, d = 24, 3, 8
+# (b, t, s): ragged rows against the Pallas block of 32, ragged tokens, one
+# row; then the head widths of K7's wgmma body (d = 16, 64) at the token
+# counts where its 64-row tiles change packing (32: two samples, 33: one,
+# 48: the JAX gate's most), with (h, e) = (3, 24) at d = 8, 16, (2, 48) at 64
+@pytest.mark.parametrize("b,t,s,d", [
+    pytest.param(2, 8, 37, 8, id="2-8-37"), pytest.param(1, 13, 32, 8, id="1-13-32"),
+    pytest.param(2, 5, 1, 8, id="2-5-1"),
+    (1, 32, 3, 16), (1, 33, 4, 16), (1, 48, 2, 16), (2, 5, 3, 64), (1, 32, 3, 64),
+    (1, 33, 2, 64), (1, 48, 3, 64),
+])
+def test_feature_attention_im_backward_matches_jax(b, t, s, d):
+    rng = np.random.default_rng(b * 100 + t * 10 + s + (d != 8) * d * 1000)
+    h, e = (2, 48) if d == 64 else (3, 24)
     x = _rand(rng, (b, t, s, e))
     w_qkv = _rand(rng, (3, h, d, e), 0.3)
     w_out = _rand(rng, (h, d, e), 0.3)
@@ -72,8 +80,9 @@ def test_feature_attention_im_backward_matches_jax(b, t, s):
 
 
 # the flagship's widths (e = 192, h = 6, d = 32) with a few rows: ragged
-# samples against the Pallas block, ragged tokens
-@pytest.mark.parametrize("b,t,s", [(1, 30, 3), (1, 7, 5)])
+# samples against the Pallas block, ragged tokens, and the token counts
+# where K7's 64-row tiles change packing (32, 33) up to the JAX gate (48)
+@pytest.mark.parametrize("b,t,s", [(1, 30, 3), (1, 7, 5), (1, 32, 3), (1, 33, 2), (1, 48, 2)])
 def test_feature_attention_im_backward_matches_jax_at_flagship_widths(b, t, s):
     rng = np.random.default_rng(1000 + t * 10 + s)
     e, h, d = 192, 6, 32

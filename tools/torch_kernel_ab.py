@@ -25,9 +25,10 @@ the ``fit_preprocessors``, KV-cache prime and predict and fine-tune episode
 shapes beside ``torch.matmul`` on its two products, K4 at the KV-cache
 prime and predict shapes and at the flash fine-tune's three blocks),
 backward ids (K7, K7s, K8, K9, K10, K11) phase 8's at the fine-tune
-shape (`chip_smoke.phase_bwd_kernels`: for K7 and K8 each launch of the
-sequence by profiler name beside ``torch.matmul`` on operands of its shapes
-and its bytes bound); each in float32 and bf16 beside its plain version and
+shape (`chip_smoke.phase_bwd_kernels`: for K7, K7s and K8 each launch of
+the sequence by profiler name beside ``torch.matmul`` on operands of its
+shapes and its bytes bound, K7's and K7s' per-row attention launches also
+beside SDPA and its backward); each in float32 and bf16 beside its plain version and
 bound, and each must pass `chip_smoke.py`'s error bounds. ``--tile`` adds,
 where the tree has it, the bf16 product tile alone (`kernels.gemm_bf16`,
 float32 out, weight gradients in chunks of `kernels.WGRAD_ROWS`) on each of
