@@ -150,11 +150,40 @@ bf16 outputs at e = 96 (their mma.sync bodies), and the float32 outputs of
 K1, K5, K6a and K6b and K5's bf16 outputs at e = 96 (`feat_attn.cu`'s
 CUDA-core body).
 
-``--profile`` adds a phase 14: ``torch.profiler`` around one warm request of
-each size in both modes and around one warm training step of each item path
-(the fused item sublayer and the flash path), printing wall time, device
-kernel time, the idle share and the kernels that took the most device
-time.
+15. ``fit_preprocessors`` served by ``MMPFNRegressor`` (the same data, model
+   architecture and kernels, with a regression target of the script's own:
+   the class code, half of feature 18 and lognormal noise, σ = 0.5, from
+   ``default_rng(1)``; the published 192×12 regressor, ``max_num_classes``
+   0, 5000 bars over ``linspace(-12, 12, 5001)``, random weights from seed
+   0, output projections from seed 1; 4 members with the default
+   preprocessing and target transforms None / safepower): the member widths,
+   target transforms and planned groups printed; three bf16
+   ``predict(output_type="full")`` requests with the counters zeroed just
+   before, checked as phase 3's (K1 or K6a, K2a, K2b, K3 in every layer of
+   every group, each on its wgmma body); mean, median, mode and the nine
+   quantiles finite, the quantiles monotone and the median between the 0.1
+   and 0.9 quantiles; then the requests warm, each timed on the host clock
+   as dispatch + forward + fetch of the member logits and, apart, the host
+   finalize (border transforms, translation, average, statistics).
+16. Its kernel path against its plain path, float32: the averaged bar
+   probabilities within 1e-4 absolute, mean, median and quantiles within
+   1e-4 of std(y_train).
+17. ``fit_with_cache`` served by the regressor: as phase 5 (K4, K5 or K6b and
+   K3 in every layer of the prime and of each request, no item-major
+   kernel), ``predict_many`` equal to the sequential answers bit for bit.
+18. ``fine_tune_mmpfn(task_type="regression", validation_metric="rmse")``
+   on the regressor: 20 bf16 steps on the 12 layers, validation after every
+   step, K7-K10 launched 12 times a step, every K1 and K2b launch and K7's
+   per-row attention on the wgmma body, every loss and gradient norm
+   finite; the snapshot keeps the borders and ``MMPFNRegressor`` serves it;
+   then three float32 steps on 3 layers, kernel path against plain path, as
+   phase 10.
+
+``--profile`` adds a phase 14, run last: ``torch.profiler`` around one warm
+request of each size in both modes, around one warm training step of each
+item path (the fused item sublayer and the flash path) and around one warm
+460-row regressor request, printing wall time, device kernel time, the idle
+share and the kernels that took the most device time.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
@@ -327,6 +356,14 @@ FT_GRAD_REL_BOUND = 1e-5
 # scores and weights for its backward (about 6 GB a layer): the comparison
 # runs the first layers of the model
 FT_CMP_LAYERS = 3
+# the regressor: the bar probabilities of the kernel path against the plain
+# path in float32 (absolute), and its mean, median and quantiles (absolute, in
+# units of the train target's standard deviation); quantiles may step back
+# by 1e-6 of it (the quantile function's rounding at a bar's edge)
+REG_PROBA_ABS_BOUND = 1e-4
+REG_STAT_REL_BOUND = 1e-4
+REG_MONOTONE_SLACK = 1e-6
+REG_FT_STEPS = 20
 # resume: the first call's steps and state cadence (the state is written
 # before step 4, so it holds the state after step 3; the resumed call runs
 # steps 4 to 6)
@@ -1364,10 +1401,13 @@ def sample_major_grad(device, dims) -> None:
           "dW_out finite", flush=True)
 
 
-def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_dims=None) -> dict:
+def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_dims=None,
+                   task="multiclass") -> dict:
     """``fine_tune_mmpfn`` on the flagship in bf16, validation after every
     step, with the launch counters zeroed just before and read just after:
-    every training step runs K7, K8, K9 and K10 once per layer. With
+    every training step runs K7, K8, K9 and K10 once per layer. A
+    "regression" ``task`` fine-tunes a regressor (validated by rmse) and
+    serves the snapshot with ``MMPFNRegressor``. With
     ``flash_dims`` (the episode's dimensions, `FT_DIMS`) the model has no
     multiquery test block, so the K2 gate refuses
     it: every step runs K4 and K11 in both item blocks of every layer (and
@@ -1385,6 +1425,7 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
 
     X, img, y = data
     flash = flash_dims is not None
+    regression = task == "regression"
     kernels.reset_launches()
     if flash:
         sample_major_grad(device, flash_dims)
@@ -1393,7 +1434,8 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
         mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8, features_per_group=1,
         X_train=X, image_train=img, y_train=y, path_to_base_model=str(model_path),
         save_path_to_fine_tuned_model=str(out_path), finetuning_config={"max_steps": steps},
-        device=str(device), random_seed=0,
+        device=str(device), random_seed=0, task_type=task,
+        validation_metric="rmse" if regression else "log_loss",
     )
     wall = time.perf_counter() - t0
     launches, bodies = dict(kernels.LAUNCHES), dict(kernels.BODY_LAUNCHES)
@@ -1443,22 +1485,31 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
           "the snapshot lost the base model's multiquery_item_attention_for_test_set")
     base, snap = flatten_params(base_model.params), flatten_params(snap_model.params)
     check(snap.keys() == base.keys(), "the snapshot's leaves differ from the base model's")
+    if regression:
+        check(snap_model.criterion_borders is not None
+              and np.array_equal(snap_model.criterion_borders, base_model.criterion_borders),
+              "the regression snapshot lost the base model's borders")
     moved = max(float((snap[k].float() - base[k].float()).abs().max()) for k in base)
     print(f"  validation improved: {improved}; the snapshot differs from the base model by "
           f"{moved:.3e} (max abs)", flush=True)
     check((moved > 0) == improved, "the snapshot on disk is not the best one of the run")
     n_tr = int(round(0.8 * len(X)))
-    clf = make_classifier(device, out_path)
-    clf.fit(X[:n_tr], img[:n_tr], y[:n_tr])
+    est = (make_regressor if regression else make_classifier)(device, out_path)
+    est.fit(X[:n_tr], img[:n_tr], y[:n_tr])
     kernels.reset_launches()
-    p = clf.predict_proba(X[n_tr:], img[n_tr:])
+    if regression:
+        check_regression(est.predict(X[n_tr:], img[n_tr:], output_type="full"), len(X) - n_tr,
+                         float(np.std(y[:n_tr])), "fine-tuned regression snapshot")
+    else:
+        check_proba(est.predict_proba(X[n_tr:], img[n_tr:]), len(X) - n_tr, est.n_classes_,
+                    "fine-tuned snapshot")
     served = dict(kernels.LAUNCHES)
-    check_proba(p, len(X) - n_tr, clf.n_classes_, "fine-tuned snapshot")
     if device.type == "cuda" and flash:
         check(served["K4"] >= 2 * L and served["K2a"] == 0,
               f"the snapshot was not served through K4: {served}")
     print(f"  the best snapshot ({out_path.name}, multiquery test block {mq}) served by "
-          f"MMPFNClassifier: predict_proba({len(X) - n_tr} rows) rows sum to 1"
+          + (f"MMPFNRegressor: predict({len(X) - n_tr} rows) finite, quantiles monotone"
+             if regression else f"MMPFNClassifier: predict_proba({len(X) - n_tr} rows) rows sum to 1")
           + (f", K4 launched {served['K4']} times, K2a {served['K2a']}" if flash else ""), flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -1466,7 +1517,7 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
 
 
 def episode_trainer(device, model_path, data, n_layers, compute_dtype, use_kernels, seed=0,
-                    override=None):
+                    override=None, task="multiclass"):
     """`fine_tune_mmpfn`'s step loop (`train/finetune.make_episode_trainer`)
     on the flagship's train split: the model cut to its first ``n_layers``,
     the kernels on or off, and ``override``'s config fields."""
@@ -1476,10 +1527,10 @@ def episode_trainer(device, model_path, data, n_layers, compute_dtype, use_kerne
 
     X, img, y = data
     X_tr, _, i_tr, _, y_tr, _ = create_val_data(X=X, image=img, y=y, rng=np.random.RandomState(seed),
-                                                is_classification=True)
+                                                is_classification=task != "regression")
     return make_episode_trainer(
         path_to_base_model=str(model_path), mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8,
-        features_per_group=1, X_train=X_tr, image_train=i_tr, y_train=y_tr, device=device,
+        features_per_group=1, X_train=X_tr, image_train=i_tr, y_train=y_tr, device=device, task=task,
         random_seed=seed, compute_dtype=compute_dtype,
         cfg_override=dict(nlayers=n_layers, fused_ops=use_kernels, use_flash=use_kernels)
         | (override or {}),
@@ -1487,7 +1538,7 @@ def episode_trainer(device, model_path, data, n_layers, compute_dtype, use_kerne
 
 
 def phase_finetune_kernel_vs_plain(device, model_path, data, n_layers, steps=3, override=None,
-                                   expect=None) -> dict:
+                                   expect=None, task="multiclass") -> dict:
     """Float32 training steps from the same seed on the kernel path (with
     ``override``'s config fields) and on the plain path: the first step's
     gradient of every leaf within `FT_GRAD_REL_BOUND` of the plain path's,
@@ -1517,7 +1568,7 @@ def phase_finetune_kernel_vs_plain(device, model_path, data, n_layers, steps=3, 
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         trainer = episode_trainer(device, model_path, data, n_layers, "float32", use_kernels,
-                                  override=override if use_kernels else None)
+                                  override=override if use_kernels else None, task=task)
         metrics, grads = [], []
         for _ in range(steps):
             m = trainer.step()
@@ -1650,6 +1701,189 @@ def phase_resume(device, model_path, data, out_path, steps, every) -> dict:
                 resumed_from=starts, resumed_loss=loss)
 
 
+def regression_target(X, codes):
+    """The regression target of the regressor's phases: the class code, half
+    of feature 18 (NaN as 0) and lognormal noise (σ = 0.5) from
+    ``default_rng(1)``, a skewed target on which the safepower target
+    transform has work."""
+    import numpy as np
+
+    noise = np.random.default_rng(1).lognormal(sigma=0.5, size=len(codes))
+    return codes + 0.5 * np.nan_to_num(X[:, 18]) + noise
+
+
+def write_regression_model(path: Path) -> None:
+    """The served regressor: the published 192×12 architecture with MGM+CAP
+    16/8, ``max_num_classes`` 0, 5000 bars over ``linspace(-12, 12, 5001)``,
+    random weights from seed 0 densified from seed 1 (as `write_model`), as
+    an ``.npz`` that carries the borders."""
+    from multimodalpfn_tpu_torch.models.loading import load_model, save_npz
+
+    loaded = load_model("random:0", which="regressor", mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8)
+    densify(loaded.params, seed=1)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_npz(path, loaded.params, loaded.config, criterion_borders=loaded.criterion_borders)
+
+
+def make_regressor(device, model_path, **kw):
+    """The served regressor: 4 members, the regressor's default
+    preprocessing and target transforms (None, safepower)."""
+    from multimodalpfn_tpu_torch import MMPFNRegressor
+
+    return MMPFNRegressor(model_path=str(model_path), mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8,
+                          n_estimators=4, device=str(device), **kw)
+
+
+def check_regression(full: dict, n_rows: int, scale: float, tag: str) -> None:
+    """A ``predict(output_type="full")`` answer: mean, median, mode and the
+    nine quantiles finite, of ``n_rows``; the quantiles monotone and the
+    median between the 0.1 and 0.9 quantiles, to `REG_MONOTONE_SLACK` of
+    ``scale`` (std(y_train))."""
+    import numpy as np
+
+    for key in ("mean", "median", "mode"):
+        check(full[key].shape == (n_rows,), f"{tag}: {key} shape {full[key].shape}")
+        check(bool(np.isfinite(full[key]).all()), f"{tag}: non-finite {key}")
+    q = np.stack(full["quantiles"])
+    check(q.shape == (9, n_rows) and bool(np.isfinite(q).all()), f"{tag}: quantiles {q.shape} not finite")
+    slack = REG_MONOTONE_SLACK * scale
+    check(bool((np.diff(q, axis=0) >= -slack).all()), f"{tag}: the quantiles are not monotone")
+    check(bool(((full["median"] >= q[0] - slack) & (full["median"] <= q[-1] + slack)).all()),
+          f"{tag}: a median lies outside its 0.1 and 0.9 quantiles")
+
+
+def phase_regressor_served(device, model_path, data, request_sizes, n_layers, fit_mode) -> dict:
+    """The regressor through the public API in bf16: fit, then the three
+    ``predict(output_type="full")`` requests with the launch counters zeroed
+    just before (fit_with_cache: before the fit) and checked as the
+    classifier's (`check_served_launches`); every answer checked by
+    `check_regression`; then the same requests warm, each timed on the host
+    clock in two parts: the dispatch and the engine's fetch of the member
+    logits (host transforms, uploads, the forward, the copy back), and the
+    host finalize (`MMPFNRegressor.predict_from_outputs`: border transforms,
+    translation, average, statistics). fit_with_cache: ``predict_many`` over
+    the requests equals the sequential answers bit for bit."""
+    import numpy as np
+    import torch
+
+    from multimodalpfn_tpu_torch.ops import kernels
+
+    X_tr, img_tr, y_tr, X_te, img_te = data
+    scale = float(np.std(y_tr))
+    cached = fit_mode == "fit_with_cache"
+    reg = make_regressor(device, model_path, fit_mode=fit_mode)
+    if cached:
+        kernels.reset_launches()
+    t0 = time.perf_counter()
+    reg.fit(X_tr, img_tr, y_tr)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    members = reg.executor_.members
+    widths = [m.X_train.shape[1] for m in members]
+    transforms = [None if m.config.target_transform is None else "safepower" for m in members]
+    plans = planned_groups(reg, cached, request_sizes)
+    print(f"  fit {fit_ms:.1f} ms; member widths {widths}, target transforms {transforms}; planned "
+          f"groups {[(idxs, w, 'merged' if m else 'one width') for idxs, w, m in plans]}", flush=True)
+    check(transforms.count("safepower") == 2, f"the members' target transforms are {transforms}")
+
+    if not cached:
+        kernels.reset_launches()
+    times, answers = [], []
+    for n in request_sizes:
+        t0 = time.perf_counter()
+        full = reg.predict(X_te[:n], img_te[:n], output_type="full")
+        times.append((time.perf_counter() - t0) * 1e3)
+        check_regression(full, n, scale, f"regressor request of {n} rows")
+        answers.append(full)
+        print(f"  predict({n} rows, full): {times[-1]:.1f} ms; mean of the means {full['mean'].mean():.4f}"
+              f" (y_train mean {float(np.mean(y_tr)):.4f}, std {scale:.4f})", flush=True)
+    launches = check_served_launches(device, fit_mode, plans, len(request_sizes), n_layers)
+    warm, device_part, host_part, stats_part = [], [], [], []
+    crit = reg.renormalized_criterion_
+    for n in request_sizes:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs = reg.executor_.finalize_outputs(reg._dispatch_predict(X_te[:n], img_te[:n]))
+        t1 = time.perf_counter()
+        full = reg.predict_from_outputs(outputs, output_type="full")
+        t2 = time.perf_counter()
+        # the statistics alone, recomputed from the averaged log-probabilities
+        logits = torch.from_numpy(full["logits"])
+        crit.mean(logits), crit.median(logits), crit.mode(logits)
+        [crit.icdf(logits, q) for q in (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)]
+        stats_part.append((time.perf_counter() - t2) * 1e3)
+        device_part.append((t1 - t0) * 1e3)
+        host_part.append((t2 - t1) * 1e3)
+        warm.append((t2 - t0) * 1e3)
+    print(f"  warm requests: {', '.join(f'{ms:.1f}' for ms in warm)} ms = dispatch + forward + fetch "
+          f"{', '.join(f'{ms:.1f}' for ms in device_part)} ms + host finalize "
+          f"{', '.join(f'{ms:.1f}' for ms in host_part)} ms (of which the statistics "
+          f"{', '.join(f'{ms:.1f}' for ms in stats_part)} ms; the rest the border transforms, the "
+          f"translation and the average)", flush=True)
+    out = dict(launches=launches, fit_ms=fit_ms, times=times, warm=warm, warm_device=device_part,
+               warm_host=host_part, warm_stats=stats_part, answers=answers, widths=widths, plans=plans)
+    if cached:
+        reqs = [(X_te[:n], img_te[:n]) for n in request_sizes]
+        t0 = time.perf_counter()
+        many = reg.predict_many([r[0] for r in reqs], [r[1] for r in reqs], output_type="full")
+        out["many_ms"] = (time.perf_counter() - t0) * 1e3
+        same = all(np.array_equal(a[k], b[k]) for a, b in zip(many, answers)
+                   for k in ("logits", "mean", "median", "mode", "quantiles"))
+        print(f"  predict_many over the {len(reqs)} requests: {out['many_ms']:.1f} ms, equal to the "
+              f"sequential answers: {same}", flush=True)
+        check(same, "predict_many differs from sequential predict")
+    return out
+
+
+def phase_regressor_kernel_vs_plain(device, model_path, data) -> dict:
+    """float32 ``predict(output_type="full")`` of the kernel path against the
+    plain path of the same fitted regressor (fit_preprocessors): the averaged
+    bar probabilities within `REG_PROBA_ABS_BOUND`, the mean, median and
+    quantiles within `REG_STAT_REL_BOUND` of std(y_train)."""
+    import numpy as np
+
+    X_tr, img_tr, y_tr, X_te, img_te = data
+    scale = float(np.std(y_tr))
+    reg = make_regressor(device, model_path, inference_precision="float32")
+    reg.fit(X_tr, img_tr, y_tr)
+    answers = {}
+    for use_kernels in (True, False):
+        reg.executor_.use_kernels = use_kernels
+        answers[use_kernels] = reg.predict(X_te, img_te, output_type="full")
+        check_regression(answers[use_kernels], len(X_te), scale,
+                         f"float32 {'kernel' if use_kernels else 'plain'} path")
+    k, p = answers[True], answers[False]
+    prob_err = float(np.abs(np.exp(k["logits"]) - np.exp(p["logits"])).max())
+    stat_err = {key: float(np.abs(np.stack(k[key]) - np.stack(p[key])).max()) / scale
+                for key in ("mean", "median", "quantiles")}
+    mode_same = float((k["mode"] == p["mode"]).mean())
+    print(f"  f32 regressor kernel vs plain: bar probabilities max abs err {prob_err:.3e} (bound "
+          f"{REG_PROBA_ABS_BOUND}); max abs err / std(y) {({kk: f'{v:.3e}' for kk, v in stat_err.items()})}"
+          f" (bound {REG_STAT_REL_BOUND}); modes equal {mode_same:.3f} (not gated)", flush=True)
+    check(prob_err <= REG_PROBA_ABS_BOUND, f"regressor bar probabilities differ by {prob_err:.3e}")
+    check(max(stat_err.values()) <= REG_STAT_REL_BOUND, f"regressor statistics differ: {stat_err}")
+    return dict(prob_err=prob_err, stat_err=stat_err)
+
+
+def phase_profile_regressor(device, model_path, data, n: int, top: int = 14) -> None:
+    """torch.profiler around one warm regressor request (fit_preprocessors,
+    bf16): wall time, device kernel time, the idle share (the host finalize
+    runs with the card idle) and the kernels that took the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    X_tr, img_tr, y_tr, X_te, img_te = data
+    reg = make_regressor(device, model_path)
+    reg.fit(X_tr, img_tr, y_tr)
+    reg.predict(X_te[:n], img_te[:n])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        reg.predict(X_te[:n], img_te[:n], output_type="full")
+        wall = (time.perf_counter() - t0) * 1e3
+    print_profile(f"regressor request of {n} rows (output_type full)", wall, device_kernel_rows(prof), top)
+
+
 def make_classifier(device, model_path, **kw):
     """The served classifier: 4 members, the default preprocessing."""
     from multimodalpfn_tpu_torch import MMPFNClassifier
@@ -1706,7 +1940,6 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
     fit_ms = (time.perf_counter() - t0) * 1e3
     widths = [m.X_train.shape[1] for m in clf.executor_.members]
     plans = planned_groups(clf, cached, request_sizes)
-    groups, merged = len(plans), sum(m for _, _, m in plans)
     print(f"  fit {fit_ms:.1f} ms; member widths {widths}; planned groups "
           f"{[(idxs, w, 'merged' if m else 'one width') for idxs, w, m in plans]}", flush=True)
 
@@ -1720,30 +1953,7 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
         check_proba(p, n, clf.n_classes_, f"request of {n} rows")
         answers.append(p)
         print(f"  predict_proba({n} rows): {times[-1]:.1f} ms", flush=True)
-    launches = dict(kernels.LAUNCHES)
-    bodies = dict(kernels.BODY_LAUNCHES)
-    passes = len(request_sizes) + 1 if cached else len(request_sizes)
-    # per kernel, the launches every layer of every planned group and pass
-    # needs at least (a memory split of a group adds more)
-    if cached:
-        feat, masked, idle = "K5", "K6b", ("K1", "K2a", "K2b", "K6a")
-        need = {"K4": groups, "K3": groups}
-    else:
-        feat, masked, idle = "K1", "K6a", ("K4", "K5", "K6b")
-        need = {"K2a": groups, "K2b": groups, "K3": groups}
-    need |= {feat: groups - merged, masked: merged}
-    need = {k: n_layers * passes * n for k, n in need.items()}
-    idle += tuple(k for k, n in need.items() if n == 0)
-    print(f"  launches {launches} (at least {need}; {', '.join(idle)} 0); by body "
-          f"{ {k: v for k, v in bodies.items() if v} }", flush=True)
-    if device.type == "cuda":
-        for kid, n in need.items():
-            check(launches[kid] >= n, f"{kid} launched {launches[kid]} times, expected >= {n}")
-        for kid in idle:
-            check(launches[kid] == 0, f"{kid} launched {launches[kid]} times on the {fit_mode} path")
-        # bf16 at e = 192 (d = 32, nhid = 768): every K2b, K3, K1, K5, K6a
-        # and K6b launch took the wgmma body
-        check_wgmma_bodies(fit_mode, launches, bodies)
+    launches = check_served_launches(device, fit_mode, plans, len(request_sizes), n_layers)
     warm = []  # the same requests again, each now at a sequence length seen before
     for n in request_sizes:
         t0 = time.perf_counter()
@@ -1762,6 +1972,42 @@ def phase_served(device, model_path, data, request_sizes, n_layers, fit_mode) ->
               f"equal to the sequential answers: {same}", flush=True)
         check(same, "predict_proba_many differs from sequential predict_proba")
     return out
+
+
+def check_served_launches(device, fit_mode, plans, n_requests, n_layers) -> dict:
+    """The launch counters after the served requests (zeroed just before
+    them; fit_with_cache: before the fit, whose prime launches kernels too):
+    every layer of every planned group ran the mode's kernels in each pass,
+    the other mode's kernels never ran, and, in bf16 at e = 192 (d = 32,
+    nhid = 768), every K2b, K3, K1, K5, K6a and K6b launch took its wgmma
+    body. Returns the counts."""
+    from multimodalpfn_tpu_torch.ops import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    bodies = dict(kernels.BODY_LAUNCHES)
+    cached = fit_mode == "fit_with_cache"
+    groups, merged = len(plans), sum(m for _, _, m in plans)
+    passes = n_requests + 1 if cached else n_requests
+    # per kernel, the launches every layer of every planned group and pass
+    # needs at least (a memory split of a group adds more)
+    if cached:
+        feat, masked, idle = "K5", "K6b", ("K1", "K2a", "K2b", "K6a")
+        need = {"K4": groups, "K3": groups}
+    else:
+        feat, masked, idle = "K1", "K6a", ("K4", "K5", "K6b")
+        need = {"K2a": groups, "K2b": groups, "K3": groups}
+    need |= {feat: groups - merged, masked: merged}
+    need = {k: n_layers * passes * n for k, n in need.items()}
+    idle += tuple(k for k, n in need.items() if n == 0)
+    print(f"  launches {launches} (at least {need}; {', '.join(idle)} 0); by body "
+          f"{ {k: v for k, v in bodies.items() if v} }", flush=True)
+    if device.type == "cuda":
+        for kid, n in need.items():
+            check(launches[kid] >= n, f"{kid} launched {launches[kid]} times, expected >= {n}")
+        for kid in idle:
+            check(launches[kid] == 0, f"{kid} launched {launches[kid]} times on the {fit_mode} path")
+        check_wgmma_bodies(fit_mode, launches, bodies)
+    return launches
 
 
 def phase_kernel_vs_plain(device, model_path, data, fit_mode, tag="") -> tuple[float, object]:
@@ -1906,6 +2152,8 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
             row["launches_flash_finetune"] = launches["flash_finetune"][kid]
         if kid == "K4":
             row["launches_flash_finetune"] = launches["flash_finetune"]["K4"]
+        for path in ("regressor", "regressor_cached", "regressor_finetune"):
+            row[f"launches_{path}"] = launches[path][kid]
         row.update({k: v for k, v in r.items() if k not in main.values()})
         rows.append(row)
     return rows
@@ -1916,8 +2164,8 @@ def main() -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase at a tiny size on the CPU; exits 1")
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 14: profile one warm request of each size and a training step "
-                         "of each item path")
+                    help="add phase 14, run last: profile one warm request of each size, a training "
+                         "step of each item path and a warm regressor request")
     args = ap.parse_args()
 
     if not (ROOT / "multimodalpfn_tpu_torch" / "csrc").is_dir():
@@ -2003,6 +2251,8 @@ def main() -> int:
     write_model(model_path)
     nmq_path = ROOT / "build" / "chip_smoke_model_no_multiquery.npz"
     write_model(nmq_path, multiquery=False)
+    reg_path = ROOT / "build" / "chip_smoke_regressor.npz"
+    write_regression_model(reg_path)
 
     print("== phase 2: kernels against their plain versions", flush=True)
     if args.rehearse:
@@ -2080,15 +2330,34 @@ def main() -> int:
     res = phase_resume(device, nmq_path, ft_data, ROOT / "build" / "chip_smoke_resume.ckpt",
                        RESUME_STEPS, RESUME_EVERY)
 
+    y_reg = regression_target(X, y)
+    reg_data = (X[:n_tr], img[:n_tr], y_reg[:n_tr], X[n_tr:], img[n_tr:])
+    print("== phase 15: MMPFNRegressor, fit_preprocessors, served", flush=True)
+    rpre = phase_regressor_served(device, reg_path, reg_data, sizes, 12, "fit_preprocessors")
+    print("== phase 16: regressor kernel path against plain path (float32)", flush=True)
+    rcmp = phase_regressor_kernel_vs_plain(device, reg_path, reg_data)
+    print("== phase 17: MMPFNRegressor, fit_with_cache, served", flush=True)
+    rkv = phase_regressor_served(device, reg_path, reg_data, sizes, 12, "fit_with_cache")
+    reg_steps = 2 if args.rehearse else REG_FT_STEPS
+    print(f"== phase 18: fine_tune_mmpfn(task_type=\"regression\"), {reg_steps} bf16 steps, the "
+          "snapshot served, then kernel path against plain path (float32)", flush=True)
+    rft = phase_finetune(device, reg_path, (X, img, y_reg), reg_steps, ft_layers,
+                         ROOT / "build" / "chip_smoke_regressor_finetuned.ckpt", task="regression")
+    rft_cmp = phase_finetune_kernel_vs_plain(device, reg_path, (X, img, y_reg), cmp_layers,
+                                             task="regression")
+
     if args.profile:
         print("== phase 14: profile of warm requests and of a warm training step of each item "
-              "path", flush=True)
+              "path, and of a warm regressor request", flush=True)
         phase_profile(device, model_path, data, sizes)
         phase_profile_step(device, model_path, ft_data, ft_layers)
         phase_profile_step(device, nmq_path, ft_data, ft_layers, label=" of the flash path")
+        phase_profile_regressor(device, reg_path, reg_data, sizes[0])
 
     rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"],
-                              "finetune": ft["launches"], "flash_finetune": fl["launches"]}
+                              "finetune": ft["launches"], "flash_finetune": fl["launches"],
+                              "regressor": rpre["launches"], "regressor_cached": rkv["launches"],
+                              "regressor_finetune": rft["launches"]}
                        | {f"{plan}{'_cached' if mode == 'fit_with_cache' else ''}": run["launches"]
                           for (mode, plan), run in forced.items()})
     print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
@@ -2100,8 +2369,13 @@ def main() -> int:
           f"grads {ft_cmp['grad_rel']:.2e} params {ft_cmp['param_err']:.2e}; flash-path fine-tune "
           f"{fl['hist']['steps']} steps in {fl['wall_s']:.1f} s, warm step {fl['warm_step_ms']:.1f} ms, "
           f"f32 kernel vs plain grads {fl_cmp['grad_rel']:.2e} (folded {fold_cmp['grad_rel']:.2e}); "
-          f"resumed at step {res['resumed_from']}; total {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+          f"resumed at step {res['resumed_from']}; regressor: fit_preprocessors fit "
+          f"{rpre['fit_ms']:.1f} ms, warm requests ms {rpre['warm']} (host finalize "
+          f"{rpre['warm_host']}), fit_with_cache fit {rkv['fit_ms']:.1f} ms, warm {rkv['warm']} "
+          f"(host finalize {rkv['warm_host']}), f32 probabilities err {rcmp['prob_err']:.3e}; "
+          f"regression fine-tune {rft['hist']['steps']} steps, warm step {rft['warm_step_ms']:.1f} ms, "
+          f"f32 kernel vs plain grads {rft_cmp['grad_rel']:.2e}; "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.rehearse:
         print("rehearsal on the CPU passed; no result is reported without CUDA", file=sys.stderr)
         return 1

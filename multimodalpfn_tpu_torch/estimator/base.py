@@ -5,6 +5,7 @@ Reference semantics: `mmpfn/models/mmpfn/base.py:59-257` and `utils.py:98-190`.
 
 from __future__ import annotations
 
+import inspect
 import os
 from pathlib import Path
 from typing import Literal
@@ -12,13 +13,67 @@ from typing import Literal
 import numpy as np
 import torch
 
-from multimodalpfn_tpu_torch.models.download import CLASSIFIER_CKPT, cached_classifier_path
+from multimodalpfn_tpu_torch.estimator.data_utils import OrdinalEncoder, fix_dtypes
+from multimodalpfn_tpu_torch.models.download import (
+    CLASSIFIER_CKPT,
+    REGRESSOR_CKPT,
+    cached_checkpoint_path,
+)
 from multimodalpfn_tpu_torch.models.loading import LoadedModel, load_model
 
 
 class NotFittedError(ValueError, AttributeError):
     """Raised by a predict before ``fit``: a ``ValueError`` and an
     ``AttributeError``, as scikit-learn's ``NotFittedError`` is."""
+
+
+class EstimatorBase:
+    """What the two estimators share: the estimator contract the JAX
+    package's inherit from scikit-learn's ``BaseEstimator`` (``get_params``,
+    ``set_params``, so ``sklearn.base.clone``), written out so that
+    scikit-learn is never imported; the fitted check; and the encoding of X."""
+
+    @classmethod
+    def _get_param_names(cls) -> list[str]:
+        """The constructor's parameter names, sorted."""
+        params = inspect.signature(cls.__init__).parameters.values()
+        return sorted(p.name for p in params if p.name != "self" and p.kind != p.VAR_KEYWORD)
+
+    def get_params(self, deep: bool = True) -> dict:
+        """The constructor's parameters; none holds an estimator, so ``deep``
+        changes nothing."""
+        return {key: getattr(self, key) for key in self._get_param_names()}
+
+    def set_params(self, **params):
+        names = self._get_param_names()
+        for key, value in params.items():
+            if key not in names:
+                raise ValueError(
+                    f"Invalid parameter {key!r} for estimator {type(self).__name__}. "
+                    f"Valid parameters are: {names!r}."
+                )
+            setattr(self, key, value)
+        return self
+
+    def _check_fitted(self) -> None:
+        if not hasattr(self, "executor_"):
+            raise NotFittedError(
+                f"This {type(self).__name__} instance is not fitted yet. Call 'fit' with "
+                "appropriate arguments before using this estimator."
+            )
+
+    def _encode_X(self, X, *, fit: bool) -> np.ndarray:
+        """Dtype fixing + ordinal encoding of categorical/string columns. A
+        numeric array without categorical indices passes through as float64
+        (the ordinal encoder selects no column of it)."""
+        X = fix_dtypes(X, cat_indices=self.categorical_features_indices)
+        if fit:
+            self.preprocessor_ = None if isinstance(X, np.ndarray) else OrdinalEncoder()
+            if self.preprocessor_ is not None:
+                return np.asarray(self.preprocessor_.fit_transform(X))
+        elif self.preprocessor_ is not None:
+            return np.asarray(self.preprocessor_.transform(X))
+        return np.asarray(X)
 
 
 def _cache_dir() -> Path:
@@ -28,23 +83,25 @@ def _cache_dir() -> Path:
     return Path.home() / ".cache" / "multimodalpfn_tpu"
 
 
-def resolve_auto_checkpoint() -> Path:
-    """The published classifier checkpoint for ``model_path="auto"``, looked
+def resolve_auto_checkpoint(which: Literal["classifier", "regressor"] = "classifier") -> Path:
+    """The published checkpoint for ``model_path="auto"``
+    (``tabpfn-v2-classifier.ckpt`` or ``tabpfn-v2-regressor.ckpt``), looked
     for where the JAX package looks (its `estimator/base.py:initialize_model`):
     first the legacy ``_cache_dir()``, then ``$TABPFN_MODEL_CACHE_DIR``, or
     else ``$XDG_CACHE_HOME/tabpfn`` or ``~/.cache/tabpfn``, where the
     reference caches it. There is no download."""
-    legacy = _cache_dir() / CLASSIFIER_CKPT
+    name = CLASSIFIER_CKPT if which == "classifier" else REGRESSOR_CKPT
+    legacy = _cache_dir() / name
     if legacy.exists():
         return legacy
-    path = cached_classifier_path()
+    path = cached_checkpoint_path(name)
     if path.exists():
         return path
     raise FileNotFoundError(
-        f"No checkpoint named {CLASSIFIER_CKPT} in {legacy.parent}, in "
+        f"No checkpoint named {name} in {legacy.parent}, in "
         f"$TABPFN_MODEL_CACHE_DIR ({os.environ.get('TABPFN_MODEL_CACHE_DIR') or 'unset'}) or in "
         f"the user cache dir ($XDG_CACHE_HOME/tabpfn or ~/.cache/tabpfn: {path.parent}). "
-        f"Place the published {CLASSIFIER_CKPT} in one of them, pass model_path=..., or use "
+        f"Place the published {name} in one of them, pass model_path=..., or use "
         "model_path='random:<seed>' for an untrained model."
     )
 
@@ -71,20 +128,23 @@ def initialize_model(
     cap_heads: int,
     features_per_group: int | None,
     device: torch.device,
+    which: Literal["classifier", "regressor"] = "classifier",
 ) -> LoadedModel:
-    """Load (or synthesize) the model onto ``device``.
+    """Load (or synthesize) the ``which`` model onto ``device``.
 
     - ``"auto"``: the published checkpoint from the model cache dirs
       (`resolve_auto_checkpoint`); there is no download path.
     - an existing path: a reference-format torch checkpoint, or an ``.npz``
       written by `models.loading.save_npz`.
     - ``"random"`` / ``"random:<seed>"``: fresh random initialization with the
-      published architecture — for benchmarking/testing without weights.
+      published architecture — for benchmarking/testing without weights (a
+      regressor's with the borders ``linspace(-12, 12, 5001)``).
     """
     if model_path == "auto":
-        model_path = resolve_auto_checkpoint()
+        model_path = resolve_auto_checkpoint(which)
     return load_model(
         model_path,
+        which=which,
         model_seed=static_seed,
         mixer_type=mixer_type,
         mgm_heads=mgm_heads,

@@ -17,7 +17,6 @@ mapping. The estimator contract that the JAX classifiers inherit from
 from __future__ import annotations
 
 import dataclasses
-import inspect
 from pathlib import Path
 from typing import Literal, Sequence
 
@@ -25,15 +24,13 @@ import numpy as np
 import torch
 
 from multimodalpfn_tpu_torch.estimator.base import (
-    NotFittedError,
+    EstimatorBase,
     determine_precision,
     initialize_model,
     pipeline_requests,
     resolve_device,
 )
 from multimodalpfn_tpu_torch.estimator.data_utils import (
-    OrdinalEncoder,
-    fix_dtypes,
     infer_categorical_features,
     validate_X_predict,
     validate_Xy_fit,
@@ -57,7 +54,7 @@ def _softmax(x: np.ndarray, axis: int = -1) -> np.ndarray:
     return e / e.sum(axis=axis, keepdims=True)
 
 
-class MMPFNClassifier:
+class MMPFNClassifier(EstimatorBase):
     """Multimodal TabPFN-v2 classifier on PyTorch (CUDA kernels on a GPU)."""
 
     _estimator_type = "classifier"
@@ -103,29 +100,7 @@ class MMPFNClassifier:
         self.cap_heads = cap_heads
         self.features_per_group = features_per_group
 
-    # the estimator contract (scikit-learn's BaseEstimator and ClassifierMixin)
-    @classmethod
-    def _get_param_names(cls) -> list[str]:
-        """The constructor's parameter names, sorted."""
-        params = inspect.signature(cls.__init__).parameters.values()
-        return sorted(p.name for p in params if p.name != "self" and p.kind != p.VAR_KEYWORD)
-
-    def get_params(self, deep: bool = True) -> dict:
-        """The constructor's parameters; none holds an estimator, so ``deep``
-        changes nothing."""
-        return {key: getattr(self, key) for key in self._get_param_names()}
-
-    def set_params(self, **params) -> "MMPFNClassifier":
-        names = self._get_param_names()
-        for key, value in params.items():
-            if key not in names:
-                raise ValueError(
-                    f"Invalid parameter {key!r} for estimator {type(self).__name__}. "
-                    f"Valid parameters are: {names!r}."
-                )
-            setattr(self, key, value)
-        return self
-
+    # the rest of the estimator contract (scikit-learn's ClassifierMixin)
     def score(self, X, y, sample_weight=None) -> float:
         """Mean accuracy of ``self.predict(X)`` against ``y``, weighted by
         ``sample_weight`` (``ClassifierMixin.score``)."""
@@ -251,19 +226,6 @@ class MMPFNClassifier:
         )
         return self
 
-    def _encode_X(self, X, *, fit: bool) -> np.ndarray:
-        """Dtype fixing + ordinal encoding of categorical/string columns. A
-        numeric array without categorical indices passes through as float64
-        (the ordinal encoder selects no column of it)."""
-        X = fix_dtypes(X, cat_indices=self.categorical_features_indices)
-        if fit:
-            self.preprocessor_ = None if isinstance(X, np.ndarray) else OrdinalEncoder()
-            if self.preprocessor_ is not None:
-                return np.asarray(self.preprocessor_.fit_transform(X))
-        elif self.preprocessor_ is not None:
-            return np.asarray(self.preprocessor_.transform(X))
-        return np.asarray(X)
-
     def predict(self, X, X_image: np.ndarray | None = None) -> np.ndarray:
         proba = self._predict_proba_impl(X, X_image)
         return self.classes_[np.argmax(proba, axis=1)]
@@ -292,11 +254,7 @@ class MMPFNClassifier:
 
     def _dispatch_predict(self, X, image_test: np.ndarray | None):
         """Validation, encoding and the engine's dispatch (no host sync)."""
-        if not hasattr(self, "executor_"):
-            raise NotFittedError(
-                f"This {type(self).__name__} instance is not fitted yet. Call 'fit' with "
-                "appropriate arguments before using this estimator."
-            )
+        self._check_fitted()
         if X is not None:
             X = self._encode_X(validate_X_predict(X, self), fit=False)
         return self.executor_.dispatch_outputs(X, image_test)

@@ -166,19 +166,33 @@ def _check_X(X: np.ndarray, *, ensure_min_samples: int = 1) -> np.ndarray:
     return X
 
 
-def _check_classification_y(y) -> np.ndarray:
-    """sklearn ``column_or_1d`` + ``check_classification_targets`` for numpy
-    labels: a column vector is raveled, labels must be finite and discrete."""
+def _column_or_1d(y) -> np.ndarray:
+    """sklearn ``column_or_1d(y, warn=True)``: a column vector is raveled."""
     y = np.asarray(y)
     if y.ndim == 2 and y.shape[1] == 1:
         warnings.warn(
             "A column-vector y was passed when a 1d array was expected.",
             UserWarning,
-            stacklevel=3,
+            stacklevel=4,
         )
         y = y.ravel()
     if y.ndim != 1:
         raise ValueError(f"y should be a 1d array, got an array of shape {y.shape}")
+    return y
+
+
+def _check_regression_y(y) -> np.ndarray:
+    """sklearn ``check_X_y``'s y for a regressor: 1-d, and finite."""
+    y = _column_or_1d(y)
+    if y.dtype.kind in "fc" and not np.isfinite(y).all():
+        raise ValueError("Input y contains NaN or infinity.")
+    return y
+
+
+def _check_classification_y(y) -> np.ndarray:
+    """sklearn ``column_or_1d`` + ``check_classification_targets`` for numpy
+    labels: a column vector is raveled, labels must be finite and discrete."""
+    y = _column_or_1d(y)
     if y.dtype.kind == "f":
         if not np.isfinite(y).all():
             raise ValueError("Input y contains NaN or infinity.")
@@ -220,14 +234,15 @@ def validate_Xy_fit(
     max_num_features: int,
     max_num_samples: int,
     ignore_pretraining_limits: bool = False,
+    classification: bool = True,
 ):
-    """Fit-time validation of a classifier's inputs (reference
-    `validate_Xy_fit`, `utils.py:472-550`). A DataFrame comes back as its
-    values (object where its columns' dtypes mix). Returns (X, y, feature
-    names, n_features)."""
+    """Fit-time validation of a classifier's (or, with ``classification``
+    off, a regressor's) inputs (reference `validate_Xy_fit`,
+    `utils.py:472-550`). A DataFrame comes back as its values (object where
+    its columns' dtypes mix). Returns (X, y, feature names, n_features)."""
     feature_names = getattr(X, "columns", None)
     X = _check_X(np.asarray(X), ensure_min_samples=2)
-    y = _check_classification_y(y)
+    y = _check_classification_y(y) if classification else _check_regression_y(y)
     if len(y) != X.shape[0]:
         raise ValueError(
             "Found input variables with inconsistent numbers of samples: "

@@ -13,6 +13,7 @@ import sys
 from pathlib import Path
 
 CLASSIFIER_CKPT = "tabpfn-v2-classifier.ckpt"
+REGRESSOR_CKPT = "tabpfn-v2-regressor.ckpt"
 
 
 def user_cache_dir() -> Path:
@@ -29,8 +30,9 @@ def user_cache_dir() -> Path:
     return fallback
 
 
-def cached_classifier_path() -> Path:
-    """The published classifier's path in ``$TABPFN_MODEL_CACHE_DIR``, or
-    else in `user_cache_dir`."""
+def cached_checkpoint_path(name: str = CLASSIFIER_CKPT) -> Path:
+    """A published checkpoint's path (``name``: `CLASSIFIER_CKPT` or
+    `REGRESSOR_CKPT`) in ``$TABPFN_MODEL_CACHE_DIR``, or else in
+    `user_cache_dir`."""
     env = os.environ.get("TABPFN_MODEL_CACHE_DIR", "")
-    return (Path(env) if env.strip() else user_cache_dir()) / CLASSIFIER_CKPT
+    return (Path(env) if env.strip() else user_cache_dir()) / name

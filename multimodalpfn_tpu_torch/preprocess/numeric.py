@@ -6,9 +6,10 @@ Each class follows scikit-learn 1.9.0 (`sklearn/preprocessing/_data.py`,
 `sklearn/impute/_base.py`, `sklearn/decomposition/_truncated_svd.py`,
 `sklearn/pipeline.py`) on dense arrays: the same numpy and scipy calls on the
 same dtypes in the same order, so the outputs are scikit-learn's. Only what
-the preprocessing uses is kept: forward transforms, no sparse input, no
-inverse, no sample weights, no parameter validation beyond what changes a
-result. Inputs are validated as scikit-learn does where that changes what
+the preprocessing uses is kept: forward transforms, the inverses the
+regressor's target transforms take back through (`estimator/borders.py`), no
+sparse input, no sample weights, no parameter validation beyond what changes
+a result. Inputs are validated as scikit-learn does where that changes what
 comes out: a float64, float32 or float16 array keeps its dtype (anything else
 becomes float64), a transform copies its input in the input's own memory
 layout (the layout decides numpy's summation order, and the fingerprint
@@ -24,6 +25,7 @@ import numpy as np
 from scipy import stats
 from scipy.sparse.linalg import svds
 from scipy.special import boxcox as _boxcox
+from scipy.special import inv_boxcox as _inv_boxcox
 
 FLOAT_DTYPES = (np.float64, np.float32, np.float16)
 # quantile-transform clipping of values at the quantile range's ends
@@ -93,17 +95,22 @@ class Transformer:
 
 
 class FunctionTransformer(Transformer):
-    """A stateless elementwise function (``FunctionTransformer(func)``, which
-    does not validate its input)."""
+    """A stateless elementwise function (``FunctionTransformer(func,
+    inverse_func)``, which does not validate its input); without an
+    ``inverse_func`` the inverse is the identity, as scikit-learn's is."""
 
-    def __init__(self, func):
+    def __init__(self, func, inverse_func=None):
         self.func = func
+        self.inverse_func = inverse_func
 
     def fit(self, X, y=None):
         return self
 
     def transform(self, X):
         return self.func(X)
+
+    def inverse_transform(self, X):
+        return X if self.inverse_func is None else self.inverse_func(X)
 
 
 class Pipeline(Transformer):
@@ -127,6 +134,12 @@ class Pipeline(Transformer):
     def transform(self, X):
         for _, step in self.steps:
             X = step.transform(X)
+        return X
+
+    def inverse_transform(self, X):
+        """Every step's inverse, the last step's first."""
+        for _, step in reversed(self.steps):
+            X = step.inverse_transform(X)
         return X
 
 
@@ -226,6 +239,15 @@ class StandardScaler(Transformer):
         X /= self.scale_.astype(X.dtype)
         return X
 
+    def inverse_transform(self, X):
+        """Scaled back by ``scale_`` (1 for a constant feature), then the
+        mean added."""
+        X = _check_array(X, copy=True)
+        X *= self.scale_.astype(X.dtype)
+        if self.with_mean:
+            X += self.mean_.astype(X.dtype)
+        return X
+
 
 class SimpleImputer(Transformer):
     """NaN replaced by the column's mean over its non-NaN values
@@ -246,6 +268,13 @@ class SimpleImputer(Transformer):
         X = _check_array(X, copy=True)
         missing = np.isnan(X)
         X[missing] = np.broadcast_to(self.statistics_.astype(self.fill_dtype_), X.shape)[missing]
+        return X
+
+    def inverse_transform(self, X):
+        """The identity, on ``X`` itself: the finite sandwich of the safe
+        scaler is transparent on the inverse path (the JAX package's
+        ``_IdentityInverseImputer``, after the reference's
+        `preprocessing.py:232-240`)."""
         return X
 
 
@@ -297,6 +326,13 @@ class MinMaxScaler(Transformer):
         X += self.min_
         np.clip(X, np.asarray(self.FEATURE_RANGE[0], dtype=X.dtype),
                 np.asarray(self.FEATURE_RANGE[1], dtype=X.dtype), out=X)
+        return X
+
+    def inverse_transform(self, X):
+        """The linear map undone; nothing is clipped."""
+        X = _check_array(X, copy=True)
+        X -= self.min_
+        X /= self.scale_
         return X
 
 
@@ -369,6 +405,36 @@ class PowerTransformer(Transformer):
         for i, lmbda in enumerate(self.lambdas_):
             with np.errstate(invalid="ignore"):
                 X[:, i] = self._transform_function(X[:, i], lmbda)
+        return X
+
+    @staticmethod
+    def _yeo_johnson_inverse(x, lmbda):
+        """The four branches of `_data.py`'s ``_yeo_johnson_inverse_transform``.
+        A NaN λ fails both branch tests: the non-negative values come out NaN
+        and the negative ones ``1 - exp(-x)``."""
+        x_inv = np.zeros_like(x)
+        pos = x >= 0
+        if abs(lmbda) < np.spacing(1.0):
+            x_inv[pos] = np.exp(x[pos]) - 1
+        else:
+            x_inv[pos] = np.power(x[pos] * lmbda + 1, 1 / lmbda) - 1
+        if abs(lmbda - 2) > np.spacing(1.0):
+            x_inv[~pos] = 1 - np.power(-(2 - lmbda) * x[~pos] + 1, 1 / (2 - lmbda))
+        else:
+            x_inv[~pos] = 1 - np.exp(-x[~pos])
+        return x_inv
+
+    def inverse_transform(self, X):
+        """Each column's inverse power transform with its λ (Box-Cox:
+        ``scipy.special.inv_boxcox``), every column, whatever a subclass
+        reverted in its forward transform."""
+        X = _check_array(X, copy=True)
+        if X.shape[1] != len(self.lambdas_):
+            raise ValueError(f"X has {X.shape[1]} features, expected {len(self.lambdas_)}")
+        inv = _inv_boxcox if self.method == "box-cox" else self._yeo_johnson_inverse
+        for i, lmbda in enumerate(self.lambdas_):
+            with np.errstate(invalid="ignore", over="ignore"):
+                X[:, i] = inv(X[:, i], lmbda)
         return X
 
 

@@ -57,7 +57,10 @@ class SafePowerTransformer(PowerTransformer):
     ``scipy.stats.yeojohnson`` and no longer consults the subclass's
     transform hook). The revert runs in `fit` and `transform`; inside a
     pipeline the step is fitted by ``fit_transform``, which, as in
-    scikit-learn, does not set ``revert_indices_``."""
+    scikit-learn, does not set ``revert_indices_``. The inverse is
+    `PowerTransformer`'s (scikit-learn's is not overridden either): every
+    column takes its λ back, reverted or not, and a NaN λ gives NaN for the
+    non-negative values and ``1 - exp(-x)`` for the negative ones."""
 
     def __init__(self, variance_threshold=1e-3, large_value_threshold=100, method="yeo-johnson"):
         super().__init__(method=method)

@@ -8,8 +8,9 @@ so shapes are constant.
 
 The port imports no scikit-learn (the machine with the card has none): the
 splitters below are numpy copies of scikit-learn 1.9.0's ``KFold``,
-``StratifiedKFold`` (``shuffle=True``) and the stratified ``train_test_split``
-(``StratifiedShuffleSplit`` with ``_approximate_mode``). For the same
+``StratifiedKFold`` (``shuffle=True``) and ``train_test_split``, stratified
+(``StratifiedShuffleSplit`` with ``_approximate_mode``) or not
+(``ShuffleSplit``). For the same
 ``random_state`` they give the same indices, draw for draw, so the port trains
 on the episodes the JAX package trains on (`tests/test_torch_finetune.py`).
 """
@@ -126,6 +127,19 @@ def stratified_train_test_split(y: np.ndarray, test_size: float, random_state) -
         train.extend(perm[: n_i[i]])
         test.extend(perm[n_i[i] : n_i[i] + t_i[i]])
     return rng.permutation(train), rng.permutation(test)
+
+
+def train_test_split_indices(n_samples: int, test_size: float, random_state) -> tuple[np.ndarray, np.ndarray]:
+    """The (train, test) indices of ``train_test_split(..., test_size,
+    random_state)`` without ``stratify``, for a float ``test_size`` in (0, 1):
+    one ``ShuffleSplit`` draw, ``n_test = ceil(test_size · n)`` rows from the
+    front of one permutation and the next ``n - n_test`` for training."""
+    n_test = ceil(test_size * n_samples)
+    n_train = n_samples - n_test
+    if n_train < 1:
+        raise ValueError(f"test_size={test_size} leaves no training rows of {n_samples}")
+    permutation = _random_state(random_state).permutation(n_samples)
+    return permutation[n_test : n_test + n_train], permutation[:n_test]
 
 
 class EpisodeSampler:

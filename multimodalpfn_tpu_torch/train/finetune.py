@@ -3,12 +3,17 @@
 API and protocol: reference `scripts_finetune_mm/finetune_mmpfn_main.py:78-486`
 (`fine_tune_mmpfn`) as the JAX package's `multimodalpfn_tpu/train/finetune.py`
 runs it: load the base checkpoint, optionally freeze the input encoders, split
-off 20 % of the rows for validation (stratified), validate the initial model,
+off 20 % of the rows for validation (stratified for classification), validate
+the initial model,
 then up to ``max_steps`` steps of one K-fold episode each with clipped
 schedule-free AdamW; after every update, validate at the schedule-free
 evaluation point and keep the best-by-validation snapshot, written in the
 reference torch format (`models.loading.save_model`) so the port's
-`MMPFNClassifier` serves it.
+`MMPFNClassifier` serves it. With ``task_type="regression"`` the base model is
+a regressor: the loss is its bar distribution's NLL on the raw targets (not
+standardized, as in the JAX package's `finetune.py:329-337`), validation
+scores the bar distribution's mean, and the snapshot keeps the borders
+(``criterion.borders``), so `MMPFNRegressor` serves it.
 
 On the card the step runs bf16 compute with float32 master weights, and the
 encoder layers run the hand-written kernels forward (K1, K2a + K2b, K3) and
@@ -41,11 +46,16 @@ import numpy as np
 import torch
 
 from multimodalpfn_tpu_torch.estimator.base import initialize_model, resolve_device
+from multimodalpfn_tpu_torch.models.bar_distribution import FullSupportBarDistribution
 from multimodalpfn_tpu_torch.models.config import ModelConfig
 from multimodalpfn_tpu_torch.models.loading import LoadedModel, save_model
 from multimodalpfn_tpu_torch.models.params import flatten_params, unflatten_params
 from multimodalpfn_tpu_torch.models.transformer import forward
-from multimodalpfn_tpu_torch.train.data import EpisodeSampler, stratified_train_test_split
+from multimodalpfn_tpu_torch.train.data import (
+    EpisodeSampler,
+    stratified_train_test_split,
+    train_test_split_indices,
+)
 from multimodalpfn_tpu_torch.train.early_stopping import AdaptiveES
 from multimodalpfn_tpu_torch.train.losses import get_loss_fn
 from multimodalpfn_tpu_torch.train.metrics import get_scorer
@@ -78,13 +88,15 @@ def _canon_task(task_type: str) -> str:
 
 def create_val_data(*, X, image, y, rng, is_classification):
     """Size-dependent validation split (reference `validation_utils.py:17-88`):
-    ``train_test_split(..., random_state=rng, stratify=y)`` as the JAX
-    package calls it, drawn by the numpy copy of scikit-learn's splitter."""
-    if not is_classification:
-        raise NotImplementedError("the regression validation split comes with the regressor")
+    ``train_test_split(..., random_state=rng, stratify=y if
+    is_classification else None)`` as the JAX package calls it, drawn by the
+    numpy copies of scikit-learn's splitters."""
     n = len(y)
     test_size = 0.2 if n < 500_000 else (0.1 if n < 1_000_000 else 0.05)
-    tr, va = stratified_train_test_split(y, test_size, rng)
+    if is_classification:
+        tr, va = stratified_train_test_split(y, test_size, rng)
+    else:
+        tr, va = train_test_split_indices(n, test_size, rng)
 
     def take(a):
         return (None, None) if a is None else (np.asarray(a)[tr], np.asarray(a)[va])
@@ -156,12 +168,15 @@ def make_episode_trainer(
     backward, as the JAX package turns on its fused Pallas ops on an
     accelerator (`finetune.py:310-317`). ``cfg_override`` replaces config
     fields after that (an ``nlayers`` below the checkpoint's keeps its first
-    layers). ``phase_seconds`` gets ``model_init`` and ``optimizer_setup``."""
+    layers). ``phase_seconds`` gets ``model_init`` and ``optimizer_setup``.
+    A "regression" ``task`` loads a regressor and trains on its borders."""
     device = resolve_device(device)
     phase_seconds = {} if phase_seconds is None else phase_seconds
     t_phase = time.time()
+    regression = task == "regression"
     loaded = initialize_model(
         model_path=path_to_base_model,
+        which="regressor" if regression else "classifier",
         static_seed=random_seed,
         mixer_type=mixer_type if image_train is not None else "none",
         mgm_heads=mgm_heads,
@@ -192,13 +207,13 @@ def make_episode_trainer(
         lambda p: make_optimizer(p, learning_rate, optimizer=optimizer,
                                  freeze_mask=frozen_input_mask(p, freeze_input)),
     )
-    train_step = make_train_step(cfg, get_loss_fn(task))
+    if regression and loaded.criterion_borders is None:
+        raise ValueError(f"{path_to_base_model!r} is not a regression model: it has no borders")
+    train_step = make_train_step(cfg, get_loss_fn(task, loaded.criterion_borders))
     phase_seconds["optimizer_setup"] = time.time() - t_phase
 
     y_train = np.asarray(y_train, dtype=np.float32)
-    sampler = EpisodeSampler(
-        X=X_train, image=image_train, y=y_train, is_classification=task != "regression"
-    )
+    sampler = EpisodeSampler(X=X_train, image=image_train, y=y_train, is_classification=not regression)
     generator = torch.Generator(device=device)
     generator.manual_seed(int(random_seed))
     data = {k: None if a is None else torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -289,7 +304,6 @@ def fine_tune_mmpfn(
         start_step = trainer.state.step
         logger.info("resumed fine-tuning at step %d", start_step)
     x_tr, i_tr, y_tr = trainer.data["x"], trainer.data["image"], trainer.data["y"]
-    n_classes = int(y_tr.max()) + 1
     n_tr = len(y_tr)
 
     # ---- the validation rows on the device, once
@@ -304,9 +318,18 @@ def fine_tune_mmpfn(
         logits = forward(p, cfg, x, y_tr[None], img, single_eval_pos=n_tr)
         return logits[0].float().cpu().numpy()
 
+    if is_classification:
+        n_classes = int(y_tr.max()) + 1
+    else:
+        bardist = FullSupportBarDistribution(np.asarray(loaded.criterion_borders, np.float32))
+
     def score_val_logits(logits: np.ndarray) -> float:
-        """Softmax, cut to the classes seen in training, renormalized
+        """Classification: softmax, cut to the classes seen in training,
+        renormalized; regression: the bar distribution's mean, float32
         (`finetune.py:415-432` of the JAX package)."""
+        if not is_classification:
+            y_pred = bardist.mean(torch.from_numpy(logits)).numpy()
+            return scorer.convert_score_to_error(scorer(y_val, y_pred))
         z = logits - logits.max(axis=-1, keepdims=True)
         y_pred = np.exp(z) / np.exp(z).sum(axis=-1, keepdims=True)
         y_pred = y_pred[:, :n_classes]
@@ -316,7 +339,8 @@ def fine_tune_mmpfn(
     save_path = Path(save_path_to_fine_tuned_model)
     save_path.parent.mkdir(parents=True, exist_ok=True)
     snap_writer = AsyncSnapshotWriter(
-        lambda p: save_model(save_path, p, loaded.config, ckpt_config=loaded.ckpt_config)
+        lambda p: save_model(save_path, p, loaded.config, ckpt_config=loaded.ckpt_config,
+                             criterion_borders=loaded.criterion_borders)
     )
     state_writer = AsyncSnapshotWriter(lambda arrays: write_train_state(state_path, arrays))
     validate_inline = int(cfg_hp["validate_every_n_steps"]) == 1

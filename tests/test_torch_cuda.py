@@ -931,3 +931,87 @@ def test_flash_path_finetune_three_steps_on_the_card(cuda, tmp_path, multiquery)
     proba = clf.predict_proba(X[90:])
     assert proba.shape == (30, 3)
     np.testing.assert_allclose(proba.sum(axis=1), 1.0, atol=1e-5)
+
+
+def _regression_base(tmp_path, emsize=64):
+    """A small random regressor checkpoint (5000 bars over linspace(-12, 12))
+    with its output projections filled in."""
+    import numpy as np
+
+    from chip_smoke import densify
+    from multimodalpfn_tpu_torch.models.config import MixerConfig
+    from multimodalpfn_tpu_torch.models.loading import save_model
+
+    cfg = ModelConfig(emsize=emsize, nhead=4, nhid_factor=2, nlayers=2, n_out=5000, max_num_classes=0,
+                      num_buckets=5000, mixer=MixerConfig("MGM+CAP", mgm_heads=2, cap_heads=2, in_dim=96))
+    params = tparams.init_params(torch.Generator().manual_seed(0), cfg)
+    densify(params, seed=1)
+    base = tmp_path / "reg_base.ckpt"
+    save_model(base, params, cfg, criterion_borders=np.linspace(-12, 12, 5001).astype(np.float32))
+    return base
+
+
+def _regression_data(n=120, seed=8):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6))
+    img = rng.standard_normal((n, 1, 96)).astype(np.float32)
+    y = X[:, 0] + 0.5 * X[:, 1] + rng.lognormal(sigma=0.5, size=n)
+    return X, img, y
+
+
+@pytest.mark.parametrize("fit_mode", ["fit_preprocessors", "fit_with_cache"])
+def test_regressor_on_the_card_matches_the_cpu(cuda, tmp_path, fit_mode):
+    """MMPFNRegressor in float32 on the card (the kernel path) against the
+    same regressor on the CPU (the plain path): bar probabilities within
+    1e-4, mean and median within 1e-4 of std(y); the counters show the
+    served kernels of the mode and no backward kernel."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch import MMPFNRegressor
+
+    base = _regression_base(tmp_path)
+    X, img, y = _regression_data()
+    kw = dict(model_path=base, mgm_heads=2, cap_heads=2, n_estimators=4, fit_mode=fit_mode,
+              inference_precision="float32")
+    cpu = MMPFNRegressor(device="cpu", **kw).fit(X[:90], img[:90], y[:90])
+    want = cpu.predict(X[90:], img[90:], output_type="full")
+    kernels.reset_launches()
+    gpu = MMPFNRegressor(device="cuda", **kw).fit(X[:90], img[:90], y[:90])
+    got = gpu.predict(X[90:], img[90:], output_type="full")
+    ran = dict(kernels.LAUNCHES)
+    np.testing.assert_allclose(np.exp(got["logits"]), np.exp(want["logits"]), atol=1e-4, rtol=0)
+    std = float(np.std(y[:90]))
+    for key in ("mean", "median"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-4 * std, rtol=0, err_msg=key)
+    served = ("K4", "K3") if fit_mode == "fit_with_cache" else ("K2a", "K2b", "K3")
+    assert all(ran[k] > 0 for k in served) and not any(ran[k] for k in NO_BACKWARD)
+
+
+def test_regression_finetune_three_steps_on_the_card(cuda, tmp_path):
+    """``fine_tune_mmpfn(task_type="regression")`` on the card (bf16): three
+    steps run K7, K8, K9 and K10 once per layer each, every loss and
+    gradient norm is finite, and MMPFNRegressor serves the snapshot."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch import MMPFNRegressor
+    from multimodalpfn_tpu_torch.train.finetune import fine_tune_mmpfn
+
+    base = _regression_base(tmp_path)
+    X, img, y = _regression_data()
+    out = tmp_path / "reg_ft.ckpt"
+    kernels.reset_launches()
+    hist = fine_tune_mmpfn(
+        mixer_type="MGM+CAP", mgm_heads=2, cap_heads=2, features_per_group=1,
+        path_to_base_model=base, save_path_to_fine_tuned_model=out, task_type="regression",
+        validation_metric="rmse", finetuning_config={"max_steps": 3, "learning_rate": 1e-3},
+        X_train=X, image_train=img, y_train=y, random_seed=0,
+    )
+    assert hist["steps"] == 3 and hist["skipped_steps"] == 0
+    assert np.isfinite(hist["train_loss"]).all() and np.isfinite(hist["grad_norm"]).all()
+    assert {k: kernels.LAUNCHES[k] for k in NO_BACKWARD} == (
+        {k: 3 * 2 for k in ("K7", "K8", "K9", "K10")} | {"K7s": 0, "K11": 0})
+    reg = MMPFNRegressor(model_path=out, mgm_heads=2, cap_heads=2, n_estimators=2, device="cuda")
+    pred = reg.fit(X[:90], img[:90], y[:90]).predict(X[90:], img[90:])
+    assert pred.shape == (30,) and np.isfinite(pred).all()
