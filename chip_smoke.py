@@ -179,10 +179,38 @@ CUDA-core body).
    then three float32 steps on 3 layers, kernel path against plain path, as
    phase 10.
 
+19. The sweep, served by the kernels: ``fine_tune_batched_cells``
+   (`train/finetune_batch.py`) on the same data and model at full width,
+   bf16, the MGM+CAP cells mgm 16 and mgm 32 (cap 8), seeds 0 and 1: 4 runs
+   with their mixers padded to 32 heads, 10 steps at lr 1e-5, validation
+   after every step. The counters, zeroed just before, show K1, K2a, K2b and
+   K3 launched 4 x (10 + 11) x 12 times, K7, K8, K9 and K10 4 x 10 x 12,
+   every K1, K2b, K3 launch and K7's per-row attention on the wgmma body;
+   every loss and validation error finite; the sweep step's median time on
+   the host clock, per step and per run. The mgm-16 runs, extracted at
+   their true shape (``extract_run_params``) and saved, are served by
+   ``MMPFNClassifier``.
+20. The sweep's float32 gates on the first three layers: (a) three steps
+   of the same sweep, kernel path against plain path (losses 1e-4
+   relative, params 1e-5 absolute); (b) the two cells in one sweep against
+   each alone: at lr 1e-12 the losses within 1e-5 relative and the
+   extracted mixers within 1e-9, at lr 1e-5 the losses within 1e-4; (c) a
+   padded MGM group (mgm 2 and 4, 2 seeds), two bf16 steps launching K2a,
+   K2b, K9 and K10 and no K1, K3, K7 or K8 (its masked feature attention
+   and its MLP run plain), and its float32 kernel path against its plain
+   path within (a)'s bounds.
+21. The grid study: ``run_experiment_cross_cell`` over mgm {4, 16, 32} x
+   cap {8}, 2 seeds, 3 steps (checkpoints under ``build/``), then
+   ``run_experiment`` on the mgm-16 cell for 1 seed and 2 steps, the
+   counters zeroed before each: mgm 4 pruned, every other trial complete
+   with all its seeds and an accuracy in [0, 1], no trial failed, the
+   forward and backward kernels launched; the study JSON round-trips.
+
 ``--profile`` adds a phase 14, run last: ``torch.profiler`` around one warm
 request of each size in both modes, around one warm training step of each
-item path (the fused item sublayer and the flash path) and around one warm
-460-row regressor request, printing wall time, device kernel time, the idle
+item path (the fused item sublayer and the flash path), around one warm
+460-row regressor request and around the last of three sweep steps of
+phase 19's sweep, printing wall time, device kernel time, the idle
 share and the kernels that took the most device time.
 
 The line before the last is a JSON object with one entry per kernel; the last
@@ -368,6 +396,19 @@ REG_FT_STEPS = 20
 # before step 4, so it holds the state after step 3; the resumed call runs
 # steps 4 to 6)
 RESUME_STEPS, RESUME_EVERY = 6, 4
+# the sweep (phases 19-21): the reference grid's shape, MGM+CAP cells of
+# different mgm_heads sharing cap_heads, 2 seeds each, padded to 32 heads
+SWEEP_CELLS = [{"mgm_heads": 16, "cap_heads": 8, "seeds": [0, 1]},
+               {"mgm_heads": 32, "cap_heads": 8, "seeds": [0, 1]}]
+SWEEP_STEPS = 10
+# a padded MGM group (phase 20c): its image-token count follows mgm_heads
+SWEEP_MGM_CELLS = [{"mgm_heads": 2, "cap_heads": 2, "seeds": [0, 1]},
+                   {"mgm_heads": 4, "cap_heads": 2, "seeds": [0, 1]}]
+# padded equals unpadded: at lr 1e-12 (no optimizer amplification) the losses
+# relative and the extracted mixers absolute, the JAX test's check for
+# leakage between runs (`tests/test_cross_cell_batching.py`)
+SWEEP_TINY_LR, SWEEP_LOSS_REL_BOUND, SWEEP_MIXER_ABS_BOUND = 1e-12, 1e-5, 1e-9
+STUDY_STEPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -1701,6 +1742,264 @@ def phase_resume(device, model_path, data, out_path, steps, every) -> dict:
                 resumed_from=starts, resumed_loss=loss)
 
 
+def sweep(device, model_path, data, cells, steps, lr=1e-5, mixer_type="MGM+CAP", compute_dtype=None,
+          override=None) -> dict:
+    """`train/finetune_batch.fine_tune_batched_cells` on the flagship data,
+    validation after every step."""
+    from multimodalpfn_tpu_torch.train.finetune_batch import fine_tune_batched_cells
+
+    X, img, y = data
+    return fine_tune_batched_cells(
+        cells=cells, mixer_type=mixer_type, features_per_group=1, path_to_base_model=str(model_path),
+        X=X, image=img, y=y, finetuning_config={"max_steps": steps, "learning_rate": lr},
+        device=str(device), compute_dtype=compute_dtype, cfg_override=override,
+    )
+
+
+def check_sweep_history(out: dict, steps: int, tag: str) -> None:
+    import numpy as np
+
+    hist, n_runs = out["history"], len(out["run_cells"])
+    loss = np.asarray(hist["train_loss"])
+    errs = np.asarray([e for _, e in hist["val_error"]])
+    check(loss.shape == (steps, n_runs), f"{tag}: train losses of shape {loss.shape}")
+    check(bool(np.isfinite(loss).all() and np.isfinite(errs).all()), f"{tag}: a non-finite loss or error")
+    check(hist["skipped_steps"] == [0] * n_runs, f"{tag}: skipped steps {hist['skipped_steps']}")
+
+
+def phase_sweep(device, model_path, data, steps, n_layers, out_dir: Path) -> dict:
+    """The sweep served by the kernels: `SWEEP_CELLS` (4 runs, mixers padded
+    to 32 heads) for ``steps`` bf16 steps at lr 1e-5, validation after every
+    step, with the launch counters zeroed just before and read just after:
+    every run's step runs K1, K2a, K2b and K3 forward in every layer (and so
+    does each of the steps + 1 validations), K7, K8, K9 and K10 backward,
+    each K1, K2b, K3 launch and K7's per-row attention on the wgmma body;
+    every loss and validation error finite. The sweep step's time on the
+    host clock (all runs' steps and validations, ended by a device
+    synchronize) is printed per step and per run. Then the mgm-16 runs'
+    params (`extract_run_params`) are saved and served by the classifier."""
+    import numpy as np
+    import torch
+
+    from multimodalpfn_tpu_torch.models.loading import save_model
+    from multimodalpfn_tpu_torch.ops import kernels
+    from multimodalpfn_tpu_torch.train.finetune_batch import extract_run_params
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = sweep(device, model_path, data, SWEEP_CELLS, steps)
+    wall = time.perf_counter() - t0
+    launches, bodies = dict(kernels.LAUNCHES), dict(kernels.BODY_LAUNCHES)
+    hist, n_runs, L = out["history"], len(out["run_cells"]), n_layers
+    step_ms = [t * 1e3 for t in hist["step_seconds"]]
+    warm = float(np.median(step_ms[1:])) if len(step_ms) > 1 else step_ms[0]
+    loss = np.asarray(hist["train_loss"])
+    print(f"  {n_runs} runs (cells {[(c['mgm_heads'], c['cap_heads']) for c in SWEEP_CELLS]} x seeds "
+          f"{SWEEP_CELLS[0]['seeds']}, padded to {out['config'].mixer.mgm_heads} heads) x {steps} steps in "
+          f"{wall:.1f} s; sweep step (every run's step and validation): first {step_ms[0]:.1f} ms, warm "
+          f"median {warm:.1f} ms = {warm / n_runs:.1f} ms per run; train loss per run "
+          f"{np.round(loss[0], 5).tolist()} -> {np.round(loss[-1], 5).tolist()}; best validation error "
+          f"{np.round(hist['best_val_error'], 5).tolist()}", flush=True)
+    print(f"  launches {launches} (K1, K2a, K2b, K3 = {n_runs} x ({steps} + {steps + 1}) x {L}; K7, K8, K9, "
+          f"K10 = {n_runs} x {steps} x {L})", flush=True)
+    check_sweep_history(out, steps, "sweep")
+    if device.type == "cuda":
+        exact = ({kid: n_runs * (2 * steps + 1) * L for kid in ("K1", "K2a", "K2b", "K3")}
+                 | {kid: n_runs * steps * L for kid in ("K7", "K8", "K9", "K10")}
+                 | {kid: 0 for kid in ("K4", "K5", "K6a", "K6b", "K7s", "K11")})
+        for kid, n in exact.items():
+            check(launches[kid] == n, f"{kid} launched {launches[kid]} times in the sweep, expected {n}")
+        check_wgmma_bodies("sweep", launches, bodies, ("K2b", "K3", "K7") + FEAT_IDS)
+    n_tr = int(round(0.8 * len(data[2])))
+    X, img, y = data
+    served = []
+    for r, (ci, seed) in enumerate(out["run_cells"]):
+        if SWEEP_CELLS[ci]["mgm_heads"] != 16:
+            continue
+        params_r, cfg_r = extract_run_params(out, r)
+        check(cfg_r.mixer.mgm_heads == 16 and params_r["mixer"]["mgm"]["w1"].shape[0] == 16,
+              "extract_run_params did not return the cell's 16 heads")
+        path = out_dir / f"chip_smoke_sweep_m16_seed{seed}.ckpt"
+        save_model(path, params_r, cfg_r)
+        clf = make_classifier(device, path)
+        clf.fit(X[:n_tr], img[:n_tr], y[:n_tr])
+        check_proba(clf.predict_proba(X[n_tr:], img[n_tr:]), len(X) - n_tr, clf.n_classes_,
+                    f"the sweep's run {r} served")
+        served.append(path.name)
+    print(f"  the mgm-16 runs saved at their true shape and served by MMPFNClassifier "
+          f"({len(X) - n_tr} rows, rows sum to 1): {served}", flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(launches=launches, hist=hist, warm_step_ms=warm, per_run_ms=warm / n_runs, wall_s=wall)
+
+
+def compare_sweeps(got: dict, want: dict, runs=None) -> tuple[float, float, float]:
+    """Train losses (relative), all params (absolute) and the mixers
+    (absolute) of ``got``'s runs ``runs`` against ``want``'s runs, each
+    extracted at its cell's shape."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch.models.params import flatten_params
+    from multimodalpfn_tpu_torch.train.finetune_batch import extract_run_params
+
+    runs = list(range(len(want["run_cells"]))) if runs is None else runs
+    lg = np.asarray(got["history"]["train_loss"])[:, runs]
+    lw = np.asarray(want["history"]["train_loss"])
+    loss_rel = float(np.max(np.abs(lg - lw) / np.abs(lw)))
+    param_err = mixer_err = 0.0
+    for r_got, r_want in zip(runs, range(lw.shape[1])):
+        pg = flatten_params(extract_run_params(got, r_got)[0])
+        pw = flatten_params(extract_run_params(want, r_want)[0])
+        check(pg.keys() == pw.keys(), "the two sweeps' runs have different leaves")
+        for k in pw:
+            err = float((pg[k].double() - pw[k].double()).abs().max())
+            param_err = max(param_err, err)
+            if k.startswith("mixer/"):
+                mixer_err = max(mixer_err, err)
+    return loss_rel, param_err, mixer_err
+
+
+def phase_sweep_f32(device, model_path, data, n_layers) -> dict:
+    """Float32 gates of the sweep on the first ``n_layers`` layers.
+    (a) Three steps of `SWEEP_CELLS` on the kernel path against the plain
+    path: losses within `FT_STEP_REL_BOUND` relative, params within
+    `FT_PARAM_ABS_BOUND`; the plain path launches no kernel. (b) Padded equals
+    unpadded: the two cells in one sweep against each alone, two steps on the
+    kernel path: at lr `SWEEP_TINY_LR` the losses within
+    `SWEEP_LOSS_REL_BOUND` relative and the extracted mixers within
+    `SWEEP_MIXER_ABS_BOUND`; at lr 1e-5 the losses within
+    `FT_STEP_REL_BOUND`. (c) A padded MGM group (`SWEEP_MGM_CELLS`): two bf16
+    steps launch K2a, K2b, K9 and K10 and no K1, K3, K7 or K8 (its feature
+    attention is masked, so plain, as is its MLP); its float32 kernel path
+    matches its plain path within (a)'s bounds."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch.ops import kernels
+
+    L = n_layers
+    kern, plain = {"nlayers": L}, {"nlayers": L, "fused_ops": False, "use_flash": False}
+    out = {}
+    runs = {}
+    for name, override in (("kernel", kern), ("plain", plain)):
+        kernels.reset_launches()
+        runs[name] = (sweep(device, model_path, data, SWEEP_CELLS, 3, compute_dtype="float32",
+                            override=override), dict(kernels.LAUNCHES))
+    (k, lk), (pl, lp) = runs["kernel"], runs["plain"]
+    loss_rel, param_err, _ = compare_sweeps(k, pl)
+    print(f"  (a) {len(k['run_cells'])} runs x 3 float32 steps, {L} layers: losses kernel "
+          f"{np.round(k['history']['train_loss'], 6).tolist()} plain "
+          f"{np.round(pl['history']['train_loss'], 6).tolist()}; loss rel err {loss_rel:.3e} (bound "
+          f"{FT_STEP_REL_BOUND}), params max abs err {param_err:.3e} (bound {FT_PARAM_ABS_BOUND})", flush=True)
+    check(loss_rel <= FT_STEP_REL_BOUND, f"sweep kernel path losses differ from the plain path by {loss_rel:.3e}")
+    check(param_err <= FT_PARAM_ABS_BOUND, f"sweep kernel path params differ from the plain path by {param_err:.3e}")
+    if device.type == "cuda":
+        n = len(k["run_cells"]) * 3 * L
+        for kid in ("K7", "K8", "K9", "K10"):
+            check(lk[kid] == n, f"{kid} launched {lk[kid]} times on the sweep's kernel path, expected {n}")
+        check(not any(lp.values()), f"the sweep's plain path launched kernels: {lp}")
+    out["a"] = dict(loss_rel=loss_rel, param_err=param_err)
+
+    for lr, bound in ((SWEEP_TINY_LR, SWEEP_LOSS_REL_BOUND), (1e-5, FT_STEP_REL_BOUND)):
+        both = sweep(device, model_path, data, SWEEP_CELLS, 2, lr=lr, compute_dtype="float32", override=kern)
+        worst = [0.0, 0.0]
+        for ci, cell in enumerate(SWEEP_CELLS):
+            alone = sweep(device, model_path, data, [cell], 2, lr=lr, compute_dtype="float32", override=kern)
+            idx = [r for r, (c, _) in enumerate(both["run_cells"]) if c == ci]
+            loss_rel, _, mixer_err = compare_sweeps(both, alone, idx)
+            worst = [max(worst[0], loss_rel), max(worst[1], mixer_err)]
+        print(f"  (b) lr {lr:g}: cells {[c['mgm_heads'] for c in SWEEP_CELLS]} in one sweep against each "
+              f"alone: loss rel err {worst[0]:.3e} (bound {bound}), extracted mixers max abs err "
+              f"{worst[1]:.3e}" + (f" (bound {SWEEP_MIXER_ABS_BOUND})" if lr == SWEEP_TINY_LR else ""),
+              flush=True)
+        check(worst[0] <= bound, f"padded and unpadded losses differ by {worst[0]:.3e} at lr {lr:g}")
+        if lr == SWEEP_TINY_LR:
+            check(worst[1] <= SWEEP_MIXER_ABS_BOUND, f"padded and unpadded mixers differ by {worst[1]:.3e}")
+        out[f"b_lr{lr:g}"] = dict(loss_rel=worst[0], mixer_err=worst[1])
+
+    kernels.reset_launches()
+    mgm = sweep(device, model_path, data, SWEEP_MGM_CELLS, 2, mixer_type="MGM", override=kern)
+    lm = dict(kernels.LAUNCHES)
+    check_sweep_history(mgm, 2, "padded MGM sweep")
+    n_runs = len(mgm["run_cells"])
+    print(f"  (c) padded MGM group {[c['mgm_heads'] for c in SWEEP_MGM_CELLS]} x seeds "
+          f"{SWEEP_MGM_CELLS[0]['seeds']}, 2 bf16 steps: launches { {k: v for k, v in lm.items() if v} } "
+          f"(K2a, K2b = {n_runs} x (2 + 3) x {L}; K9, K10 = {n_runs} x 2 x {L}; no K1, K3, K7, K8)", flush=True)
+    if device.type == "cuda":
+        exact = ({kid: n_runs * 5 * L for kid in ("K2a", "K2b")} | {kid: n_runs * 2 * L for kid in ("K9", "K10")}
+                 | {kid: 0 for kid in ("K1", "K3", "K7", "K8", "K5", "K6a", "K6b", "K7s", "K4", "K11")})
+        for kid, n in exact.items():
+            check(lm[kid] == n, f"{kid} launched {lm[kid]} times in the padded MGM sweep, expected {n}")
+    mk = sweep(device, model_path, data, SWEEP_MGM_CELLS, 2, mixer_type="MGM", compute_dtype="float32",
+               override=kern)
+    mp = sweep(device, model_path, data, SWEEP_MGM_CELLS, 2, mixer_type="MGM", compute_dtype="float32",
+               override=plain)
+    loss_rel, param_err, _ = compare_sweeps(mk, mp)
+    print(f"  (c) its float32 kernel path against its plain path: loss rel err {loss_rel:.3e}, params max "
+          f"abs err {param_err:.3e}", flush=True)
+    check(loss_rel <= FT_STEP_REL_BOUND and param_err <= FT_PARAM_ABS_BOUND,
+          f"the padded MGM sweep's kernel path differs from its plain path: {loss_rel:.3e}, {param_err:.3e}")
+    out["c"] = dict(launches=lm, loss_rel=loss_rel, param_err=param_err)
+    return out
+
+
+def phase_study(device, model_path, data, steps, out_dir: Path) -> dict:
+    """The grid study: `hpo/experiment.run_experiment_cross_cell` over mgm
+    {4, 16, 32} × cap {8}, 2 seeds, ``steps`` steps (the mgm-16 and mgm-32
+    cells in one sweep), checkpoints under ``out_dir``, then
+    `run_experiment` on the mgm-16 cell for 1 seed and 2 steps; the launch
+    counters zeroed before each and read after. mgm 4 is pruned, every other
+    trial complete with all its seeds and an accuracy in [0, 1], none
+    failed; the study JSON round-trips."""
+    import json
+
+    from multimodalpfn_tpu_torch.hpo.experiment import run_experiment, run_experiment_cross_cell
+    from multimodalpfn_tpu_torch.ops import kernels
+
+    X, img, y = data
+    common = dict(X=X, embeddings=img, y=y, n_categorical=18, dataset_name="chip_smoke",
+                  path_to_base_model=str(model_path), checkpoint_dir=str(out_dir / "chip_smoke_study"),
+                  device=str(device))
+    results = out_dir / "chip_smoke_study.json"
+    results.unlink(missing_ok=True)
+    out = {}
+    for name, run in (
+        ("cross_cell", lambda: run_experiment_cross_cell(
+            config={"mgm_heads_list": [4, 16, 32], "cap_heads_list": [8], "mixer_type": "MGM+CAP",
+                    "features_per_group": 1}, n_seeds=2, results_path=str(results),
+            finetuning_config={"max_steps": steps}, **common)),
+        ("sequential", lambda: run_experiment(
+            config={"mgm_heads_list": [16], "cap_heads_list": [8], "mixer_type": "MGM+CAP",
+                    "features_per_group": 1}, n_seeds=1, finetuning_config={"max_steps": 2}, **common)),
+    ):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        study = run()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        table = [(t.params["mgm_heads"], t.params["cap_heads"], t.state, t.value,
+                  t.user_attrs.get("n_completed_seeds"), t.user_attrs.get("error")) for t in study.trials]
+        print(f"  {name}: {wall:.1f} s; trials (mgm, cap, state, accuracy, seeds, error) {table}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        n_seeds = 2 if name == "cross_cell" else 1
+        for m, c, state, value, seeds, error in table:
+            check(state != "failed", f"{name}: trial mgm {m} cap {c} failed: {error}")
+            if m < c:
+                check(state == "pruned", f"{name}: trial mgm {m} cap {c} is {state}, not pruned")
+                continue
+            check(state == "complete" and seeds == n_seeds and 0.0 <= value <= 1.0,
+                  f"{name}: trial mgm {m} cap {c}: {state}, {seeds} seeds, accuracy {value}")
+        if device.type == "cuda":
+            for kid in ("K1", "K2a", "K2b", "K3", "K7", "K8", "K9", "K10"):
+                check(launches[kid] > 0, f"{name}: {kid} was not launched")
+        out[name] = dict(trials=table, launches=launches, wall_s=wall)
+    saved = json.loads(results.read_text())
+    check([(t["params"]["mgm_heads"], t["state"], t["value"]) for t in saved["trials"]]
+          == [(m, state, value) for m, _, state, value, _, _ in out["cross_cell"]["trials"]],
+          "the study JSON does not round-trip")
+    print(f"  the study JSON ({results.name}) round-trips", flush=True)
+    return out
+
+
 def regression_target(X, codes):
     """The regression target of the regressor's phases: the class code, half
     of feature 18 (NaN as 0) and lognormal noise (σ = 0.5) from
@@ -1865,6 +2164,37 @@ def phase_regressor_kernel_vs_plain(device, model_path, data) -> dict:
     check(prob_err <= REG_PROBA_ABS_BOUND, f"regressor bar probabilities differ by {prob_err:.3e}")
     check(max(stat_err.values()) <= REG_STAT_REL_BOUND, f"regressor statistics differ: {stat_err}")
     return dict(prob_err=prob_err, stat_err=stat_err)
+
+
+def phase_profile_sweep(device, model_path, data, top: int = 16) -> dict:
+    """torch.profiler around a 3-step bf16 sweep of `SWEEP_CELLS`: of its
+    last sweep step (the ``sweep_step`` range of `train/finetune_batch.py`,
+    which ends in a device synchronize, so every kernel of the step runs
+    inside it), the wall time, the device kernel time, the idle share and
+    the kernels that took the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = sweep(device, model_path, data, SWEEP_CELLS, 3)
+    events = prof.events()
+    steps = [e for e in events if e.name == "sweep_step" and e.device_type == DeviceType.CPU]
+    check(len(steps) == 3, f"the profile holds {len(steps)} sweep_step ranges, expected 3")
+    t0, t1 = steps[-1].time_range.start, steps[-1].time_range.end
+    sums: dict[str, list] = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and t0 <= e.time_range.start and e.time_range.end <= t1):
+            row = sums.setdefault(e.name[:90], [0.0, 0])
+            row[0] += (e.time_range.end - e.time_range.start) / 1e3
+            row[1] += 1
+    rows = sorted(((ms, n, name) for name, (ms, n) in sums.items()), reverse=True)
+    n_runs = len(out["run_cells"])
+    print_profile(f"one warm sweep step ({n_runs} runs, each a bf16 step and its validation, 12 layers)",
+                  (t1 - t0) / 1e3, rows, top)
+    busy = sum(r[0] for r in rows)
+    return dict(wall_ms=(t1 - t0) / 1e3, kernel_ms=busy, per_run_kernel_ms=busy / n_runs)
 
 
 def phase_profile_regressor(device, model_path, data, n: int, top: int = 14) -> None:
@@ -2152,7 +2482,8 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
             row["launches_flash_finetune"] = launches["flash_finetune"][kid]
         if kid == "K4":
             row["launches_flash_finetune"] = launches["flash_finetune"]["K4"]
-        for path in ("regressor", "regressor_cached", "regressor_finetune"):
+        for path in ("regressor", "regressor_cached", "regressor_finetune", "sweep", "sweep_padded_mgm",
+                     "study_cross_cell", "study_sequential"):
             row[f"launches_{path}"] = launches[path][kid]
         row.update({k: v for k, v in r.items() if k not in main.values()})
         rows.append(row)
@@ -2165,7 +2496,7 @@ def main() -> int:
                     help="run every phase at a tiny size on the CPU; exits 1")
     ap.add_argument("--profile", action="store_true",
                     help="add phase 14, run last: profile one warm request of each size, a training "
-                         "step of each item path and a warm regressor request")
+                         "step of each item path, a warm regressor request and a warm sweep step")
     args = ap.parse_args()
 
     if not (ROOT / "multimodalpfn_tpu_torch" / "csrc").is_dir():
@@ -2346,6 +2677,17 @@ def main() -> int:
     rft_cmp = phase_finetune_kernel_vs_plain(device, reg_path, (X, img, y_reg), cmp_layers,
                                              task="regression")
 
+    sweep_steps = 2 if args.rehearse else SWEEP_STEPS
+    sweep_data = (X[:300], img[:300], y[:300]) if args.rehearse else ft_data
+    print(f"== phase 19: the sweep (fine_tune_batched_cells), {len(SWEEP_CELLS)} cells x 2 seeds, "
+          f"{sweep_steps} bf16 steps, then the mgm-16 runs served", flush=True)
+    sw = phase_sweep(device, model_path, sweep_data, sweep_steps, ft_layers, ROOT / "build")
+    print("== phase 20: the sweep's float32 gates: kernel path against plain path, padded against "
+          "unpadded, a padded MGM group", flush=True)
+    sw32 = phase_sweep_f32(device, model_path, sweep_data, cmp_layers)
+    print(f"== phase 21: the grid study (run_experiment_cross_cell, run_experiment)", flush=True)
+    study = phase_study(device, model_path, sweep_data, 1 if args.rehearse else STUDY_STEPS, ROOT / "build")
+
     if args.profile:
         print("== phase 14: profile of warm requests and of a warm training step of each item "
               "path, and of a warm regressor request", flush=True)
@@ -2353,11 +2695,15 @@ def main() -> int:
         phase_profile_step(device, model_path, ft_data, ft_layers)
         phase_profile_step(device, nmq_path, ft_data, ft_layers, label=" of the flash path")
         phase_profile_regressor(device, reg_path, reg_data, sizes[0])
+        phase_profile_sweep(device, model_path, sweep_data)
 
     rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"],
                               "finetune": ft["launches"], "flash_finetune": fl["launches"],
                               "regressor": rpre["launches"], "regressor_cached": rkv["launches"],
-                              "regressor_finetune": rft["launches"]}
+                              "regressor_finetune": rft["launches"], "sweep": sw["launches"],
+                              "sweep_padded_mgm": sw32["c"]["launches"],
+                              "study_cross_cell": study["cross_cell"]["launches"],
+                              "study_sequential": study["sequential"]["launches"]}
                        | {f"{plan}{'_cached' if mode == 'fit_with_cache' else ''}": run["launches"]
                           for (mode, plan), run in forced.items()})
     print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
@@ -2374,7 +2720,11 @@ def main() -> int:
           f"{rpre['warm_host']}), fit_with_cache fit {rkv['fit_ms']:.1f} ms, warm {rkv['warm']} "
           f"(host finalize {rkv['warm_host']}), f32 probabilities err {rcmp['prob_err']:.3e}; "
           f"regression fine-tune {rft['hist']['steps']} steps, warm step {rft['warm_step_ms']:.1f} ms, "
-          f"f32 kernel vs plain grads {rft_cmp['grad_rel']:.2e}; "
+          f"f32 kernel vs plain grads {rft_cmp['grad_rel']:.2e}; sweep of {len(sw['hist']['best_val_error'])} "
+          f"runs: warm sweep step {sw['warm_step_ms']:.1f} ms ({sw['per_run_ms']:.1f} ms per run), f32 "
+          f"kernel vs plain loss {sw32['a']['loss_rel']:.2e} params {sw32['a']['param_err']:.2e}, padded vs "
+          f"unpadded mixers {sw32['b_lr1e-12']['mixer_err']:.2e}; study {study['cross_cell']['wall_s']:.1f} s "
+          f"+ {study['sequential']['wall_s']:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.rehearse:
         print("rehearsal on the CPU passed; no result is reported without CUDA", file=sys.stderr)

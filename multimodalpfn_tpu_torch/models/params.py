@@ -141,6 +141,47 @@ def init_mixer_params(gen: torch.Generator, cfg: MixerConfig, emsize: int) -> Pa
     return p
 
 
+# leaf -> axis that stacks heads/experts (everything else is shape-invariant)
+_MGM_HEAD_AXIS = {"ln_g": 0, "ln_b": 0, "w1": 0, "b1": 0, "w2": 0, "b2": 0}
+_MOE_EXPERT_AXIS = {
+    "ln_g": 0, "ln_b": 0, "w1": 0, "b1": 0, "w2": 0, "b2": 0,
+    "gate_w": 1, "gate_b": 0,
+}
+
+
+def _pad_leaf(x: torch.Tensor, axis: int, to: int) -> torch.Tensor:
+    if x.shape[axis] == to:
+        return x
+    shape = list(x.shape)
+    shape[axis] = to - x.shape[axis]
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def pad_mixer_params(p: Params, cfg_pad: MixerConfig) -> Params:
+    """Zero-pad the per-head MGM leaves and per-expert MoE leaves up to
+    ``cfg_pad.mgm_heads`` (the JAX package's `pad_mixer_params`). With the
+    activation mask of ``apply_mixer(mgm_active=...)`` the padded mixer
+    computes what the unpadded one of the active size does, and its padded
+    leaves get zero gradients: grid cells with different ``mgm_heads`` share
+    one sweep. CAP is never padded (``cap_heads`` sets its head split)."""
+    out = dict(p)
+    if "mgm" in p:
+        out["mgm"] = {k: _pad_leaf(v, _MGM_HEAD_AXIS[k], cfg_pad.mgm_heads) for k, v in p["mgm"].items()}
+    if "moe" in p:
+        out["moe"] = {k: _pad_leaf(v, _MOE_EXPERT_AXIS[k], cfg_pad.mgm_heads) for k, v in p["moe"].items()}
+    return out
+
+
+def slice_mixer_params(p: Params, cfg_active: MixerConfig) -> Params:
+    """Inverse of `pad_mixer_params`: the active prefix, so that a padded
+    run's result is a checkpoint of its cell's true shape."""
+    out = dict(p)
+    for name, axes in (("mgm", _MGM_HEAD_AXIS), ("moe", _MOE_EXPERT_AXIS)):
+        if name in p:
+            out[name] = {k: v.narrow(axes[k], 0, cfg_active.mgm_heads) for k, v in p[name].items()}
+    return out
+
+
 def init_params(
     gen: torch.Generator, cfg: ModelConfig, device: torch.device | str = "cpu"
 ) -> Params:

@@ -220,11 +220,12 @@ def forward(
     single_eval_pos: int,
     tab_valid: torch.Tensor | None = None,
     feat_pos_noise: torch.Tensor | None = None,
+    mgm_active: int | None = None,
 ) -> torch.Tensor:
     """Inference forward (`_forward_impl` without autograd)."""
     return _forward_impl(
         params, cfg, x, y_train, image, single_eval_pos=single_eval_pos,
-        tab_valid=tab_valid, feat_pos_noise=feat_pos_noise,
+        tab_valid=tab_valid, feat_pos_noise=feat_pos_noise, mgm_active=mgm_active,
     )
 
 
@@ -240,6 +241,7 @@ def forward_train_test(
     train: bool = False,
     generator: torch.Generator | None = None,
     feat_pos_noise: torch.Tensor | None = None,
+    mgm_active: int | None = None,
 ) -> torch.Tensor:
     """The fine-tuning calling convention (reference `transformer.py:518-530`,
     the JAX package's `forward_train_test`): train and test rows are
@@ -252,7 +254,7 @@ def forward_train_test(
         image = torch.cat([train_image, test_image], dim=1)
     return _forward_impl(
         params, cfg, x, train_y, image, single_eval_pos=train_y.shape[1],
-        feat_pos_noise=feat_pos_noise, train=train, generator=generator,
+        feat_pos_noise=feat_pos_noise, train=train, generator=generator, mgm_active=mgm_active,
     )
 
 
@@ -268,6 +270,7 @@ def _forward_impl(
     feat_pos_noise: torch.Tensor | None = None,
     train: bool = False,
     generator: torch.Generator | None = None,
+    mgm_active: int | None = None,
 ) -> torch.Tensor:
     """The forward.
 
@@ -286,6 +289,9 @@ def _forward_impl(
       feat_pos_noise: ``(b, t_x, emsize // 4)`` per-member subspace-noise
         tables (each member's own draws at the padded layout's slots), or
         None for the shared draw.
+      mgm_active: the true head (expert) count of a padded mixer; its
+        inactive heads are masked exactly, so the result is the unpadded
+        mixer's (the JAX package's `_forward_impl:383-429`).
       train, generator: mixer dropout (training only).
 
     Returns logits ``(b, S - sep, n_out)`` in float32.
@@ -311,9 +317,16 @@ def _forward_impl(
         embedded_x = encode_x(params["encoder"], cfg, xg, sep)  # (b, S, f, e)
 
     # multimodal mixer tokens appended on the feature axis (transformer.py:755-768)
+    n_img_tokens, active_img = 0, None
     if image is not None:
         tokens = apply_mixer(params["mixer"], cfg.mixer, image.float(), train=train,
-                             generator=generator)
+                             generator=generator, mgm_active=mgm_active)
+        n_img_tokens = tokens.shape[-2]
+        # MGM+CAP emits cap_heads tokens whatever the padding: no mask there
+        if mgm_active is not None and cfg.mixer.mixer_type == "MGM":
+            active_img = int(mgm_active) * image.shape[-2]
+        elif mgm_active is not None and cfg.mixer.mixer_type == "MoE":
+            active_img = int(mgm_active)  # one token per expert
         if tokens.shape[0] == 1 and b > 1:
             # members share the image: the mixer runs once and its tokens broadcast
             tokens = tokens.expand(b, *tokens.shape[1:])
@@ -328,12 +341,22 @@ def _forward_impl(
     cd = DTYPES[cfg.compute_dtype]
     state = torch.cat([embedded_x, embedded_y[:, :, None, :]], dim=2).to(cd)
     token_valid = None
+    if active_img is not None:
+        # tabular tokens, the active prefix of the image tokens and the target
+        # token are valid keys
+        t = state.shape[2]
+        f_tab = t - n_img_tokens - 1
+        idx = torch.arange(t, device=device)
+        token_valid = ((idx < f_tab) | (idx - f_tab < active_img) | (idx == t - 1))[None]
     if tab_valid is not None:
+        if active_img is not None:
+            raise ValueError("tab_valid and mgm_active are exclusive")
         token_valid = member_token_valid(tab_valid, state.shape[2])
 
     # item-major layout whenever the kernel path applies: one transpose before
-    # the stack, none per layer
-    item_major = cfg.fused_ops and state.shape[2] <= MAX_FUSED_ATTN_TOKENS
+    # the stack, none per layer; a padded mixer's mask keeps the sample-major
+    # layer (plain masked feature attention, as the JAX package's traced mask)
+    item_major = cfg.fused_ops and active_img is None and state.shape[2] <= MAX_FUSED_ATTN_TOKENS
     if item_major:
         state = state.transpose(1, 2).contiguous()  # (b, t, s, e)
         layer_fn = encoder_layer_im

@@ -106,6 +106,13 @@ def create_val_data(*, X, image, y, rng, is_classification):
     return X_tr, X_va, im_tr, im_va, y[tr], y[va]
 
 
+def first_layers(params: dict, nlayers: int) -> dict:
+    """``params`` with its first ``nlayers`` encoder layers (all of them when
+    it has no more)."""
+    return {**params, "layers": {k: {n: w[:nlayers] for n, w in v.items()}
+                                 for k, v in params["layers"].items()}}
+
+
 def _copy_params(params: dict) -> dict:
     return unflatten_params({k: v.detach().clone() for k, v in flatten_params(params).items()})
 
@@ -158,6 +165,7 @@ def make_episode_trainer(
     random_seed: int = 42,
     learning_rate: float = 1e-5,
     optimizer: str = "schedule_free_adamw",
+    warmup_steps: int | None = None,
     freeze_input: bool = False,
     compute_dtype: str | None = None,
     cfg_override: dict[str, Any] | None = None,
@@ -169,7 +177,8 @@ def make_episode_trainer(
     accelerator (`finetune.py:310-317`). ``cfg_override`` replaces config
     fields after that (an ``nlayers`` below the checkpoint's keeps its first
     layers). ``phase_seconds`` gets ``model_init`` and ``optimizer_setup``.
-    A "regression" ``task`` loads a regressor and trains on its borders."""
+    A "regression" ``task`` loads a regressor and trains on its borders.
+    ``optimizer`` and ``warmup_steps`` choose the update (`train.step.make_optimizer`)."""
     device = resolve_device(device)
     phase_seconds = {} if phase_seconds is None else phase_seconds
     t_phase = time.time()
@@ -194,17 +203,14 @@ def make_episode_trainer(
         loaded.config, compute_dtype=compute_dtype, use_flash=on_card, fused_ops=on_card,
     )
     cfg = dataclasses.replace(cfg, **(cfg_override or {}))
-    params = loaded.params
-    if cfg.nlayers < loaded.config.nlayers:
-        params = {**params, "layers": {k: {n: w[: cfg.nlayers] for n, w in v.items()}
-                                       for k, v in params["layers"].items()}}
+    params = first_layers(loaded.params, cfg.nlayers)
     n_params = sum(int(p.numel()) for p in flatten_params(params).values())
     logger.info("fine-tuning %s params", f"{n_params:,}")
 
     t_phase = time.time()
     state = init_train_state(
         params,
-        lambda p: make_optimizer(p, learning_rate, optimizer=optimizer,
+        lambda p: make_optimizer(p, learning_rate, optimizer=optimizer, warmup_steps=warmup_steps,
                                  freeze_mask=frozen_input_mask(p, freeze_input)),
     )
     if regression and loaded.criterion_borders is None:
@@ -250,8 +256,12 @@ def fine_tune_mmpfn(
     resume: bool = False,
     state_checkpoint_every: int = 25,
 ) -> dict[str, Any]:
-    """Fine-tune and save the best-by-validation snapshot. Returns the JAX
-    package's history: ``train_loss``, ``grad_norm``, ``val_error`` (step,
+    """Fine-tune and save the best-by-validation snapshot.
+    ``finetuning_config`` takes ``learning_rate``, ``max_steps``,
+    ``validate_every_n_steps``, ``optimizer`` (``"schedule_free_adamw"`` or
+    ``"adamw"``), ``warmup_steps`` (schedule-free only) and the early
+    stopping's ``adaptive_rate``, ``adaptive_offset``, ``min_patience`` and
+    ``max_patience``. Returns the JAX package's history: ``train_loss``, ``grad_norm``, ``val_error`` (step,
     error), ``best_val_error``, ``steps``, ``step_seconds``, ``wall_s``,
     ``phase_seconds``, and ``skipped_steps``, the updates the non-finite
     guard skipped. Runs on the card unless ``device="cpu"``; without CUDA it
@@ -291,7 +301,8 @@ def fine_tune_mmpfn(
         cap_heads=cap_heads, features_per_group=features_per_group, X_train=X_train,
         image_train=image_train, y_train=y_train, task=task, device=device,
         random_seed=random_seed, learning_rate=cfg_hp["learning_rate"],
-        optimizer=cfg_hp["optimizer"], freeze_input=freeze_input, compute_dtype=compute_dtype,
+        optimizer=cfg_hp["optimizer"], warmup_steps=cfg_hp.get("warmup_steps"),
+        freeze_input=freeze_input, compute_dtype=compute_dtype,
         phase_seconds=phase_seconds,
     )
     cfg, loaded = trainer.cfg, trainer.loaded

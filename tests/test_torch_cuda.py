@@ -1015,3 +1015,68 @@ def test_regression_finetune_three_steps_on_the_card(cuda, tmp_path):
     reg = MMPFNRegressor(model_path=out, mgm_heads=2, cap_heads=2, n_estimators=2, device="cuda")
     pred = reg.fit(X[:90], img[:90], y[:90]).predict(X[90:], img[90:])
     assert pred.shape == (30,) and np.isfinite(pred).all()
+
+
+def _sweep_setup(tmp_path):
+    import numpy as np
+
+    from multimodalpfn_tpu_torch.datasets.synthetic import toy_classification
+    from multimodalpfn_tpu_torch.models.loading import save_model
+
+    cfg = ModelConfig(emsize=64, nhead=4, nhid_factor=2, nlayers=2, n_out=10, max_num_classes=10)
+    base = tmp_path / "bare.ckpt"
+    save_model(base, tparams.init_params(torch.Generator().manual_seed(0), cfg), cfg)
+    X, y = toy_classification(n=120, n_classes=3, seed=6)
+    img = np.random.default_rng(6).standard_normal((120, 1, 128)).astype(np.float32)
+    return dict(mixer_type="MGM+CAP", features_per_group=1, path_to_base_model=str(base), X=X, image=img,
+                y=y, static_seed=0), cfg.nlayers
+
+
+def test_sweep_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """A padded 2-cell sweep (mgm 2 and 4, cap 2; one seed each), 3 float32
+    steps on the card's kernel path against the CPU's plain path, the
+    mixers' dropout off (a CUDA generator draws other masks than the CPU
+    one): losses and validation errors within 1e-4 relative; K7-K10
+    launched once per layer, run and step; bf16 runs finite."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch.models import mixers
+    from multimodalpfn_tpu_torch.train.finetune_batch import fine_tune_batched_cells
+
+    monkeypatch.setattr(mixers, "_dropout", lambda x, *a, **k: x)
+    kw, L = _sweep_setup(tmp_path)
+    kw["cells"] = [{"mgm_heads": 2, "cap_heads": 2, "seeds": [0]}, {"mgm_heads": 4, "cap_heads": 2, "seeds": [1]}]
+    kw["finetuning_config"] = {"max_steps": 3, "learning_rate": 1e-3}
+    kernels.reset_launches()
+    card = fine_tune_batched_cells(compute_dtype="float32", **kw)
+    launches = dict(kernels.LAUNCHES)
+    cpu = fine_tune_batched_cells(device="cpu", **kw)
+    np.testing.assert_allclose(card["history"]["train_loss"], cpu["history"]["train_loss"], rtol=1e-4)
+    np.testing.assert_allclose([e for _, e in card["history"]["val_error"]],
+                               [e for _, e in cpu["history"]["val_error"]], rtol=1e-4)
+    assert {k: launches[k] for k in ("K7", "K8", "K9", "K10")} == {k: 2 * 3 * L for k in ("K7", "K8", "K9", "K10")}
+    assert launches["K1"] == launches["K3"] == 2 * (3 + 4) * L
+    bf16 = fine_tune_batched_cells(**kw)
+    assert np.isfinite(bf16["history"]["train_loss"]).all() and bf16["history"]["skipped_steps"] == [0, 0]
+
+
+@pytest.mark.parametrize("mixer_type", ["MGM+CAP", "MGM"])
+def test_padded_sweep_equals_unpadded_on_the_card(cuda, tmp_path, mixer_type):
+    """[a, b] against [a] alone on the card, float32, at lr 1e-12: losses
+    within 1e-5 relative, the extracted mixers within 1e-9."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch.train.finetune_batch import extract_run_params, fine_tune_batched_cells
+
+    kw, _ = _sweep_setup(tmp_path)
+    kw.update(mixer_type=mixer_type, compute_dtype="float32",
+              finetuning_config={"max_steps": 2, "learning_rate": 1e-12})
+    a = {"mgm_heads": 2, "cap_heads": 2, "seeds": [0, 1]}
+    both = fine_tune_batched_cells(cells=[a, {"mgm_heads": 4, "cap_heads": 2, "seeds": [2]}], **kw)
+    alone = fine_tune_batched_cells(cells=[a], **kw)
+    np.testing.assert_allclose(np.asarray(both["history"]["train_loss"])[:, :2], alone["history"]["train_loss"],
+                               rtol=1e-5)
+    for r in range(2):
+        pb, pa = extract_run_params(both, r)[0], extract_run_params(alone, r)[0]
+        for k, v in tparams.flatten_params(pa["mixer"]).items():
+            torch.testing.assert_close(tparams.flatten_params(pb["mixer"])[k], v, rtol=0, atol=1e-9)

@@ -3,10 +3,14 @@
 
 * The numpy splitters give scikit-learn's indices exactly, and the episode
   stream equals the JAX package's.
-* ``log_loss`` and ``accuracy`` equal scikit-learn's.
+* ``log_loss`` and ``accuracy`` equal scikit-learn's; the nine further
+  classification scorers equal the JAX registry's exactly (binary and
+  6-class labels, float32 and float64 probabilities, tied scores).
 * The schedule-free AdamW matches the JAX package's optax chain step for step
   and the NumPy spec of `tests/test_optimizer_spec.py` (frozen leaves, a
-  non-finite step, the evaluation point), to that file's tolerances.
+  non-finite step, the evaluation point), to that file's tolerances, also
+  with ``warmup_steps`` None, 0 and 3 (the spec given optax's warmup);
+  so does ``adamw``.
 * Whole-model gradients of ``forward_train_test`` + CE match
   ``jax.value_and_grad`` of the JAX package's, on the plain path and on the
   kernel path (whose CPU form runs the plain backwards), to 1e-5 of the
@@ -102,6 +106,38 @@ def test_metrics_match_sklearn(dtype, n_classes):
     assert scorer.convert_score_to_error(scorer(y, p)) == 1.0 - accuracy_score(y, p.argmax(axis=1))
 
 
+NEW_SCORERS = ["balanced_accuracy", "f1", "mcc", "roc_auc", "precision", "recall",
+               "quadratic_kappa", "pac", "average_precision"]
+
+
+@pytest.mark.filterwarnings("ignore")
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n_classes", [2, 6])
+@pytest.mark.parametrize("name", NEW_SCORERS)
+def test_classification_scorers_match_jax_registry(name, n_classes, dtype, ties):
+    """Bit-equal scores (or the same error) to the JAX package's registry,
+    which calls scikit-learn 1.9.0; ``ties`` rounds the probabilities so that
+    many scores tie (``roc_auc`` ranks them by average ranks)."""
+    from multimodalpfn_tpu.train.metrics import get_scorer as jax_scorer
+
+    rng = np.random.default_rng(n_classes + 10 * ties)
+    y = rng.integers(0, n_classes, size=97).astype(np.float32)
+    y[:n_classes] = np.arange(n_classes)
+    p = rng.random((97, n_classes)).astype(dtype)
+    if ties:
+        p = (np.round(p * 4) / 4 + 0.01).astype(dtype)
+    p /= p.sum(axis=1, keepdims=True)
+    js, ts = jax_scorer(name), tmetrics.get_scorer(name)
+    assert (ts.optimum, ts.greater_is_better, ts.needs_proba) == (js.optimum, js.greater_is_better,
+                                                                   js.needs_proba)
+    for yy, pp in ((y, p), (y[: n_classes + 30], p[: n_classes + 30])):
+        want = js(yy, pp)
+        got = ts(yy, pp)
+        assert got == want or (np.isnan(got) and np.isnan(want)), (got, want)
+        assert ts.convert_score_to_error(got) == js.convert_score_to_error(want)
+
+
 # ---- optimizer -----------------------------------------------------------------
 
 
@@ -117,12 +153,12 @@ def _jax_run(tx, params, grad_seq):
     return state, out
 
 
-def _torch_run(params, grad_seq, freeze_input=False, lr=1e-2):
+def _torch_run(params, grad_seq, freeze_input=False, lr=1e-2, **opt):
     state = tstep.init_train_state(
         {k: torch.from_numpy(np.array(v)) for k, v in params.items()} if not isinstance(
             next(iter(params.values())), dict) else
         {k: {n: torch.from_numpy(np.array(w)) for n, w in v.items()} for k, v in params.items()},
-        lambda p: tstep.make_optimizer(p, lr, freeze_mask=tstep.frozen_input_mask(p, freeze_input)),
+        lambda p: tstep.make_optimizer(p, lr, freeze_mask=tstep.frozen_input_mask(p, freeze_input), **opt),
     )
     from multimodalpfn_tpu_torch.models.params import flatten_params
 
@@ -210,6 +246,115 @@ def test_optimizer_skips_nonfinite_step_like_optax():
         _assert_tree(got, want, rtol=2e-5, atol=2e-7)
     np.testing.assert_array_equal(tseq[2]["w"], tseq[1]["w"])  # the NaN step left no trace
     assert tstate.optimizer.total_notfinite == 1
+
+
+class _WarmupSpec(NumpyScheduleFreeAdamW):
+    """The NumPy spec with optax's linear warmup: the base update at step t
+    takes the schedule at t - 1 (its own count), the averaging weight at t
+    (the schedule-free count)."""
+
+    def __init__(self, params, lr, warmup_steps):
+        super().__init__(params, lr)
+        self.peak, self.warmup = lr, warmup_steps
+
+    def step(self, grads):
+        sched = (lambda c: self.peak * min(c, self.warmup) / self.warmup) if self.warmup else (lambda c: self.peak)
+        grads = {k: np.asarray(g, np.float64) for k, g in grads.items()}
+        gnorm = np.sqrt(sum(float((g**2).sum()) for g in grads.values()))
+        if gnorm > self.clip_norm:
+            grads = {k: g * (self.clip_norm / gnorm) for k, g in grads.items()}
+        self.t += 1
+        lr_base = sched(self.t - 1)
+        self.max_lr = max(self.max_lr, sched(self.t))
+        weight = self.max_lr**self.weight_lr_power
+        self.weight_sum += weight
+        ck = weight / self.weight_sum if self.weight_sum else 0.0
+        for k, g in grads.items():
+            self.nu[k] = self.b2 * self.nu[k] + (1 - self.b2) * g * g
+            nu_hat = self.nu[k] / (1 - self.b2**self.t)
+            z_new = self.z[k] - lr_base * g / (np.sqrt(nu_hat) + self.eps)
+            x_prev = (self.y[k] - (1 - self.b1) * self.z[k]) / self.b1
+            x_new = (1 - ck) * x_prev + ck * z_new
+            self.y[k] = self.b1 * x_new + (1 - self.b1) * z_new
+            self.z[k] = z_new
+
+
+def _two_leaves():
+    return {
+        "a": jnp.asarray(np.linspace(-1, 1, 12).reshape(3, 4), jnp.float32),
+        "b": jnp.asarray(np.linspace(2, 3, 8).reshape(2, 4), jnp.float32),
+    }
+
+
+@pytest.mark.parametrize("warmup_steps", [None, 0, 3])
+def test_schedule_free_warmup_matches_optax_and_spec(warmup_steps):
+    from multimodalpfn_tpu.train.step import eval_params, make_optimizer
+
+    params = _two_leaves()
+    rng = np.random.default_rng(3)
+    grads = [{k: jnp.asarray(rng.normal(size=v.shape) * s, jnp.float32)
+              for (k, v), s in zip(params.items(), (0.02, 30.0 if i == 1 else 0.05))} for i in range(8)]
+    jstate, jseq = _jax_run(make_optimizer(1e-2, warmup_steps=warmup_steps), params, grads)
+    tstate, tseq = _torch_run(params, grads, warmup_steps=warmup_steps)
+    for got, want in zip(tseq, jseq):
+        _assert_tree(got, want, rtol=2e-5, atol=2e-7)
+    ev = {k: v.numpy() for k, v in tstep.eval_params(tstate).items()}
+    _assert_tree(ev, eval_params(jstate), rtol=2e-5, atol=2e-7)
+    spec = _WarmupSpec(params, 1e-2, warmup_steps)
+    for g in grads:
+        spec.step(g)
+    _assert_tree(tseq[-1], spec.y, rtol=2e-5, atol=2e-7)
+    _assert_tree(ev, spec.eval_x(), rtol=2e-5, atol=2e-7)
+    if warmup_steps:  # the base update's lr is 0 at the first step: y stays (to rounding)
+        np.testing.assert_allclose(tseq[0]["a"], np.asarray(params["a"]), rtol=0, atol=1e-6)
+        assert np.abs(tseq[1]["a"] - tseq[0]["a"]).max() > 1e-4
+
+
+def test_adamw_matches_optax_step_for_step():
+    """``optax.adamw`` inside the JAX package's chain: frozen leaves, the
+    clip on the trainable ones, a non-finite step skipped; evaluation at the
+    params."""
+    from multimodalpfn_tpu.train.step import eval_params, frozen_input_mask, make_optimizer
+
+    params = {"encoder": {"w": jnp.ones((4, 2))},
+              "layers": {"w": jnp.asarray(np.linspace(0, 1, 8).reshape(4, 2), jnp.float32),
+                         "v": jnp.asarray(np.linspace(-2, 1, 6).reshape(3, 2), jnp.float32)}}
+    rng = np.random.default_rng(4)
+    grads = [{"encoder": {"w": jnp.asarray(rng.normal(size=(4, 2)), jnp.float32)},
+              "layers": {"w": jnp.asarray(rng.normal(size=(4, 2)) * (5.0 if i == 2 else 0.1), jnp.float32),
+                         "v": jnp.asarray(rng.normal(size=(3, 2)) * 0.1, jnp.float32)}} for i in range(7)]
+    grads[4]["layers"]["v"] = grads[4]["layers"]["v"].at[0, 0].set(jnp.inf)
+    tx = make_optimizer(3e-2, optimizer="adamw", freeze_mask=frozen_input_mask(params, True))
+    jstate, jseq = _jax_run(tx, params, grads)
+    tstate, tseq = _torch_run(params, grads, freeze_input=True, lr=3e-2, optimizer="adamw")
+    for got, want in zip(tseq, jseq):
+        _assert_tree(got, want, rtol=2e-5, atol=2e-7)
+    np.testing.assert_array_equal(tseq[4]["layers/w"], tseq[3]["layers/w"])  # the inf step left no trace
+    np.testing.assert_array_equal(tseq[-1]["encoder/w"], 1.0)
+    assert tstate.optimizer.total_notfinite == 1 and tstate.optimizer.count == 6
+    from multimodalpfn_tpu_torch.models.params import flatten_params
+
+    ev = flatten_params(tstep.eval_params(tstate))
+    _assert_tree({k: v.numpy() for k, v in ev.items()}, eval_params(jstate, False), rtol=2e-5, atol=2e-7)
+    assert set(tstate.optimizer.state[flatten_params(tstate.params)["layers/w"]]) == {"mu", "nu"}
+
+
+def test_adamw_train_state_round_trips(tmp_path):
+    params = {"w": torch.linspace(-1, 1, 6).reshape(3, 2)}
+    st = tstep.init_train_state(params, lambda p: tstep.make_optimizer(p, 1e-2, optimizer="adamw"))
+    st.params["w"].grad = torch.ones(3, 2)
+    st.optimizer.step()
+    st.step = 1
+    tstep.save_train_state(tmp_path / "s.npz", st)
+    fresh = tstep.init_train_state(params, lambda p: tstep.make_optimizer(p, 1e-2, optimizer="adamw"))
+    tstep.restore_train_state(tmp_path / "s.npz", fresh)
+    assert fresh.step == 1 and fresh.optimizer.count == 1
+    for name in ("mu", "nu"):
+        torch.testing.assert_close(fresh.optimizer.state[fresh.params["w"]][name],
+                                   st.optimizer.state[st.params["w"]][name], rtol=0, atol=0)
+    sf = tstep.init_train_state(params, lambda p: tstep.make_optimizer(p, 1e-2))
+    with pytest.raises(ValueError, match="leaves are not the optimizer's"):
+        tstep.restore_train_state(tmp_path / "s.npz", sf)
 
 
 # ---- whole-model gradients -------------------------------------------------------
