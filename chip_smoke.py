@@ -38,8 +38,9 @@ Phases, each of which must pass:
    KV-cache prime shape (G = 4·31·6, 1838 × 1838), the multiquery predict
    shape (G = 4·31, 6·512 queries, 1838 keys) and the
    flash fine-tune's three blocks (train G = 180, 1655 × 1655; test G = 180,
-   183 queries; folded G = 30, 6·183 queries; 1655 keys), each with SDPA
-   beside it; K5 at the
+   183 queries; folded G = 30, 6·183 queries; 1655 keys) and DINOv2's
+   attention (``K4@dinov2``: G = 16 images × 12 heads, 577 × 577, d = 64),
+   each with SDPA beside it; K5 at the
    prime shape (4, 1838, 31, 192) and at 48 tokens; the key-masked K6a at
    (4, 48, 2350, 192) and K6b at the merged prime (4·1838, 48, 192) and
    predict (4·512, 48, 192) shapes, with the masks of members 39/39/22/22
@@ -206,12 +207,31 @@ CUDA-core body).
    with all its seeds and an accuracy in [0, 1], no trial failed, the
    forward and backward kernels launched; the study JSON round-trips.
 
+22. DINOv2 ViT-B/14 at full width (768 wide, 12 blocks, 12 heads, bf16,
+   random weights from ``init_vit_params``): ``embed_images`` over one image
+   a row of the PAD-UFES-shaped set (2298 images at 336 px, pixels uniform in
+   [0, 1) drawn batch by batch), 16 images a batch; the counters, zeroed
+   just before, show K4 launched 12 times a batch (1728) and no other
+   kernel, the embeddings ``(2298, 1, 768)`` finite; the first and the warm
+   batch times and the total are printed. Then ``MMPFNClassifier`` fits the
+   first 1838 rows with these embeddings in place of the synthetic ones and
+   answers the other 460, checked as phase 3's requests.
+23. The encoders' gates: DINOv2's kernel path against its plain path on 16
+   images at full width (the largest CLS difference within 1e-4 of the
+   largest CLS value in float32, 2**-6 in bf16); ELECTRA-base at full width
+   (768, 12 layers, float32, random weights) on 64 random sequences of
+   random lengths padded to 384 tokens: finite, and the CLS within 1e-5 of
+   its largest value with padding appended to 512 tokens and with batches
+   of 5 in place of 16; its masked attention is plain PyTorch, so no kernel
+   launches.
+
 ``--profile`` adds a phase 14, run last: ``torch.profiler`` around one warm
 request of each size in both modes, around one warm training step of each
 item path (the fused item sublayer and the flash path), around one warm
-460-row regressor request and around the last of three sweep steps of
-phase 19's sweep, printing wall time, device kernel time, the idle
-share and the kernels that took the most device time.
+460-row regressor request, around the last of three sweep steps of
+phase 19's sweep and around one warm batch of phase 22's ``embed_images``,
+printing wall time, device kernel time, the idle share and the kernels
+that took the most device time.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
@@ -409,6 +429,20 @@ SWEEP_MGM_CELLS = [{"mgm_heads": 2, "cap_heads": 2, "seeds": [0, 1]},
 # leakage between runs (`tests/test_cross_cell_batching.py`)
 SWEEP_TINY_LR, SWEEP_LOSS_REL_BOUND, SWEEP_MIXER_ABS_BOUND = 1e-12, 1e-5, 1e-9
 STUDY_STEPS = 3
+# DINOv2 ViT-B/14 (phases 2, 22, 23): the loaders' default 336 px (a 24 x 24
+# patch grid and the CLS token: 577 tokens), batches of 16 images, 12 heads
+# of d = 64: K4 at (16 x 12, 577, 64); phase 22 embeds pad_ufes_like's 2298
+# images, 144 batches, so K4 launches 144 x 12 times
+VIT_IMG, VIT_BATCH = 14 * 24, 16
+VIT_ATTN_DIMS = (VIT_BATCH * 12, 1 + (VIT_IMG // 14) ** 2, 64)
+# phase 23: DINOv2's kernel path against its plain path, the largest CLS
+# difference relative to the largest CLS value (float32: the attention's
+# summation order, through 12 blocks), and ELECTRA-base's CLS with padding
+# appended or a batch cut differently (summation order of other shapes only:
+# padded keys get an exact zero weight)
+VIT_F32_REL_BOUND = 1e-4
+ELECTRA_REL_BOUND = 1e-5
+ELECTRA_SEQS, ELECTRA_LEN, ELECTRA_SHORT = 64, 512, 384
 
 
 class SmokeFailure(RuntimeError):
@@ -766,10 +800,11 @@ def write_model(path: Path, multiquery: bool = True) -> None:
     save_npz(path, loaded.params, cfg)
 
 
-def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
+def phase_kernels(device, dims, iters, ft_dims, vit_dims=VIT_ATTN_DIMS, only=None) -> dict:
     """Every kernel against its plain version on the same inputs (with
     ``only``, the cases whose ids start with one of its entries). K4 also
-    runs at the flash fine-tune's three blocks (``ft_dims``, as `FT_DIMS`)."""
+    runs at the flash fine-tune's three blocks (``ft_dims``, as `FT_DIMS`)
+    and at DINOv2's attention (``vit_dims``, as `VIT_ATTN_DIMS`)."""
     import torch
     import torch.nn.functional as F
 
@@ -823,7 +858,7 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         return lambda es: (2 * rows * tt * 4 * hd * e + attn,
                            2 * rows * tt * e * es + 4 * hd * e * es + mask_bytes)
 
-    def flash_work(G, Sq, Skv):
+    def flash_work(G, Sq, Skv, d=d):
         return lambda es: (4 * G * Sq * Skv * d, (G * Sq + 2 * G * Skv) * d * es + G * Sq * (d + 1) * 4)
 
     def sdpa(q, k, v):  # (G, S, d) -> one call with the G groups as heads
@@ -904,10 +939,12 @@ def phase_kernels(device, dims, iters, ft_dims, only=None) -> dict:
         rows_k = xk.numel() // e
         cases[kid] = (fused.fused_mlp_ln, fused.mlp_ln_plain, lambda dt, xk=xk: (xk.to(dt), w1, w2),
                       lambda es, n=rows_k: (4 * n * e * nhid, (2 * n * e + 2 * e * nhid) * es), None)
-    for kid, (qb, kb, vb) in ft_blocks.items():
+    # DINOv2's attention: a batch of images' heads, every token against every token
+    vit_qkv = tuple(rand(*vit_dims) for _ in range(3))
+    for kid, (qb, kb, vb) in (ft_blocks | {"K4@dinov2": vit_qkv}).items():
         cases[kid] = (flash.flash_attention, flash.flash_attention_plain,
                       lambda dt, qkv=(qb, kb, vb): tuple(a.to(dt) for a in qkv),
-                      flash_work(qb.shape[0], qb.shape[1], kb.shape[1]),
+                      flash_work(qb.shape[0], qb.shape[1], kb.shape[1], qb.shape[2]),
                       lambda dt, qkv=(qb, kb, vb): sdpa(*(a.to(dt) for a in qkv)))
     if only is not None:
         cases = {kid: case for kid, case in cases.items() if kid.startswith(tuple(only))}
@@ -2000,6 +2037,121 @@ def phase_study(device, model_path, data, steps, out_dir: Path) -> dict:
     return out
 
 
+def phase_dinov2(device, model_path, data, vit_cfg, img_size: int, batch: int, n_train: int) -> dict:
+    """DINOv2 ViT-B/14 through its public entry point: `modal/dinov2.embed_images`
+    over one image per row of ``data`` (pixels uniform in [0, 1), drawn batch
+    by batch from a numpy generator, so the whole image set is never held),
+    random weights from `init_vit_params` (seed 0). The launch counters,
+    zeroed just before, must show K4 once a block of every batch and no other
+    kernel; the embeddings finite. Then the served classifier fits the first
+    ``n_train`` rows with these embeddings in place of the synthetic ones and
+    answers the rest, checked as phase 3's requests."""
+    import numpy as np
+    import torch
+
+    from multimodalpfn_tpu_torch.modal import dinov2
+    from multimodalpfn_tpu_torch.ops import kernels
+
+    X, _, y = data
+    n = len(X)
+    params = dinov2.init_vit_params(torch.Generator().manual_seed(0), vit_cfg)
+    params = dinov2.prepare_params(params, vit_cfg, device)
+    rng = np.random.default_rng(0)
+    embs, batch_ms, draw_s = [], [], 0.0
+    kernels.reset_launches()
+    t_start = time.perf_counter()
+    for i in range(0, n, batch):
+        t0 = time.perf_counter()
+        imgs = rng.random((min(batch, n - i), 1, 3, img_size, img_size), dtype=np.float32)
+        t1 = time.perf_counter()
+        embs.append(dinov2.embed_images(params, vit_cfg, imgs, batch_size=batch, device=device))
+        batch_ms.append((time.perf_counter() - t1) * 1e3)
+        draw_s += t1 - t0
+    wall = time.perf_counter() - t_start
+    launches = dict(kernels.LAUNCHES)
+    emb = np.concatenate(embs)
+    n_batches = len(batch_ms)
+    warm = float(np.median(batch_ms[1:-1])) if n_batches > 2 else batch_ms[-1]
+    print(f"  {n} images at {img_size} px in {n_batches} batches of {batch}: embed_images {sum(batch_ms):.1f} "
+          f"ms in all (first batch {batch_ms[0]:.1f} ms, warm batch median {warm:.2f} ms, min "
+          f"{min(batch_ms):.2f}), {wall:.2f} s with drawing the pixels ({draw_s:.2f} s); launches "
+          f"{ {k: v for k, v in launches.items() if v} } (K4 expected {n_batches * vit_cfg.depth})",
+          flush=True)
+    check(emb.shape == (n, 1, vit_cfg.embed_dim) and bool(np.isfinite(emb).all()),
+          f"DINOv2 embeddings of shape {emb.shape}, finite {bool(np.isfinite(emb).all())}")
+    if device.type == "cuda":
+        check(launches["K4"] == n_batches * vit_cfg.depth,
+              f"K4 launched {launches['K4']} times, not {n_batches * vit_cfg.depth}")
+        others = {k: v for k, v in launches.items() if k != "K4" and v}
+        check(not others, f"DINOv2 launched other kernels: {others}")
+    print("  the classifier on these embeddings:", flush=True)
+    served = phase_served(device, model_path, (X[:n_train], emb[:n_train], y[:n_train], X[n_train:],
+                                               emb[n_train:]), [n - n_train], 12, "fit_preprocessors")
+    return dict(launches=launches, batch_ms=batch_ms, warm_batch_ms=warm, embed_ms=sum(batch_ms),
+                wall_s=wall, served=served)
+
+
+def phase_encoder_gates(device, vit_cfg, img_size: int, batch: int, electra_cfg, n_seq: int, seq_len: int,
+                        short_len: int) -> dict:
+    """DINOv2's kernel path against its plain path (`embed_images` with
+    ``use_kernels=False``: the plain attention on the card) on one batch at
+    ``vit_cfg``'s width, in float32 and bf16; then ELECTRA (`cls_embeddings`,
+    float32, random weights) on ``n_seq`` random sequences padded from random
+    lengths to ``short_len`` tokens: finite, the same CLS with ``seq_len -
+    short_len`` more padding tokens appended and with batches of 5 in place of
+    16, and no kernel launched (its masked attention is plain PyTorch)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from multimodalpfn_tpu_torch.modal import dinov2, electra
+    from multimodalpfn_tpu_torch.ops import kernels
+
+    params = dinov2.init_vit_params(torch.Generator().manual_seed(1), vit_cfg)
+    imgs = np.random.default_rng(1).random((batch, 1, 3, img_size, img_size), dtype=np.float32)
+    out = {}
+    for cd, bound in (("float32", VIT_F32_REL_BOUND), ("bfloat16", BF16_REL_BOUND)):
+        cfg = dataclasses.replace(vit_cfg, compute_dtype=cd)
+        got = dinov2.embed_images(params, cfg, imgs, batch_size=batch, device=device)
+        want = dinov2.embed_images(params, cfg, imgs, batch_size=batch, device=device, use_kernels=False)
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        out[f"dinov2_rel_{cd}"] = rel
+        print(f"  DINOv2 {cd}, {batch} images: kernel path against plain path, largest CLS difference "
+              f"{rel:.3e} of the largest CLS value (bound {bound:.1e})", flush=True)
+        check(bool(np.isfinite(got).all()), f"DINOv2 {cd}: non-finite embeddings")
+        check(rel <= bound, f"DINOv2 {cd}: kernel path differs from the plain path by {rel:.3e}")
+
+    eparams = electra.init_params(torch.Generator().manual_seed(2), electra_cfg)
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(8, short_len + 1, n_seq)
+    mask = (np.arange(seq_len)[None] < lengths[:, None]).astype(np.int64)
+    ids = np.where(mask == 1, rng.integers(1, electra_cfg.vocab_size, (n_seq, seq_len)), 0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    cls = electra.cls_embeddings(eparams, electra_cfg, ids[:, :short_len], mask[:, :short_len],
+                                 batch_size=16, device=device)
+    ms = (time.perf_counter() - t0) * 1e3
+    longer = electra.cls_embeddings(eparams, electra_cfg, ids, mask, batch_size=16, device=device)
+    rebatched = electra.cls_embeddings(eparams, electra_cfg, ids[:, :short_len], mask[:, :short_len],
+                                       batch_size=5, device=device)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    scale = float(np.abs(cls).max())
+    pad_rel = float(np.abs(longer - cls).max()) / scale
+    batch_rel = float(np.abs(rebatched - cls).max()) / scale
+    out |= dict(electra_pad_rel=pad_rel, electra_batch_rel=batch_rel, electra_ms=ms)
+    print(f"  ELECTRA ({electra_cfg.hidden} wide, {electra_cfg.layers} layers, float32), {n_seq} sequences "
+          f"of {lengths.min()}-{lengths.max()} tokens padded to {short_len}: {ms:.1f} ms (first call); "
+          f"padded to {seq_len}: CLS moved by {pad_rel:.2e} of the largest; batches of 5: {batch_rel:.2e} "
+          f"(bound {ELECTRA_REL_BOUND:.0e}); launches {launched}", flush=True)
+    check(cls.shape == (n_seq, 1, electra_cfg.hidden) and bool(np.isfinite(cls).all()),
+          f"ELECTRA CLS of shape {cls.shape}, finite {bool(np.isfinite(cls).all())}")
+    check(pad_rel <= ELECTRA_REL_BOUND, f"ELECTRA: appended padding moved the CLS by {pad_rel:.2e}")
+    check(batch_rel <= ELECTRA_REL_BOUND, f"ELECTRA: another batch size moved the CLS by {batch_rel:.2e}")
+    check(not launched, f"ELECTRA launched kernels: {launched}")
+    return out
+
+
 def regression_target(X, codes):
     """The regression target of the regressor's phases: the class code, half
     of feature 18 (NaN as 0) and lognormal noise (σ = 0.5) from
@@ -2195,6 +2347,29 @@ def phase_profile_sweep(device, model_path, data, top: int = 16) -> dict:
                   (t1 - t0) / 1e3, rows, top)
     busy = sum(r[0] for r in rows)
     return dict(wall_ms=(t1 - t0) / 1e3, kernel_ms=busy, per_run_kernel_ms=busy / n_runs)
+
+
+def phase_profile_dinov2(device, vit_cfg, img_size: int, batch: int, top: int = 14) -> None:
+    """torch.profiler around one warm ``embed_images`` call on a batch of
+    ``batch`` images (the host-to-device copy of the pixels and the fetch of
+    the embeddings inside it): wall time, device kernel time, the idle share
+    and the kernels that took the most time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodalpfn_tpu_torch.modal import dinov2
+
+    params = dinov2.prepare_params(
+        dinov2.init_vit_params(torch.Generator().manual_seed(0), vit_cfg), vit_cfg, device)
+    imgs = np.random.default_rng(3).random((batch, 1, 3, img_size, img_size), dtype=np.float32)
+    dinov2.embed_images(params, vit_cfg, imgs, batch_size=batch, device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dinov2.embed_images(params, vit_cfg, imgs, batch_size=batch, device=device)
+        wall = (time.perf_counter() - t0) * 1e3
+    print_profile(f"DINOv2 embed_images, a warm batch of {batch} images at {img_size} px", wall,
+                  device_kernel_rows(prof), top)
 
 
 def phase_profile_regressor(device, model_path, data, n: int, top: int = 14) -> None:
@@ -2467,7 +2642,7 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
     for kid, meta in KERNELS.items():
         r = dict(kres[kid])
         for sub in ("t48", "prime", "predict", "ft", "test", "folded", "ft_train", "ft_test",
-                    "ft_folded"):
+                    "ft_folded", "dinov2"):
             r.update({f"{k}_{sub}": v for k, v in kres.get(f"{kid}@{sub}", {}).items()})
         main = {"max_abs_err": "max_abs_err_f32", "ms": "ms_bf16", "plain_ms": "plain_ms_bf16",
                 "bound_ms": "bound_ms_bf16", "bound_by": "bound_by_bf16",
@@ -2483,7 +2658,7 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
         if kid == "K4":
             row["launches_flash_finetune"] = launches["flash_finetune"]["K4"]
         for path in ("regressor", "regressor_cached", "regressor_finetune", "sweep", "sweep_padded_mgm",
-                     "study_cross_cell", "study_sequential"):
+                     "study_cross_cell", "study_sequential", "dinov2"):
             row[f"launches_{path}"] = launches[path][kid]
         row.update({k: v for k, v in r.items() if k not in main.values()})
         rows.append(row)
@@ -2591,7 +2766,7 @@ def main() -> int:
     else:
         dims, iters = (4, 31, 2350, 1838, 192, 6, 32, 768, 512), 10
     ft_dims = (1, 5, 37, 21, 32, 4, 8, 64) if args.rehearse else FT_DIMS
-    kres = phase_kernels(device, dims, iters, ft_dims)
+    kres = phase_kernels(device, dims, iters, ft_dims, (8, 17, 64) if args.rehearse else VIT_ATTN_DIMS)
 
     X, img, y = pad_ufes_like(seed=0)
     if args.rehearse:
@@ -2688,6 +2863,23 @@ def main() -> int:
     print(f"== phase 21: the grid study (run_experiment_cross_cell, run_experiment)", flush=True)
     study = phase_study(device, model_path, sweep_data, 1 if args.rehearse else STUDY_STEPS, ROOT / "build")
 
+    from multimodalpfn_tpu_torch.modal.dinov2 import ViTConfig
+    from multimodalpfn_tpu_torch.modal.electra import ElectraConfig
+
+    if args.rehearse:  # the full width at one block and 28 px; a narrow ELECTRA
+        vit_cfg, vit_img = ViTConfig(depth=1), 28
+        e_cfg, e_dims = ElectraConfig(vocab_size=100, hidden=64, layers=2, heads=4, intermediate=128,
+                                      max_position=48), (8, 48, 32)
+    else:
+        vit_cfg, vit_img, e_cfg, e_dims = ViTConfig(), VIT_IMG, ElectraConfig(), (
+            ELECTRA_SEQS, ELECTRA_LEN, ELECTRA_SHORT)
+    print(f"== phase 22: DINOv2 ViT-B/14 ({vit_cfg.depth} blocks, {vit_cfg.compute_dtype}) embeds "
+          f"{len(X)} images at {vit_img} px, then the classifier serves them", flush=True)
+    vit = phase_dinov2(device, model_path, ft_data, vit_cfg, vit_img, VIT_BATCH, n_tr)
+    print("== phase 23: the encoders' gates: DINOv2 kernel path against plain path, ELECTRA-base "
+          "padding and batch invariance", flush=True)
+    enc = phase_encoder_gates(device, vit_cfg, vit_img, VIT_BATCH, e_cfg, *e_dims)
+
     if args.profile:
         print("== phase 14: profile of warm requests and of a warm training step of each item "
               "path, and of a warm regressor request", flush=True)
@@ -2696,6 +2888,7 @@ def main() -> int:
         phase_profile_step(device, nmq_path, ft_data, ft_layers, label=" of the flash path")
         phase_profile_regressor(device, reg_path, reg_data, sizes[0])
         phase_profile_sweep(device, model_path, sweep_data)
+        phase_profile_dinov2(device, vit_cfg, vit_img, VIT_BATCH)
 
     rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"],
                               "finetune": ft["launches"], "flash_finetune": fl["launches"],
@@ -2703,7 +2896,8 @@ def main() -> int:
                               "regressor_finetune": rft["launches"], "sweep": sw["launches"],
                               "sweep_padded_mgm": sw32["c"]["launches"],
                               "study_cross_cell": study["cross_cell"]["launches"],
-                              "study_sequential": study["sequential"]["launches"]}
+                              "study_sequential": study["sequential"]["launches"],
+                              "dinov2": vit["launches"]}
                        | {f"{plan}{'_cached' if mode == 'fit_with_cache' else ''}": run["launches"]
                           for (mode, plan), run in forced.items()})
     print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
@@ -2724,7 +2918,10 @@ def main() -> int:
           f"runs: warm sweep step {sw['warm_step_ms']:.1f} ms ({sw['per_run_ms']:.1f} ms per run), f32 "
           f"kernel vs plain loss {sw32['a']['loss_rel']:.2e} params {sw32['a']['param_err']:.2e}, padded vs "
           f"unpadded mixers {sw32['b_lr1e-12']['mixer_err']:.2e}; study {study['cross_cell']['wall_s']:.1f} s "
-          f"+ {study['sequential']['wall_s']:.1f} s; "
+          f"+ {study['sequential']['wall_s']:.1f} s; DINOv2 {len(vit['batch_ms'])} batches in "
+          f"{vit['embed_ms']:.1f} ms (warm batch {vit['warm_batch_ms']:.2f} ms), kernel vs plain CLS f32 "
+          f"{enc['dinov2_rel_float32']:.2e} bf16 {enc['dinov2_rel_bfloat16']:.2e}; ELECTRA padding "
+          f"{enc['electra_pad_rel']:.2e}, batching {enc['electra_batch_rel']:.2e}; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.rehearse:
         print("rehearsal on the CPU passed; no result is reported without CUDA", file=sys.stderr)

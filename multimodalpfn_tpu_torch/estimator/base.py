@@ -14,11 +14,7 @@ import numpy as np
 import torch
 
 from multimodalpfn_tpu_torch.estimator.data_utils import OrdinalEncoder, fix_dtypes
-from multimodalpfn_tpu_torch.models.download import (
-    CLASSIFIER_CKPT,
-    REGRESSOR_CKPT,
-    cached_checkpoint_path,
-)
+from multimodalpfn_tpu_torch.models.download import ensure_model, resolve_model_path
 from multimodalpfn_tpu_torch.models.loading import LoadedModel, load_model
 
 
@@ -85,25 +81,26 @@ def _cache_dir() -> Path:
 
 def resolve_auto_checkpoint(which: Literal["classifier", "regressor"] = "classifier") -> Path:
     """The published checkpoint for ``model_path="auto"``
-    (``tabpfn-v2-classifier.ckpt`` or ``tabpfn-v2-regressor.ckpt``), looked
-    for where the JAX package looks (its `estimator/base.py:initialize_model`):
-    first the legacy ``_cache_dir()``, then ``$TABPFN_MODEL_CACHE_DIR``, or
-    else ``$XDG_CACHE_HOME/tabpfn`` or ``~/.cache/tabpfn``, where the
-    reference caches it. There is no download."""
-    name = CLASSIFIER_CKPT if which == "classifier" else REGRESSOR_CKPT
+    (``tabpfn-v2-classifier.ckpt`` or ``tabpfn-v2-regressor.ckpt``), found as
+    the JAX package's `estimator/base.py:initialize_model` finds it: first in
+    the legacy ``_cache_dir()``, then through `models.download.ensure_model`,
+    which looks in ``$TABPFN_MODEL_CACHE_DIR``, or else in
+    ``$XDG_CACHE_HOME/tabpfn`` or ``~/.cache/tabpfn`` where the reference
+    caches it, and downloads it there when it is missing."""
+    path, _, name = resolve_model_path("auto", which)
     legacy = _cache_dir() / name
     if legacy.exists():
         return legacy
-    path = cached_checkpoint_path(name)
-    if path.exists():
-        return path
-    raise FileNotFoundError(
-        f"No checkpoint named {name} in {legacy.parent}, in "
-        f"$TABPFN_MODEL_CACHE_DIR ({os.environ.get('TABPFN_MODEL_CACHE_DIR') or 'unset'}) or in "
-        f"the user cache dir ($XDG_CACHE_HOME/tabpfn or ~/.cache/tabpfn: {path.parent}). "
-        f"Place the published {name} in one of them, pass model_path=..., or use "
-        "model_path='random:<seed>' for an untrained model."
-    )
+    try:
+        return ensure_model("auto", which)
+    except (RuntimeError, ValueError) as e:
+        raise FileNotFoundError(
+            f"No checkpoint named {name} in {legacy.parent}, in "
+            f"$TABPFN_MODEL_CACHE_DIR ({os.environ.get('TABPFN_MODEL_CACHE_DIR') or 'unset'}) or in "
+            f"the user cache dir ($XDG_CACHE_HOME/tabpfn or ~/.cache/tabpfn: {path.parent}), and "
+            f"the download failed (no egress?). Place the published {name} in one of them, pass "
+            "model_path=..., or use model_path='random:<seed>' for an untrained model."
+        ) from e
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -133,7 +130,7 @@ def initialize_model(
     """Load (or synthesize) the ``which`` model onto ``device``.
 
     - ``"auto"``: the published checkpoint from the model cache dirs
-      (`resolve_auto_checkpoint`); there is no download path.
+      (`resolve_auto_checkpoint`), downloaded there when it is missing.
     - an existing path: a reference-format torch checkpoint, or an ``.npz``
       written by `models.loading.save_npz`.
     - ``"random"`` / ``"random:<seed>"``: fresh random initialization with the

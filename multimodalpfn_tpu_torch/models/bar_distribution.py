@@ -187,6 +187,32 @@ class FullSupportBarDistribution:
         return -_cumsum(probs).sum(dim=-1)
 
     # -- moments / point estimates --------------------------------------------
+    def plot(self, logits: torch.Tensor, ax=None, zoom_to_quantile=None, **kwargs):
+        """Bar plot of one distribution (reference `bar_distribution.py:411-445`,
+        JAX package `models/bar_distribution.py:151`): bar heights are the
+        densities ``softmax(logits) / width``; ``zoom_to_quantile`` limits
+        the x axis to that central quantile and plots the bars inside it.
+        Needs matplotlib, imported here: plotting is optional."""
+        import matplotlib.pyplot as plt
+
+        logits = torch.as_tensor(logits).squeeze()
+        if logits.ndim != 1:
+            raise ValueError("logits should be 1d, at least after squeezing.")
+        if ax is None:
+            ax = plt.gca()
+        borders = self.borders.cpu().numpy()
+        widths = self.bucket_widths.cpu().numpy()
+        if zoom_to_quantile is not None:
+            bounds = self.quantile(logits, zoom_to_quantile).cpu().numpy()
+            lower_bound, upper_bound = float(bounds[..., 0].min()), float(bounds[..., 1].max())
+            ax.set_xlim(lower_bound, upper_bound)
+            border_mask = (borders[:-1] >= lower_bound) & (borders[1:] <= upper_bound)
+        else:
+            border_mask = slice(None)
+        p = (_softmax(logits) / self.bucket_widths).cpu().numpy()
+        ax.bar(borders[:-1][border_mask], p[border_mask], widths[border_mask], **kwargs)
+        return ax
+
     def _bucket_means(self) -> torch.Tensor:
         return self.borders[:-1] + self.bucket_widths / 2
 

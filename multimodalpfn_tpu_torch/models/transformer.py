@@ -221,11 +221,13 @@ def forward(
     tab_valid: torch.Tensor | None = None,
     feat_pos_noise: torch.Tensor | None = None,
     mgm_active: int | None = None,
-) -> torch.Tensor:
+    return_embeddings: bool = False,
+) -> torch.Tensor | dict[str, torch.Tensor]:
     """Inference forward (`_forward_impl` without autograd)."""
     return _forward_impl(
         params, cfg, x, y_train, image, single_eval_pos=single_eval_pos,
         tab_valid=tab_valid, feat_pos_noise=feat_pos_noise, mgm_active=mgm_active,
+        return_embeddings=return_embeddings,
     )
 
 
@@ -271,7 +273,8 @@ def _forward_impl(
     train: bool = False,
     generator: torch.Generator | None = None,
     mgm_active: int | None = None,
-) -> torch.Tensor:
+    return_embeddings: bool = False,
+) -> torch.Tensor | dict[str, torch.Tensor]:
     """The forward.
 
     Args:
@@ -293,8 +296,13 @@ def _forward_impl(
         inactive heads are masked exactly, so the result is the unpadded
         mixer's (the JAX package's `_forward_impl:383-429`).
       train, generator: mixer dropout (training only).
+      return_embeddings: also return the target-token embeddings of the
+        train and test rows after the last layer (JAX package
+        `models/transformer.py:489-496`).
 
-    Returns logits ``(b, S - sep, n_out)`` in float32.
+    Returns logits ``(b, S - sep, n_out)`` in float32; with
+    ``return_embeddings``, ``{"standard": logits, "train_embeddings": (b, sep,
+    e), "test_embeddings": (b, S - sep, e)}``, the embeddings in float32.
     """
     sep = single_eval_pos
     b = y_train.shape[0]
@@ -371,4 +379,9 @@ def _forward_impl(
     test_targets = (state[:, -1, sep:] if item_major else state[:, sep:, -1]).float()
     dec = params["decoder"]
     hidden = F.gelu(test_targets @ dec["w1"] + dec["b1"], approximate="none")
-    return hidden @ dec["w2"] + dec["b2"]
+    logits = hidden @ dec["w2"] + dec["b2"]
+    if return_embeddings:
+        train_targets = state[:, -1, :sep] if item_major else state[:, :sep, -1]
+        return {"standard": logits, "train_embeddings": train_targets.float(),
+                "test_embeddings": test_targets}
+    return logits

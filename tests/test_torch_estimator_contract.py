@@ -100,9 +100,23 @@ def test_auto_model_path_reaches_the_classifier_and_fine_tuning(tmp_path, monkey
 
 
 def test_auto_model_path_missing_everywhere_raises(tmp_path, monkeypatch):
+    """Found nowhere, the checkpoint is downloaded; with both transports
+    failing (stubbed: no test opens a connection) the error says where to
+    place it."""
+    from multimodalpfn_tpu_torch.models import download
+
     home = _isolate(monkeypatch, tmp_path)
+    tried = []
+
+    def broken(*a, **kw):
+        tried.append(a or kw)
+        raise OSError("no egress")
+
+    monkeypatch.setattr(download, "_default_hf_download", broken)
+    monkeypatch.setattr(download, "_default_url_opener", broken)
     with pytest.raises(FileNotFoundError) as info:
         initialize_model(model_path="auto", device="cpu", **INIT_KW)
+    assert len(tried) == 2  # the hub, then the direct URL
     msg = str(info.value)
     assert "TABPFN_MODEL_CACHE_DIR" in msg and "random:<seed>" in msg
     assert str(home / ".cache" / "multimodalpfn_tpu") in msg

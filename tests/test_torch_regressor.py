@@ -287,6 +287,13 @@ def test_auto_finds_the_regressor_checkpoint(ckpt, tmp_path, monkeypatch, where)
     X_tr, _, y_tr, X_te, _ = _data()
     reg = TabPFNRegressor(device="cpu", n_estimators=2).fit(X_tr, y_tr)
     assert reg.model_path == "auto" and np.isfinite(reg.predict(X_te)).all()
+    from multimodalpfn_tpu_torch.models import download
+
+    def broken(*a, **kw):  # the classifier's checkpoint is missing: no download either
+        raise OSError("no egress")
+
+    monkeypatch.setattr(download, "_default_hf_download", broken)
+    monkeypatch.setattr(download, "_default_url_opener", broken)
     with pytest.raises(FileNotFoundError, match="tabpfn-v2-classifier.ckpt"):
         initialize_model(model_path="auto", static_seed=0, mixer_type="none", mgm_heads=2,
                          cap_heads=2, features_per_group=1, device="cpu")
