@@ -224,6 +224,28 @@ CUDA-core body).
    its largest value with padding appended to 512 tokens and with batches
    of 5 in place of 16; its masked attention is plain PyTorch, so no kernel
    launches.
+24. The entry points, as a user runs them, in ``build/cli/`` (a
+   PAD-UFES-20-shaped directory: ``metadata.csv`` of 2298 rows with the six
+   diagnostics, phase 22's DINOv2 embeddings as the image cache, seeded
+   random (2298, 1, 768) clinical-note embeddings as the text cache), each
+   inside the port's ``PhaseTimer`` with the launch counters zeroed just
+   before: ``scripts/run_published`` (configs 1-4, 1 seed, 20 fine-tune
+   steps, phase 1's model), ``scripts/run_experiment`` (pad_ufes_20, a
+   one-cell YAML mgm 16 × cap 8, 1 seed, the reference's 100 steps),
+   ``scripts/finetune_cli`` (20 steps on ``pad_ufes_like``'s arrays saved
+   as ``.npy``) and the five examples' ``main`` (phase 1's model, the
+   regressor's for the regression example). Each CLI's printed JSON equals
+   what it returned and the file it wrote; every estimator fitted and
+   every fine-tune holds its parameters and train split on the card; K7,
+   K8, K9 and K10 launch exactly 12 times a fine-tune step, the served
+   forward kernels run, and every K1, K5, K6a, K6b, K2b and K3 launch and
+   K7's per-row attention take the wgmma body; ``run_published``'s config-1
+   accuracy and AUROC equal, bit for bit, a direct ``TabPFNClassifier``
+   call with the same arguments; config 1 again inside
+   ``utils/profiling.trace`` answers the same and its trace names the
+   wgmma kernels; the serving example's pipelined answers equal its
+   sequential ones. The ``PhaseTimer`` report and ``live_device_memory()``
+   are printed.
 
 ``--profile`` adds a phase 14, run last: ``torch.profiler`` around one warm
 request of each size in both modes, around one warm training step of each
@@ -2088,7 +2110,7 @@ def phase_dinov2(device, model_path, data, vit_cfg, img_size: int, batch: int, n
     served = phase_served(device, model_path, (X[:n_train], emb[:n_train], y[:n_train], X[n_train:],
                                                emb[n_train:]), [n - n_train], 12, "fit_preprocessors")
     return dict(launches=launches, batch_ms=batch_ms, warm_batch_ms=warm, embed_ms=sum(batch_ms),
-                wall_s=wall, served=served)
+                wall_s=wall, served=served, emb=emb)
 
 
 def phase_encoder_gates(device, vit_cfg, img_size: int, batch: int, electra_cfg, n_seq: int, seq_len: int,
@@ -2389,6 +2411,313 @@ def phase_profile_regressor(device, model_path, data, n: int, top: int = 14) -> 
     print_profile(f"regressor request of {n} rows (output_type full)", wall, device_kernel_rows(prof), top)
 
 
+# ---- phase 24: the entry points (the CLIs and the examples) -------------------------
+
+# PAD-UFES-20's six diagnostics and the boolean answers of its metadata.csv
+PAD_DIAGNOSTICS = ("ACK", "BCC", "MEL", "NEV", "SCC", "SEK")
+PAD_BOOL_CATS = ("smoke", "drink", "pesticide", "skin_cancer_history", "cancer_history", "has_piped_water",
+                 "has_sewage_system", "itch", "grew", "hurt", "bleed", "elevation", "biopsed", "changed")
+CLI_STEPS = 20
+# the reference's fine-tune length, which `run_experiment` (`evaluate_cell`)
+# and the multimodal example run
+REFERENCE_STEPS = 100
+# the kernel names of the wgmma bodies of K1 (and K5, K6a, K6b), K2a's
+# attention, K2b and K3, as the profiler's trace names them
+WGMMA_TRACE_NAMES = ("feat_attn_wg_kernel", "fwd_wg_kernel", "epilogue_ln_wg_kernel", "mlp_ln_wg_kernel")
+EXAMPLES = ("mmpfn_multimodal_classification", "serving_pipelined_requests", "tabpfn_for_binary_classification",
+            "tabpfn_for_multiclass_classification", "tabpfn_for_regression")
+
+
+def write_pad_ufes_dir(root: Path, image_emb, seed: int = 0) -> None:
+    """A PAD-UFES-20-shaped data directory under ``root``: ``data/pad_ufes_20/
+    metadata.csv`` of one row per embedding with the columns the loader
+    reads and the six diagnostics in turn (as `tests/test_run_published.py`'s
+    fixture builds its 120 rows), the image cache holding ``image_emb`` and
+    the clinical-note cache holding seeded random (rows, 1, 768)
+    embeddings."""
+    import numpy as np
+    import pandas as pd
+
+    n = len(image_emb)
+    rng = np.random.default_rng(seed)
+    df = pd.DataFrame({c: rng.integers(0, 2, n).astype(bool) for c in PAD_BOOL_CATS})
+    df["background_father"] = rng.choice(["POMERANIA", "GERMANY"], n)
+    df["background_mother"] = rng.choice(["POMERANIA", "ITALY"], n)
+    df["gender"] = rng.choice(["MALE", "FEMALE"], n)
+    df["region"] = rng.choice(["ARM", "FACE"], n)
+    df["age"] = rng.integers(20, 80, n)
+    df["diameter_1"] = rng.uniform(2, 12, n).round(1)
+    df["diameter_2"] = rng.uniform(2, 12, n).round(1)
+    df["diagnostic"] = np.array(PAD_DIAGNOSTICS)[np.arange(n) % len(PAD_DIAGNOSTICS)]
+    df["img_id"] = [f"PAT_{i}.png" for i in range(n)]
+    data = root / "data" / "pad_ufes_20"
+    data.mkdir(parents=True)
+    df.to_csv(data / "metadata.csv", index=False)
+    cache = root / "embeddings" / "pad_ufes_20"
+    cache.mkdir(parents=True)
+    np.savez_compressed(cache / "pad_ufes_20_dinov2.npz", embeddings=np.asarray(image_emb, np.float32))
+    np.savez_compressed(cache / "pad_ufes_20_clinical_electra.npz",
+                        emb=rng.normal(size=(n, 1, 768)).astype(np.float32))
+
+
+def tensors_of(obj) -> list:
+    """Every tensor in a nested dict, list or tuple."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return [t for item in obj for t in tensors_of(item)]
+    return []
+
+
+class DeviceWatch:
+    """Records every estimator fitted (``MMPFNClassifier``, ``MMPFNRegressor``
+    and their TabPFN subclasses) and every fine-tune's step loop
+    (`train/finetune.make_episode_trainer`) while it is entered, and checks
+    that each model, its parameters and the train split sit on the card."""
+
+    def __enter__(self):
+        from multimodalpfn_tpu_torch import MMPFNClassifier, MMPFNRegressor
+        from multimodalpfn_tpu_torch.train import finetune
+
+        self.estimators, self.trainers, self._undo = [], [], []
+
+        def wrap(owner, name, record):
+            orig = getattr(owner, name)
+
+            def wrapped(*args, **kwargs):
+                out = orig(*args, **kwargs)
+                record(args[0] if isinstance(owner, type) else out)
+                return out
+
+            setattr(owner, name, wrapped)
+            self._undo.append((owner, name, orig))
+
+        for cls in (MMPFNClassifier, MMPFNRegressor):
+            wrap(cls, "fit", self.estimators.append)
+        wrap(finetune, "make_episode_trainer", self.trainers.append)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        return False
+
+    def check(self, tag: str, device) -> str:
+        if device.type != "cuda":
+            return f"{len(self.estimators)} estimators, {len(self.trainers)} fine-tunes"
+        for est in self.estimators:
+            leaves = tensors_of(est.params_)
+            check(est.device_.type == "cuda" and leaves and all(t.is_cuda for t in leaves),
+                  f"{tag}: {type(est).__name__} holds parameters off the card")
+        for tr in self.trainers:
+            leaves = tensors_of(tr.state.params) + tensors_of(tr.data)
+            check(leaves and all(t.is_cuda for t in leaves), f"{tag}: a fine-tune holds tensors off the card")
+        return (f"{len(self.estimators)} estimators and {len(self.trainers)} fine-tunes, every parameter "
+                f"and train split on the card")
+
+
+def captured(fn) -> tuple[dict, str]:
+    """``fn()`` with its standard output captured: what it returned and what
+    it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def printed_json(printed: str):
+    """The JSON object a CLI printed on its last line."""
+    import json
+
+    return json.loads(printed.strip().splitlines()[-1])
+
+
+def check_entry_launches(tag: str, device, launches: dict, bodies: dict, finetune_steps: int = 0,
+                         cached: bool = False, n_layers: int = 12) -> None:
+    """The launch counters of one CLI or example run (zeroed just before):
+    K7, K8, K9 and K10 exactly ``n_layers`` times each fine-tune step (as
+    phase 9 reckons them), the forward kernels of the served mode, every
+    K1, K5, K6a, K6b, K2b and K3 launch and K7's per-row attention on the
+    wgmma body, and neither K7s nor K11 (only the flash fine-tune runs them)."""
+    print(f"  {tag} launches { {k: v for k, v in launches.items() if v} }; by body "
+          f"{ {k: v for k, v in bodies.items() if v} }", flush=True)
+    if device.type != "cuda":
+        return
+    for kid in ("K7", "K8", "K9", "K10"):
+        check(launches[kid] == n_layers * finetune_steps,
+              f"{tag}: {kid} launched {launches[kid]} times, expected {n_layers} x {finetune_steps}")
+    forward = ("K4", "K3") if cached else ("K2a", "K2b", "K3")
+    for kid in forward:
+        check(launches[kid] > 0, f"{tag}: {kid} was not launched")
+    feat = ("K5", "K6b") if cached else ("K1", "K6a")
+    check(sum(launches[k] for k in feat) > 0, f"{tag}: no feature-attention kernel ({', '.join(feat)}) launched")
+    check(launches["K7s"] == 0 and launches["K11"] == 0, f"{tag}: the flash fine-tune's kernels launched")
+    check_wgmma_bodies(tag, launches, bodies, ("K2b", "K3") + FEAT_IDS + ("K7",))
+
+
+def phase_entry_points(device, model_path: Path, reg_path: Path, data, image_emb, root: Path,
+                       steps: int, example_steps: int) -> dict:
+    """The user's own commands on the card: `scripts/run_published.py`
+    (configs 1-4, 1 seed, ``steps`` fine-tune steps), `scripts/run_experiment.py`
+    (pad_ufes_20, one grid cell mgm 16 × cap 8 from a YAML written here, 1
+    seed), `scripts/finetune_cli.py` (``steps`` steps on ``data`` saved as
+    ``.npy``) and the five examples' ``main``, each inside the port's
+    `PhaseTimer`, in ``root`` (a PAD-UFES-20-shaped directory whose image
+    cache holds ``image_emb``), with the launch counters zeroed just before
+    each and read just after. Gates: each CLI's printed JSON equals what it
+    returned and the file it wrote; every estimator and fine-tune on the
+    card (`DeviceWatch`); the launch counts (`check_entry_launches`);
+    ``run_published``'s config-1 accuracy and AUROC equal, bit for bit, a
+    direct ``TabPFNClassifier`` call with the same arguments; config 1 run
+    again inside `utils/profiling.trace` gives the same answer and its trace
+    names the wgmma kernels; the serving example's pipelined answers equal
+    its sequential ones."""
+    import importlib
+    import json
+    import os
+    import shutil
+
+    import numpy as np
+
+    from multimodalpfn_tpu_torch import TabPFNClassifier
+    from multimodalpfn_tpu_torch.datasets.loaders import PADUFES20Dataset
+    from multimodalpfn_tpu_torch.hpo.experiment import nanmin_impute
+    from multimodalpfn_tpu_torch.models.loading import load_model
+    from multimodalpfn_tpu_torch.ops import kernels
+    from multimodalpfn_tpu_torch.scripts import finetune_cli, run_experiment, run_published
+    from multimodalpfn_tpu_torch.train.metrics import get_scorer
+    from multimodalpfn_tpu_torch.utils import profiling
+
+    shutil.rmtree(root, ignore_errors=True)
+    write_pad_ufes_dir(root, image_emb)
+    X, img, y = data
+    for name, a in (("x", X), ("image", img), ("y", y)):
+        np.save(root / f"{name}.npy", a)
+    (root / "cell.yaml").write_text("# one grid cell\nmgm_heads_list: [16]\ncap_heads_list: [8]\n"
+                                    "features_per_group: 1\nmixer_type: \"MGM+CAP\"\n")
+    dev = str(device)
+    timer = profiling.PhaseTimer(device=device)
+    out: dict = {"launches": {}}
+
+    def measured(tag: str, fn):
+        kernels.reset_launches()
+        with DeviceWatch() as watch, timer.phase(tag):
+            result = fn()
+        launches, bodies = dict(kernels.LAUNCHES), dict(kernels.BODY_LAUNCHES)
+        print(f"  {tag}: {timer.totals[tag]:.2f} s; {watch.check(tag, device)}", flush=True)
+        return result, launches, bodies
+
+    cwd = os.getcwd()
+    os.chdir(root)  # every relative path of the CLIs (logs/, checkpoints/, results/) lands under root
+    try:
+        published = ["--data-root", "data", "--embeddings-root", "embeddings", "--ckpt", str(model_path),
+                     "--seeds", "1", "--steps", str(steps), "--device", dev]
+        pub_argv = published + ["--configs", "1,2,3,4", "--results", "results/published_run.json"]
+        (pub, printed), launches, bodies = measured("run_published", lambda: captured(
+            lambda: run_published.main(pub_argv)))
+        check(printed_json(printed) == pub
+              == json.loads((root / "results" / "published_run.json").read_text()),
+              "run_published: the printed JSON differs from the results file")
+        for r in pub["runs"]:
+            print(f"    {r['config']}: accuracy {r['accuracy_mean']:.4f}, AUROC {r['auroc_mean']:.4f}, "
+                  f"{r['wall_s']} s", flush=True)
+            check(0.0 <= r["accuracy_mean"] <= 1.0 and 0.0 <= r["auroc_mean"] <= 1.0,
+                  f"run_published {r['config']}: metrics out of range")
+        check([r["config"] for r in pub["runs"]] == ["1-tabular-only", "2-tabular+image", "3-tabular+text",
+                                                     "4-trimodal-8member"], "run_published: configs missing")
+        check_entry_launches("run_published", device, launches, bodies, finetune_steps=3 * steps)
+        out["launches"]["cli_published"] = launches
+
+        # config 1 by hand: the script's split, imputation and classifier
+        ds = PADUFES20Dataset("data/pad_ufes_20", embeddings_root="embeddings", device=dev)
+        Xp, yp = np.asarray(ds.x, dtype=float), np.asarray(ds.y)
+        perm = np.random.default_rng(0).permutation(len(yp))
+        tr, te = perm[: int(len(yp) * 0.8)], perm[int(len(yp) * 0.8):]
+        clf = TabPFNClassifier(model_path=str(model_path), ignore_pretraining_limits=True, n_estimators=4,
+                               categorical_features_indices=list(range(len(ds.cat_features))), random_state=0,
+                               device=dev)
+        proba = clf.fit(nanmin_impute(Xp[tr]), yp[tr]).predict_proba(nanmin_impute(Xp[te]))
+        acc = float(np.mean(clf.classes_[np.argmax(proba, axis=1)] == yp[te]))
+        auc = float(get_scorer("roc_auc")(yp[te], proba))
+        first = pub["runs"][0]
+        print(f"  direct TabPFNClassifier: accuracy {acc!r}, AUROC {auc!r}; run_published config 1: "
+              f"{first['accuracy_mean']!r}, {first['auroc_mean']!r}", flush=True)
+        check(acc == first["accuracy_mean"] and auc == first["auroc_mean"],
+              "run_published config 1 differs from the direct TabPFNClassifier call")
+
+        trace_dir = root / "trace"
+        with profiling.trace(str(trace_dir)):
+            traced, _ = captured(lambda: run_published.main(published + ["--configs", "1", "--results",
+                                                                           "results/traced.json"]))
+        events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+        names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        found = {k: sum(k in nm for nm in names) for k in WGMMA_TRACE_NAMES}
+        same = all(traced["runs"][0][k] == first[k] for k in ("accuracy_mean", "auroc_mean"))
+        print(f"  config 1 inside profiling.trace ({trace_dir.name}/trace.json): {len(events)} events, "
+              f"{len(names)} kernel names, the wgmma bodies' names {found}; the same answer: {same}", flush=True)
+        check(same, "the traced config 1 answers differently")
+        if device.type == "cuda":
+            check(all(found.values()), f"the trace does not name every wgmma kernel: {found}")
+
+        exp_argv = ["pad_ufes_20", "--data-root", "data", "--config", "cell.yaml", "--base-model", str(model_path),
+                    "--seeds", "1", "--results-dir", "results", "--device", dev]
+        (best, printed), launches, bodies = measured("run_experiment",
+                                                     lambda: captured(lambda: run_experiment.main(exp_argv)))
+        study = json.loads((root / "results" / "pad_ufes_20.json").read_text())
+        (trial,) = study["trials"]
+        print(f"    trial {trial['params']}: {trial['state']}, accuracy {trial['value']}", flush=True)
+        check(printed_json(printed) == best
+              == {"best_params": trial["params"], "best_value": trial["value"]},
+              "run_experiment: the printed JSON differs from the study file")
+        check(trial["state"] == "complete" and trial["user_attrs"]["n_completed_seeds"] == 1,
+              f"run_experiment: the cell is {trial['state']}")
+        check_entry_launches("run_experiment", device, launches, bodies, finetune_steps=REFERENCE_STEPS)
+        out["launches"]["cli_experiment"] = launches
+
+        ft_argv = ["--x", "x.npy", "--image", "image.npy", "--y", "y.npy", "--out", "checkpoints/finetune_cli.ckpt",
+                   "--base", str(model_path), "--mgm-heads", "16", "--cap-heads", "8", "--fpg", "1",
+                   "--steps", str(steps), "--device", dev]
+        (ft, printed), launches, bodies = measured("finetune_cli", lambda: captured(lambda: finetune_cli.main(ft_argv)))
+        snap = load_model(root / ft["out"], mixer_type="MGM+CAP", mgm_heads=16, cap_heads=8)
+        print(f"    {ft}; the checkpoint loads ({len(tensors_of(snap.params))} leaves)", flush=True)
+        check(printed_json(printed) == ft and ft["steps"] == steps
+              and np.isfinite(ft["best_val_error"]), f"finetune_cli printed {printed!r}")
+        check_entry_launches("finetune_cli", device, launches, bodies, finetune_steps=steps)
+        out["launches"]["cli_finetune"] = launches
+
+        total: dict = {}
+        for name in EXAMPLES:
+            mod = importlib.import_module(f"multimodalpfn_tpu_torch.examples.{name}")
+            path = reg_path if name.endswith("regression") else model_path
+            # phase 1's model has one feature per group
+            kw = {"max_steps": example_steps, "features_per_group": 1} if name.startswith("mmpfn") else {}
+            (res, _), launches, bodies = measured(name, lambda: captured(lambda: mod.main(str(path), dev, **kw)))
+            shown = {k: v for k, v in res.items() if k not in ("probas", "sequential")}
+            print(f"    {shown}", flush=True)
+            check(all(np.isfinite(v).all() for v in shown.values() if not isinstance(v, bool)),
+                  f"{name}: non-finite metrics {shown}")
+            if name.startswith("serving"):
+                check(res["pipelined_equals_sequential"], "serving example: pipelined differs from sequential")
+            check_entry_launches(name, device, launches, bodies,
+                                 finetune_steps=example_steps if name.startswith("mmpfn") else 0,
+                                 cached=name.startswith("serving"))
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        out["launches"]["examples"] = total
+    finally:
+        os.chdir(cwd)
+    out["report"] = timer.report()
+    print(f"  PhaseTimer report: {json.dumps(out['report'])}", flush=True)
+    print(f"  live_device_memory(): {profiling.live_device_memory()}", flush=True)
+    return out
+
+
 def make_classifier(device, model_path, **kw):
     """The served classifier: 4 members, the default preprocessing."""
     from multimodalpfn_tpu_torch import MMPFNClassifier
@@ -2658,7 +2987,8 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
         if kid == "K4":
             row["launches_flash_finetune"] = launches["flash_finetune"]["K4"]
         for path in ("regressor", "regressor_cached", "regressor_finetune", "sweep", "sweep_padded_mgm",
-                     "study_cross_cell", "study_sequential", "dinov2"):
+                     "study_cross_cell", "study_sequential", "dinov2", "cli_published", "cli_experiment",
+                     "cli_finetune", "examples"):
             row[f"launches_{path}"] = launches[path][kid]
         row.update({k: v for k, v in r.items() if k not in main.values()})
         rows.append(row)
@@ -2880,6 +3210,12 @@ def main() -> int:
           "padding and batch invariance", flush=True)
     enc = phase_encoder_gates(device, vit_cfg, vit_img, VIT_BATCH, e_cfg, *e_dims)
 
+    cli_steps, example_steps = (2, 2) if args.rehearse else (CLI_STEPS, REFERENCE_STEPS)
+    print(f"== phase 24: the entry points: run_published (configs 1-4, {cli_steps} steps), run_experiment "
+          f"(one cell), finetune_cli ({cli_steps} steps) and the five examples", flush=True)
+    entry = phase_entry_points(device, model_path, reg_path, ft_data, vit["emb"], ROOT / "build" / "cli",
+                               cli_steps, example_steps)
+
     if args.profile:
         print("== phase 14: profile of warm requests and of a warm training step of each item "
               "path, and of a warm regressor request", flush=True)
@@ -2897,7 +3233,7 @@ def main() -> int:
                               "sweep_padded_mgm": sw32["c"]["launches"],
                               "study_cross_cell": study["cross_cell"]["launches"],
                               "study_sequential": study["sequential"]["launches"],
-                              "dinov2": vit["launches"]}
+                              "dinov2": vit["launches"]} | entry["launches"]
                        | {f"{plan}{'_cached' if mode == 'fit_with_cache' else ''}": run["launches"]
                           for (mode, plan), run in forced.items()})
     print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
@@ -2921,7 +3257,8 @@ def main() -> int:
           f"+ {study['sequential']['wall_s']:.1f} s; DINOv2 {len(vit['batch_ms'])} batches in "
           f"{vit['embed_ms']:.1f} ms (warm batch {vit['warm_batch_ms']:.2f} ms), kernel vs plain CLS f32 "
           f"{enc['dinov2_rel_float32']:.2e} bf16 {enc['dinov2_rel_bfloat16']:.2e}; ELECTRA padding "
-          f"{enc['electra_pad_rel']:.2e}, batching {enc['electra_batch_rel']:.2e}; "
+          f"{enc['electra_pad_rel']:.2e}, batching {enc['electra_batch_rel']:.2e}; entry points (s) "
+          f"{ {k: v['total_s'] for k, v in entry['report'].items()} }; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.rehearse:
         print("rehearsal on the CPU passed; no result is reported without CUDA", file=sys.stderr)

@@ -316,9 +316,10 @@ def run_experiment(
     return study
 
 
-def load_experiment_config(path: str | Path) -> dict[str, Any]:
-    """The experiment's YAML config (needs PyYAML)."""
-    import yaml
+def load_experiment_config(path: str | Path) -> dict[str, Any] | None:
+    """The experiment's YAML config (the flat schema of ``configs/*.yaml``),
+    as ``yaml.safe_load`` returns it, read without PyYAML
+    (`utils/flat_yaml.py`); a file outside that schema raises ValueError."""
+    from multimodalpfn_tpu_torch.utils import flat_yaml
 
-    with open(path) as f:
-        return yaml.safe_load(f)
+    return flat_yaml.load(path)

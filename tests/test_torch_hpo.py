@@ -10,8 +10,9 @@ package's, on the CPU in float32.
   fine-tuning beats the un-fine-tuned base model (the JAX test's
   learning-quality gate).
 * `load_experiment_config` reads `configs/pad_ufes_20.yaml`; the module
-  imports and runs with neither scikit-learn nor PyYAML importable; the
-  experiments default to the card.
+  imports and runs with neither scikit-learn nor PyYAML importable, and
+  `load_experiment_config` then returns what ``yaml.safe_load`` returns;
+  the experiments default to the card.
 """
 
 import dataclasses
@@ -249,8 +250,11 @@ def test_experiments_default_to_the_card(base_ckpt, tmp_path):
 
 def test_experiment_runs_without_sklearn_or_yaml():
     """The module imports, sweeps two cells and evaluates them (categorical
-    columns included) with scikit-learn and PyYAML made unimportable;
-    `load_experiment_config` alone needs PyYAML."""
+    columns included) with scikit-learn and PyYAML made unimportable, and
+    `load_experiment_config` reads the experiment config without PyYAML to
+    what ``yaml.safe_load`` returns."""
+    import yaml
+
     code = """
     import sys, tempfile
     sys.modules["sklearn"] = None
@@ -272,12 +276,8 @@ def test_experiment_runs_without_sklearn_or_yaml():
         path_to_base_model=d + "/base.ckpt", n_seeds=1, checkpoint_dir=d,
         finetuning_config={"max_steps": 1}, device="cpu")
     assert [t.state for t in study.trials] == ["complete", "complete"], study.trials
-    try:
-        load_experiment_config("configs/pad_ufes_20.yaml")
-    except ImportError:
-        pass
-    else:
-        raise AssertionError("load_experiment_config ran without PyYAML")
+    import json
+    print(json.dumps(load_experiment_config("configs/pad_ufes_20.yaml")))
     assert sys.modules["sklearn"] is None and sys.modules["yaml"] is None
     assert not [m for m in sys.modules if m.startswith(("sklearn.", "jax", "multimodalpfn_tpu."))]
     print("ok")
@@ -285,3 +285,5 @@ def test_experiment_runs_without_sklearn_or_yaml():
     res = subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+    config = json.loads(res.stdout.strip().splitlines()[-2])
+    assert config == yaml.safe_load((REPO / "configs" / "pad_ufes_20.yaml").read_text())
