@@ -246,6 +246,35 @@ CUDA-core body).
    wgmma kernels; the serving example's pipelined answers equal its
    sequential ones. The ``PhaseTimer`` report and ``live_device_memory()``
    are printed.
+25. Multi-device (`parallel/`), in processes the script spawns
+   (`parallel/launch.run_ranks`), each rank failing the phase on its own
+   check. (a) ``initialize_distributed`` on NCCL, one rank a card (a ring
+   of one on a one-card machine), ``make_mesh``: ``ring_attention`` with
+   ``use_flash`` forward and backward at the flash fine-tune's train block
+   (q, k, v (30, 6, 1654, 32), G = 180) in float32 and bf16, held to K4 and
+   K11 on the whole K/V (5e-5 and 2**-6 of each output's largest), K4 and
+   K11 launched once a ring step, the ring's forward + backward timed
+   against the whole K/V's. (b) Four ranks sharing the card over gloo (NCCL
+   refuses two ranks on one device; gloo carries the CUDA tensors through
+   host memory, and every block is still computed on the card by K4 and
+   K11), as a (2, 2) mesh: a ring of two over ``dp``, two ``mp`` ranks.
+   The published 192×12 model in float32 with the kernels on and the fused
+   item sublayer off: ``forward`` on the flagship split (1838 train + 460
+   test rows, 30 tokens) with ``seq_shard_axis="dp"`` against the same
+   forward without a ring axis (1e-4 of the largest logit); one training
+   step at the fine-tune episode cut to 1654 + 184 rows against the
+   unsharded step (loss and every gradient leaf, 1e-4 relative), with K4
+   and K11 launched exactly 2 × 12 × 2 times and K1, K3, K7, K8 12 times;
+   phase 19's 4-run sweep for 3 steps over the 2 ``dp`` ranks equal, bit
+   for bit, to a single-process run of the same 3 steps (histories and a
+   digest of every final param); ``shard_estimator`` at ``mp`` = 2 serving
+   phase 3's three requests bit for bit; and one ``dp × mp`` step on two
+   episodes (one a ``dp`` rank, the params sharded over ``mp``) against the
+   single-process step on both (loss, gradient norm and every gradient
+   within 1e-4 relative, each gradient to its leaf's largest; the params
+   after the step within 1e-5 absolute: the ``dp`` mean adds in another
+   order). The ring step's time against the
+   unsharded step's is printed (host clock, rank 0).
 
 ``--profile`` adds a phase 14, run last: ``torch.profiler`` around one warm
 request of each size in both modes, around one warm training step of each
@@ -258,8 +287,8 @@ that took the most device time.
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
 non-zero and prints no result. ``--rehearse`` runs the phases at a tiny size
-on the CPU (plain versions only) to check the script itself; it also exits
-non-zero.
+on the CPU (plain versions only; phase 25 over gloo) to check the script
+itself; it also exits non-zero.
 """
 
 from __future__ import annotations
@@ -1802,16 +1831,17 @@ def phase_resume(device, model_path, data, out_path, steps, every) -> dict:
 
 
 def sweep(device, model_path, data, cells, steps, lr=1e-5, mixer_type="MGM+CAP", compute_dtype=None,
-          override=None) -> dict:
+          override=None, mesh=None) -> dict:
     """`train/finetune_batch.fine_tune_batched_cells` on the flagship data,
-    validation after every step."""
+    validation after every step (its runs over ``mesh``'s ``dp`` axis when
+    one is given)."""
     from multimodalpfn_tpu_torch.train.finetune_batch import fine_tune_batched_cells
 
     X, img, y = data
     return fine_tune_batched_cells(
         cells=cells, mixer_type=mixer_type, features_per_group=1, path_to_base_model=str(model_path),
         X=X, image=img, y=y, finetuning_config={"max_steps": steps, "learning_rate": lr},
-        device=str(device), compute_dtype=compute_dtype, cfg_override=override,
+        device=str(device), compute_dtype=compute_dtype, cfg_override=override, mesh=mesh,
     )
 
 
@@ -2964,6 +2994,361 @@ def phase_profile(device, model_path, data, request_sizes, top: int = 14) -> Non
             print_profile(f"{fit_mode} request of {n} rows", wall, device_kernel_rows(prof), top)
 
 
+# phase 25: the mesh and the ring (`parallel/`). 25a runs the ring over every
+# card on NCCL at the flash fine-tune's train block (G = 30 x 6 = 180, S =
+# 1654, d = 32); 25b runs four ranks that share the card over gloo as a
+# (2, 2) mesh: a ring of 2 over dp, tensor parallelism of 2 over mp
+RING_DIMS = (30, 6, 1654, 32)
+RING_ITERS = 10
+MESH_RANKS = 4
+# (train, test) rows: the flagship split for the forward; the fine-tune
+# episode cut to an even train-row count for the steps (its 1655 is odd and
+# the ring needs the train rows to divide over its 2 ranks)
+RING_FWD_ROWS, RING_STEP_ROWS = (1838, 460), (1654, 184)
+# the ring against the unsharded path in float32, relative to the largest
+# logit (the forward) or to each leaf's largest gradient (the step)
+RING_REL_BOUND = 1e-4
+# one dp x mp step against the single-process step on the whole batch: the dp
+# mean adds the two episodes' gradients in another order than the batched
+# backward, so the two agree to rounding, not bit for bit, as the ring step
+# does: loss, gradient norm and every gradient (relative to its leaf's
+# largest) within the ring's bound, the params after the step within
+# FT_PARAM_ABS_BOUND absolute (Adam divides a near-zero gradient by its own
+# size, so a param's update, at most the learning rate, is not relative to
+# the leaf)
+MESH_STEP_REL_BOUND = RING_REL_BOUND
+MESH_SWEEP_STEPS = 3
+
+
+def max_rel(got, want) -> float:
+    """Largest difference relative to ``want``'s largest magnitude."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def sweep_digest(out: dict) -> dict:
+    """A sweep's history and a digest of every final param: equal exactly
+    when the two sweeps are."""
+    from multimodalpfn_tpu_torch.models.params import flatten_params
+
+    h = out["history"]
+    return {"train_loss": h["train_loss"], "val_error": h["val_error"], "skipped": h["skipped_steps"],
+            "params": {k: digest(v) for k, v in flatten_params(out["params_stacked"]).items()}}
+
+
+def ring_kernel_rank(rank: int, world: int, dims, iters: int) -> dict:
+    """Phase 25a on one rank (a card a rank over NCCL; a rehearsal: the CPU
+    over gloo). `ring_attention` with ``use_flash``, forward and backward, on
+    q, k, v (b·t, h, S, d) in float32 and bf16, held to K4 and K11 on the
+    whole K/V (`F32_REL_BOUND`, `BF16_REL_BOUND` of each output's largest);
+    on the card K4 and K11 launch once a ring step; the ring's forward and
+    backward timed against the whole K/V's (CUDA events)."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodalpfn_tpu_torch.ops import kernels
+    from multimodalpfn_tpu_torch.ops.flash import flash_attention, flash_attention_bwd
+    from multimodalpfn_tpu_torch.parallel.mesh import make_mesh
+    from multimodalpfn_tpu_torch.parallel.ring_attention import ring_attention
+
+    on_card = dist.get_backend() == "nccl"
+    device = torch.device("cuda" if on_card else "cpu")
+    mesh = make_mesh()
+    B, h, S, d = dims
+    gen = torch.Generator().manual_seed(0)
+    out: dict = {"ranks": world}
+    for dtype, rel_bound in ((torch.float32, F32_REL_BOUND), (torch.bfloat16, BF16_REL_BOUND)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v, g = (torch.randn((B, h, S, d), generator=gen).to(device) for _ in range(4))
+        q, k, v = (t.to(dtype).requires_grad_(True) for t in (q, k, v))
+
+        def ring_step():
+            for t in (q, k, v):
+                t.grad = None
+            o = ring_attention(q, k, v, mesh=mesh, use_flash=True)
+            o.backward(g)
+            return o
+
+        kernels.reset_launches()
+        o = ring_step()
+        launches = {kid: kernels.LAUNCHES[kid] for kid in ("K4", "K11")}
+        got = [o.detach(), q.grad, k.grad, v.grad]
+        q3, k3, v3, g3 = (t.detach().reshape(B * h, S, d).contiguous() for t in (q, k, v, g))
+
+        @torch.no_grad()
+        def whole_step():
+            o_w, lse_w = flash_attention(q3, k3, v3)
+            return [o_w, *flash_attention_bwd(q3, k3, v3, o_w, lse_w, g3)]
+
+        errs = [max_rel(a.reshape(w.shape), w) for a, w in zip(got, whole_step())]
+        check(max(errs) <= rel_bound, f"25a {tag}: the ring differs from K4 and K11 on the whole K/V by "
+                                      f"{errs} (bound {rel_bound})")
+        if on_card:
+            check(launches == {"K4": world, "K11": world},
+                  f"25a {tag}: launches {launches}, expected one K4 and one K11 a ring step ({world})")
+        ring_step()  # `timed` warms with one call; the allocator settles after a few
+        whole_step()
+        out[tag] = {"errs": errs, "launches": launches, "ring_ms": timed(ring_step, device, iters),
+                    "whole_ms": timed(whole_step, device, iters)}
+    return out
+
+
+def ring_batch(X, img, y, rows, device, order=None) -> dict:
+    """One episode (b = 1): ``rows`` = (train, test) rows of ``order`` (the
+    data's own order by default), float32 on ``device``."""
+    import numpy as np
+    import torch
+
+    n_tr, n_te = rows
+    idx = np.arange(n_tr + n_te) if order is None else np.asarray(order)[: n_tr + n_te]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32)[idx][None], device=device)
+
+    x, im, yy = t(X), t(img), t(y)
+    return {"x_train": x[:, :n_tr], "x_test": x[:, n_tr:], "image_train": im[:, :n_tr],
+            "image_test": im[:, n_tr:], "y_train": yy[:, :n_tr], "y_test": yy[:, n_tr:]}
+
+
+def mesh_step_batch(X, img, y, rows, device) -> dict:
+    """Two episodes: the data's first rows and a seeded permutation of them."""
+    import numpy as np
+    import torch
+
+    n = sum(rows)
+    a = ring_batch(X, img, y, rows, device)
+    b = ring_batch(X, img, y, rows, device, order=np.random.default_rng(1).permutation(n))
+    return {k: torch.cat([a[k], b[k]]) for k in a}
+
+
+def mesh_model(model_path, device):
+    """The served model in float32 with the kernels on and the fused item
+    sublayer off (K4 serves the item attention, as under a ring axis)."""
+    import dataclasses
+
+    from multimodalpfn_tpu_torch.models.loading import load_npz
+
+    loaded = load_npz(model_path, device)
+    return loaded.params, dataclasses.replace(loaded.config, compute_dtype="float32", use_flash=True,
+                                              fused_ops=True, fused_item=False)
+
+
+def mesh_step(params, cfg, batch, mesh=None) -> tuple:
+    """One schedule-free step at lr 1e-5 (``mesh``: the params sharded over
+    its mp axis and the batch's episodes over dp); returns the state and the
+    step's metrics."""
+    from multimodalpfn_tpu_torch.parallel.mesh import shard_params
+    from multimodalpfn_tpu_torch.train.losses import get_loss_fn
+    from multimodalpfn_tpu_torch.train.step import init_train_state, make_optimizer, make_train_step
+
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    state = init_train_state(params, lambda p: make_optimizer(p, 1e-5))
+    return make_train_step(cfg, get_loss_fn("multiclass"), mesh)(state, batch, None)
+
+
+def mesh_step_reference(device, model_path, data, rows, path: Path) -> dict:
+    """The single-process step on `mesh_step_batch`'s two episodes; every
+    gradient and every param after the step are written to ``path`` for the
+    ranks to compare with."""
+    import torch
+
+    from multimodalpfn_tpu_torch.models.params import flatten_params
+
+    params, cfg = mesh_model(model_path, device)
+    state, m = mesh_step(params, cfg, mesh_step_batch(*data, rows, device))
+    flat = flatten_params(state.params)
+    ref = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "applied": m["applied"],
+           "grads": {k: p.grad.detach().cpu() for k, p in flat.items()},
+           "params": {k: p.detach().cpu() for k, p in flat.items()}}
+    torch.save(ref, path)
+    return {k: ref[k] for k in ("loss", "grad_norm", "applied")}
+
+
+def mesh_rank(rank: int, world: int, device: str, model_path: str, data, served, sizes, answers,
+              sweep_data, fwd_rows, step_rows, ref_path: str) -> dict:
+    """Phase 25b on one rank of the (2, 2) mesh (gloo; the card shared, or
+    the CPU in a rehearsal): the ring forward and training step against the
+    unsharded ones, the sweep over dp, the classifier served from mp shards
+    and one dp x mp step (module constants for the bounds)."""
+    import dataclasses
+
+    import torch
+
+    from multimodalpfn_tpu_torch.models.params import flatten_params
+    from multimodalpfn_tpu_torch.models.transformer import forward
+    from multimodalpfn_tpu_torch.ops import kernels
+    from multimodalpfn_tpu_torch.parallel.mesh import (
+        axis_size, full_grad, gather_tree, make_mesh, set_mesh, shard_axis, shard_estimator)
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    mesh = make_mesh(mp=2)
+    n = axis_size(mesh, "dp")
+    X, img, y = data
+    params, cfg = mesh_model(model_path, device)
+    ring_cfg = dataclasses.replace(cfg, seq_shard_axis="dp")
+    L = cfg.nlayers
+    out: dict = {"layers": L, "seconds": {}}
+    t_part = time.perf_counter()
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        out["seconds"][name] = round(now - t_part, 2)
+        t_part = now
+
+    # the forward on the flagship split, with and without the ring
+    b = ring_batch(X, img, y, fwd_rows, device)
+    x, im = torch.cat([b["x_train"], b["x_test"]], 1), torch.cat([b["image_train"], b["image_test"]], 1)
+    with set_mesh(mesh):
+        kernels.reset_launches()
+        got = forward(params, ring_cfg, x, b["y_train"], im, single_eval_pos=fwd_rows[0])
+        sync()
+        fwd_launches = dict(kernels.LAUNCHES)
+    want = forward(params, cfg, x, b["y_train"], im, single_eval_pos=fwd_rows[0])
+    out["fwd_rel"] = max_rel(got, want)
+    check(out["fwd_rel"] <= RING_REL_BOUND, f"25b: the ring forward differs by {out['fwd_rel']:.3e}")
+
+    # one training step at the cut episode, with and without the ring
+    batch = ring_batch(X, img, y, step_rows, device)
+    with set_mesh(mesh):
+        kernels.reset_launches()
+        s_ring, m_ring = mesh_step(params, ring_cfg, batch)
+        sync()
+        step_launches = dict(kernels.LAUNCHES)
+    s_plain, m_plain = mesh_step(params, cfg, batch)
+    out["loss_rel"] = abs(float(m_ring["loss"]) - float(m_plain["loss"])) / abs(float(m_plain["loss"]))
+    pairs = zip(flatten_params(s_ring.params).items(), flatten_params(s_plain.params).values())
+    out["grad_rel"] = max(max_rel(p.grad, q.grad) for (_, p), q in pairs)
+    check(out["loss_rel"] <= RING_REL_BOUND and out["grad_rel"] <= RING_REL_BOUND,
+          f"25b: the ring step's loss differs by {out['loss_rel']:.3e}, a gradient by {out['grad_rel']:.3e}")
+    if on_card:
+        expect = {"K4": 2 * L * n, "K11": 2 * L * n, "K1": L, "K3": L, "K7": L, "K8": L, "K2a": 0, "K9": 0}
+        for tag, launches, kids in (("forward", fwd_launches, ("K4", "K1", "K3", "K2a")),
+                                    ("step", step_launches, tuple(expect))):
+            for kid in kids:
+                check(launches[kid] == expect[kid],
+                      f"25b ring {tag}: {kid} launched {launches[kid]} times, expected {expect[kid]}")
+    times = {}  # one more step of each, the checked ones having warmed them
+    for tag, c in (("ring", ring_cfg), ("unsharded", cfg)):
+        with set_mesh(mesh):
+            sync()
+            t0 = time.perf_counter()
+            mesh_step(params, c, batch)
+            sync()
+        times[tag] = (time.perf_counter() - t0) * 1e3
+    out.update(fwd_launches=fwd_launches, step_launches=step_launches, step_ms=times)
+    part("ring")
+
+    # the sweep, its runs over dp
+    out["sweep"] = sweep_digest(sweep(device, model_path, sweep_data, SWEEP_CELLS, MESH_SWEEP_STEPS, mesh=mesh))
+    part("sweep")
+
+    # the classifier served from mp shards
+    X_tr, img_tr, y_tr, X_te, img_te = served
+    clf = make_classifier(device, model_path).fit(X_tr, img_tr, y_tr)
+    shard_estimator(clf, mesh)
+    check(any(shard_axis(v) is not None for v in flatten_params(clf.params_).values()),
+          "25b: shard_estimator sharded nothing")
+    with set_mesh(mesh):
+        got = [clf.predict_proba(X_te[:k], img_te[:k]) for k in sizes]
+    out["served_equal"] = all(a.shape == w.shape and bool((a == w).all()) for a, w in zip(got, answers))
+    check(out["served_equal"], "25b: the classifier served from mp shards differs from phase 3's answers")
+    part("served")
+
+    # one dp x mp step against the single-process step on the whole batch
+    state, m = mesh_step(params, cfg, mesh_step_batch(X, img, y, step_rows, device), mesh)
+    ref = torch.load(ref_path)
+    with set_mesh(mesh), torch.no_grad():
+        flat = flatten_params(state.params)
+        grads = {k: full_grad(p) for k, p in flat.items()}
+        after = flatten_params(gather_tree(state.params))
+    out["dpmp"] = {"loss_rel": abs(float(m["loss"]) - ref["loss"]) / abs(ref["loss"]),
+                   "grad_norm_rel": abs(float(m["grad_norm"]) - ref["grad_norm"]) / ref["grad_norm"],
+                   "grad_rel": max(max_rel(grads[k], ref["grads"][k]) for k in grads),
+                   "param_abs": max(float((after[k].detach().cpu() - ref["params"][k]).abs().max()) for k in after),
+                   "applied": m["applied"]}
+    d = out["dpmp"]
+    check(d["applied"] and max(d["loss_rel"], d["grad_norm_rel"], d["grad_rel"]) <= MESH_STEP_REL_BOUND
+          and d["param_abs"] <= FT_PARAM_ABS_BOUND, f"25b: the dp x mp step differs: {d}")
+    part("dp_mp_step")
+    return out
+
+
+def phase_mesh(device, model_path, data, served, sizes, answers, sweep_data, rehearse: bool) -> dict:
+    """Phase 25: 25a (`ring_kernel_rank`) on every card over NCCL, then 25b
+    (`mesh_rank`) on `MESH_RANKS` ranks that share the card over gloo, after
+    the single-process references (the sweep, the dp x mp step) here."""
+    import shutil
+
+    import torch
+
+    from multimodalpfn_tpu_torch.parallel.launch import run_ranks
+
+    work = ROOT / "build" / "phase25"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # on the CPU the references take the ranks' thread count: the same sums
+    # in the same order
+    threads, main_threads = (2 if rehearse else None), torch.get_num_threads()
+    if threads is not None:
+        torch.set_num_threads(threads)
+    try:
+        n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+        dims = (2, 3, 40, 8) if rehearse else RING_DIMS
+        a = run_ranks(ring_kernel_rank, n_cards, dims, 2 if rehearse else RING_ITERS, workdir=work / "a",
+                      device=device.type, threads=None, timeout=600)[0]
+        for tag in ("f32", "bf16"):
+            r = a[tag]
+            print(f"  25a {tag}: a ring of {a['ranks']} over {'NCCL' if device.type == 'cuda' else 'gloo'} at (G, S, d) = ({dims[0] * dims[1]}, "
+                  f"{dims[2]}, {dims[3]}): o, dq, dk, dv against K4 and K11 on the whole K/V "
+                  f"{[f'{e:.2e}' for e in r['errs']]}; launches {r['launches']} (one K4 and one K11 a ring "
+                  f"step); forward + backward {r['ring_ms']:.3f} ms against {r['whole_ms']:.3f} ms whole",
+                  flush=True)
+        fwd_rows, step_rows = ((120, 30), (100, 20)) if rehearse else (RING_FWD_ROWS, RING_STEP_ROWS)
+        want_sweep = sweep_digest(sweep(device, model_path, sweep_data, SWEEP_CELLS, MESH_SWEEP_STEPS))
+        ref = mesh_step_reference(device, model_path, data, step_rows, work / "ref_step.pt")
+        t0 = time.perf_counter()
+        outs = run_ranks(mesh_rank, MESH_RANKS, str(device), str(model_path), data, served, sizes, answers,
+                         sweep_data, fwd_rows, step_rows, str(work / "ref_step.pt"), workdir=work / "b",
+                         device="cpu", threads=threads, timeout=900)
+        wall = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(main_threads)
+        shutil.rmtree(work, ignore_errors=True)
+    for r, o in enumerate(outs):
+        check(o["sweep"] == want_sweep, f"25b rank {r}: the sweep over dp differs from the single-process sweep")
+    b = outs[0]
+    n_ring = MESH_RANKS // 2
+    print(f"  25b: {MESH_RANKS} ranks over gloo sharing the card, a (2, 2) mesh, in {wall:.1f} s: the ring "
+          f"forward ({fwd_rows[0]} + {fwd_rows[1]} rows) against the unsharded one {b['fwd_rel']:.2e}; the "
+          f"ring step ({step_rows[0]} + {step_rows[1]} rows) loss {b['loss_rel']:.2e}, gradients "
+          f"{b['grad_rel']:.2e} (bound {RING_REL_BOUND}); the sweep over dp ({len(SWEEP_CELLS) * 2} runs, "
+          f"{MESH_SWEEP_STEPS} steps) equal to the single-process sweep on every rank; the classifier "
+          f"served from mp shards equal to phase 3's answers; the dp x mp step against the single-process "
+          f"step (loss {ref['loss']:.6f}): {b['dpmp']}; seconds by part (rank 0) {b['seconds']}", flush=True)
+    print(f"  ring of {n_ring}: K4 and K11 launch once a ring step and block (2 blocks a layer, {b['layers']} "
+          f"layers): forward {b['fwd_launches']['K4']} K4; training step {b['step_launches']['K4']} K4, "
+          f"{b['step_launches']['K11']} K11; float32 step (host clock, rank 0) ring {b['step_ms']['ring']:.1f} "
+          f"ms against unsharded {b['step_ms']['unsharded']:.1f} ms", flush=True)
+    return {"a": a, "b": b}
+
+
 def kernel_rows(kres: dict, launches: dict) -> list[dict]:
     """The ``kernels`` line: per kernel its bf16 numbers at the first shape
     (``ms`` etc.), every other measurement under its own key."""
@@ -2986,6 +3371,12 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
             row["launches_flash_finetune"] = launches["flash_finetune"][kid]
         if kid == "K4":
             row["launches_flash_finetune"] = launches["flash_finetune"]["K4"]
+        if kid in ("K4", "K11"):
+            # phase 25: the ring's forward and training step (25b, rank 0),
+            # and its forward + backward on NCCL (25a, bf16)
+            row["launches_ring_forward"] = launches["ring_forward"][kid]
+            row["launches_ring_step"] = launches["ring_step"][kid]
+            row["launches_ring_nccl"] = launches["ring_nccl"][kid]
         for path in ("regressor", "regressor_cached", "regressor_finetune", "sweep", "sweep_padded_mgm",
                      "study_cross_cell", "study_sequential", "dinov2", "cli_published", "cli_experiment",
                      "cli_finetune", "examples"):
@@ -3216,6 +3607,10 @@ def main() -> int:
     entry = phase_entry_points(device, model_path, reg_path, ft_data, vit["emb"], ROOT / "build" / "cli",
                                cli_steps, example_steps)
 
+    print(f"== phase 25: the mesh and the ring (parallel/): 25a the ring over every card on NCCL, 25b "
+          f"{MESH_RANKS} ranks sharing the card over gloo", flush=True)
+    mesh = phase_mesh(device, model_path, ft_data, data, sizes, pre["answers"], sweep_data, args.rehearse)
+
     if args.profile:
         print("== phase 14: profile of warm requests and of a warm training step of each item "
               "path, and of a warm regressor request", flush=True)
@@ -3233,7 +3628,9 @@ def main() -> int:
                               "sweep_padded_mgm": sw32["c"]["launches"],
                               "study_cross_cell": study["cross_cell"]["launches"],
                               "study_sequential": study["sequential"]["launches"],
-                              "dinov2": vit["launches"]} | entry["launches"]
+                              "dinov2": vit["launches"], "ring_forward": mesh["b"]["fwd_launches"],
+                              "ring_step": mesh["b"]["step_launches"],
+                              "ring_nccl": mesh["a"]["bf16"]["launches"]} | entry["launches"]
                        | {f"{plan}{'_cached' if mode == 'fit_with_cache' else ''}": run["launches"]
                           for (mode, plan), run in forced.items()})
     print(f"  fit_preprocessors: fit {pre['fit_ms']:.1f} ms, requests ms {pre['times']}, "
@@ -3258,7 +3655,8 @@ def main() -> int:
           f"{vit['embed_ms']:.1f} ms (warm batch {vit['warm_batch_ms']:.2f} ms), kernel vs plain CLS f32 "
           f"{enc['dinov2_rel_float32']:.2e} bf16 {enc['dinov2_rel_bfloat16']:.2e}; ELECTRA padding "
           f"{enc['electra_pad_rel']:.2e}, batching {enc['electra_batch_rel']:.2e}; entry points (s) "
-          f"{ {k: v['total_s'] for k, v in entry['report'].items()} }; "
+          f"{ {k: v['total_s'] for k, v in entry['report'].items()} }; ring step (25b, float32) "
+          f"{mesh['b']['step_ms']['ring']:.1f} ms against {mesh['b']['step_ms']['unsharded']:.1f} ms unsharded; "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.rehearse:
         print("rehearsal on the CPU passed; no result is reported without CUDA", file=sys.stderr)

@@ -21,6 +21,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodalpfn_tpu_torch.hpo.study import GridStudy, Trial, TrialPruned
 
@@ -212,7 +213,10 @@ def run_experiment_cross_cell(
     (`train/finetune_batch.fine_tune_batched_cells`), chunked to at most
     ``max_runs_per_group`` runs of whole cells. Each run's checkpoint is
     saved at its cell's true shape and evaluated; every grid cell becomes a
-    trial (``"pruned"`` where mgm < cap). ``mesh`` must be None."""
+    trial (``"pruned"`` where mgm < cap). With a ``mesh`` each sweep places
+    its runs over the mesh's ``dp`` axis (`fine_tune_batched_cells`; ``dp``
+    must divide the runs of every chunk); every rank returns the whole study,
+    and only global rank 0 writes the checkpoints and the results."""
     from multimodalpfn_tpu_torch.models.loading import save_model
     from multimodalpfn_tpu_torch.train.finetune_batch import extract_run_params, fine_tune_batched_cells
 
@@ -232,6 +236,7 @@ def run_experiment_cross_cell(
         })
 
     cell_accs: dict[tuple[int, int], list[float]] = {}
+    writer = mesh is None or dist.get_rank() == 0
     ckpt_dir = Path(checkpoint_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     for cap, cells in groups.items():
@@ -249,7 +254,10 @@ def run_experiment_cross_cell(
                 m = chunk[ci]["mgm_heads"]
                 params_r, cfg_r = extract_run_params(out, r)
                 path = ckpt_dir / f"finetuned_mmpfn_{dataset_name}_m{m}c{cap}_seed{s}.ckpt"
-                save_model(path, params_r, cfg_r, criterion_borders=out.get("criterion_borders"))
+                if writer:
+                    save_model(path, params_r, cfg_r, criterion_borders=out.get("criterion_borders"))
+                if mesh is not None:
+                    dist.barrier()  # the file is whole before any rank reads it
                 tr, te = _outer_split(s, len(y))
                 cell_accs.setdefault((m, cap), []).append(_accuracy(
                     path, mixer_type=mixer_type, mgm_heads=m, cap_heads=cap, features_per_group=fpg,
@@ -268,7 +276,7 @@ def run_experiment_cross_cell(
         trial.state = "complete"
         trial.set_user_attr("std_accuracy", float(np.std(accs)) if accs else 0.0)
         trial.set_user_attr("n_completed_seeds", len(accs))
-    if results_path:
+    if results_path and writer:
         study.save(results_path)
     return study
 

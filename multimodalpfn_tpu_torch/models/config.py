@@ -66,8 +66,10 @@ class ModelConfig:
     # hand-written item-attention kernel (ops/item_fused.py); the estimator
     # turns this on when running on a CUDA device
     use_flash: bool = False
-    # sequence parallelism over the item-attention KV (not ported yet: any
-    # value other than None keeps the plain item-attention path). None = off.
+    # sequence parallelism: the mesh axis over which the item attention's
+    # train-row K/V are ring-sharded (parallel/ring_attention.py). Requires
+    # running under parallel.mesh.set_mesh(...) with this axis present and the
+    # train-row count divisible by the axis size. None = off.
     seq_shard_axis: str | None = None
     # hand-written row-local sublayer kernels (feature-attention+LN, MLP+LN,
     # ops/fused.py) and the item-major layer that runs them

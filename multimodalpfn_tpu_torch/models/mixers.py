@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodalpfn_tpu_torch.models.config import MixerConfig
+from multimodalpfn_tpu_torch.parallel.mesh import gather_tree
 
 
 def _layer_norm(x, g, b, eps=1e-5):
@@ -168,6 +169,7 @@ def apply_mixer(
     and MoE output tokens out of feature attention. ``cap_heads`` is never
     padded."""
     gen = generator if train else None
+    mixer_params = gather_tree(mixer_params)  # tensor-parallel MGM heads / MoE experts
     if mgm_active is not None:
         mgm_active = int(mgm_active)
     if cfg.mixer_type == "MoE":

@@ -41,6 +41,7 @@ from multimodalpfn_tpu_torch.ops.fused import (
 )
 from multimodalpfn_tpu_torch.ops.item_fused import fused_item_sublayer
 from multimodalpfn_tpu_torch.ops.kernels import needs_grad
+from multimodalpfn_tpu_torch.parallel.mesh import gather_leaf, shard_axis
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -79,7 +80,15 @@ def _mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, cd: torch.dtype) -
 
 
 def _layer(params: dict, l: int) -> dict:
-    return {k: {n: w[l] for n, w in v.items()} for k, v in params["layers"].items()}
+    """Layer l's leaves. A tensor-parallel shard (`parallel.mesh.shard_params`)
+    is all-gathered over the ambient mesh's ``mp`` axis here, so every kernel
+    runs on the whole layer as on one device."""
+    return {k: {n: _layer_leaf(w, l) for n, w in v.items()} for k, v in params["layers"].items()}
+
+
+def _layer_leaf(w: torch.Tensor, l: int) -> torch.Tensor:
+    axis = shard_axis(w)
+    return w[l] if axis is None else gather_leaf(w[l], axis - 1)
 
 
 def _item_sublayer(
@@ -91,7 +100,8 @@ def _item_sublayer(
     configuration, and otherwise (no multiquery test block, a ring axis, or
     ``fused_item`` off) the flash kernel K4 inside `item_attention` (K11 its
     backward) and `residual_ln`, as the JAX package does; with ``use_flash``
-    off, the plain path."""
+    off, the plain path. Under ``cfg.seq_shard_axis`` the attention core is
+    the ring over that mesh axis (on K4 and K11 with ``use_flash``)."""
     cd = DTYPES[cfg.compute_dtype]
     sep, S = single_eval_pos, state.shape[-2]
     multiquery = cfg.multiquery_item_attention_for_test_set
@@ -117,6 +127,7 @@ def _item_sublayer(
         multiquery_test=multiquery,
         compute_dtype=cd,
         use_flash=cfg.use_flash,
+        ring_axis=cfg.seq_shard_axis,
     )
     return residual_ln(state, h)
 

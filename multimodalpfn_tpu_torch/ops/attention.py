@@ -14,7 +14,9 @@ with the stacked ``w_qkv (3,h,d,in)`` / ``w_out (h,d,out)`` weight layout
 Matmuls take and emit the compute dtype (the JAX package's
 ``preferred_element_type=compute_dtype``); the softmax runs in float32. With
 ``use_flash`` the attention core is the flash kernel K4 (`ops/flash.py`), whose
-plain version serves CPU tensors; under autograd its backward is K11.
+plain version serves CPU tensors; under autograd its backward is K11. With a
+ring axis the item attention's K/V are sharded over a mesh axis
+(`parallel/ring_attention.py`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import math
 import torch
 
 from multimodalpfn_tpu_torch.ops.flash import flash_attention
+from multimodalpfn_tpu_torch.parallel.ring_attention import ring_attention
 
 
 def can_use_fused_item(
@@ -42,8 +45,8 @@ def can_use_fused_item(
     (resident K/V) and tiny-shape padding on the TPU. The CUDA kernel streams
     K/V tiles from device memory and masks its ragged tiles, so neither bound
     applies: it serves any split with at least one train row. The kernel
-    implements only the multiquery test block, and sequence parallelism is
-    not ported.
+    implements only the multiquery test block, and holds the whole K/V: under
+    a ring axis (sequence parallelism) the item attention runs `_ring_mha`.
     """
     del n_test  # no bound on the test rows: the kernel tiles them
     return fused_item and ring_axis is None and multiquery_test and sep >= 1
@@ -126,6 +129,43 @@ def _flash_mha(xq, xkv, wq, wk, wv, w_out, kv_head0_only: bool) -> torch.Tensor:
     return torch.einsum("...hqd,hdo->...qo", o, w_out)
 
 
+def _ring_mha(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    w_qkv: torch.Tensor,
+    w_out: torch.Tensor,
+    *,
+    ring_axis: str,
+    kv_head0_only: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
+    use_flash: bool = False,
+) -> torch.Tensor:
+    """Sequence-parallel `mha` (the JAX package's `_ring_mha`,
+    `ops/attention.py:212-283`): the K/V rows ring-sharded over
+    ``ring_axis`` of the ambient mesh, the queries replicated. The
+    projections are einsums on every rank; only the attention core runs in
+    the ring (`parallel/ring_attention.py`, K4 and K11 with ``use_flash``).
+    Multiquery (``kv_head0_only``) folds the query heads into extra query
+    rows, head-major, against KV head 0."""
+    cd = compute_dtype
+    h, d = w_qkv.shape[1], w_qkv.shape[2]
+    lead, Sq, Skv = x_q.shape[:-2], x_q.shape[-2], x_kv.shape[-2]
+    xq, xkv = x_q.to(cd), x_kv.to(cd)
+    wq, wk, wv = (w_qkv[i].to(cd) for i in range(3))
+    q = torch.einsum("...si,hdi->...hsd", xq, wq)
+    if kv_head0_only:
+        q = q.reshape(-1, 1, h * Sq, d)
+        k = torch.einsum("...si,di->...sd", xkv, wk[0]).reshape(-1, 1, Skv, d)
+        v = torch.einsum("...si,di->...sd", xkv, wv[0]).reshape(-1, 1, Skv, d)
+    else:
+        q = q.reshape(-1, h, Sq, d)
+        k = torch.einsum("...si,hdi->...hsd", xkv, wk).reshape(-1, h, Skv, d)
+        v = torch.einsum("...si,hdi->...hsd", xkv, wv).reshape(-1, h, Skv, d)
+    o = ring_attention(q, k, v, axis=ring_axis, sm_scale=1.0 / math.sqrt(d), use_flash=use_flash)
+    o = o.reshape(*lead, h, Sq, d).to(cd)
+    return torch.einsum("...hqd,hdo->...qo", o, w_out.to(cd))
+
+
 def item_attention(
     x: torch.Tensor,
     w_qkv: torch.Tensor,
@@ -135,6 +175,7 @@ def item_attention(
     multiquery_test: bool = True,
     compute_dtype: torch.dtype = torch.float32,
     use_flash: bool = False,
+    ring_axis: str | None = None,
 ) -> torch.Tensor:
     """Two-block attention over the items axis of ``x`` ``(..., S, E)``, whose
     first ``single_eval_pos`` rows are train rows (reference `layer.py:341-395`).
@@ -142,10 +183,22 @@ def item_attention(
 
     ``use_flash`` runs both blocks' attention cores on K4 at every ``sep``: the
     JAX package's ``sep >= 512`` floor (`ops/attention.py:344`) avoided TPU
-    tile padding, and K4 masks its ragged tiles."""
+    tile padding, and K4 masks its ragged tiles. ``ring_axis``: sequence
+    parallelism (``cfg.seq_shard_axis``) — both blocks attend to the train
+    rows' K/V ring-sharded over this axis of the ambient mesh (`_ring_mha`);
+    ``sep`` must divide by the axis size."""
     sep = single_eval_pos
     train = x[..., :sep, :]
     test = x[..., sep:, :]
+    if ring_axis is not None:
+        out_train = _ring_mha(train, train, w_qkv, w_out, ring_axis=ring_axis,
+                              compute_dtype=compute_dtype, use_flash=use_flash)
+        if test.shape[-2] == 0:
+            return out_train
+        out_test = _ring_mha(test, train, w_qkv, w_out, ring_axis=ring_axis,
+                             kv_head0_only=multiquery_test, compute_dtype=compute_dtype,
+                             use_flash=use_flash)
+        return torch.cat([out_train, out_test], dim=-2)
     out_train = mha(train, train, w_qkv, w_out, compute_dtype=compute_dtype, use_flash=use_flash)
     if test.shape[-2] == 0:
         return out_train

@@ -38,6 +38,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodalpfn_tpu_torch.estimator.base import initialize_model, resolve_device
 from multimodalpfn_tpu_torch.models.bar_distribution import FullSupportBarDistribution
@@ -53,6 +54,7 @@ from multimodalpfn_tpu_torch.models.params import (
     unflatten_params,
 )
 from multimodalpfn_tpu_torch.models.transformer import forward_train_test
+from multimodalpfn_tpu_torch.parallel.mesh import all_gather_cat, all_reduce_, axis_size
 from multimodalpfn_tpu_torch.train.data import EpisodeSampler
 from multimodalpfn_tpu_torch.train.finetune import _canon_task, first_layers
 from multimodalpfn_tpu_torch.train.losses import get_loss_fn
@@ -181,8 +183,13 @@ def fine_tune_batched_cells(
     feature attention and the MLP plain (`sweep_needs_token_mask`); on the CPU
     in float32 on the plain path. ``compute_dtype`` and ``cfg_override``
     (config fields, e.g. ``nlayers`` to keep the first layers) replace that
-    choice. ``mesh`` must be None: the sweep runs on one device (multi-device
-    is ROADMAP queue 1 item 7).
+    choice. ``mesh`` (`parallel.mesh.make_mesh`): the runs are placed over
+    its ``dp`` axis in contiguous blocks (the JAX package's ``P("dp")`` on
+    the run axis; ``dp`` must divide the run count), each rank trains its
+    block with the seeds, split, subspace noise and dropout generator the
+    run has in one process, and the history and final params are gathered,
+    so every rank returns what one process returns (``step_seconds``: the
+    slowest rank's).
 
     Returns ``history`` (``train_loss`` per step and run, ``val_error`` as
     (step, per-run errors), ``best_val_error`` per run, ``skipped_steps`` per
@@ -192,8 +199,6 @@ def fine_tune_batched_cells(
     ``config``, the ``splits``, the ``criterion_borders``, the
     ``run_cells`` ((cell index, seed) per run) and the ``run_mixer_cfgs``;
     `extract_run_params` recovers a run's checkpoint at its cell's shape."""
-    if mesh is not None:
-        raise NotImplementedError("the sweep runs on one device; multi-device is ROADMAP queue 1 item 7")
     st = time.time()
     device = resolve_device(device)
     on_card = device.type == "cuda"
@@ -264,6 +269,7 @@ def fine_tune_batched_cells(
         dataclasses.replace(cfg.mixer, mgm_heads=int(cells[ci]["mgm_heads"]), cap_heads=cap_heads)
         for ci, _ in run_cells
     ]
+    mine = _rank_runs(len(run_cells), mesh)  # the global indices of this rank's runs
     borders = None
     if task == "regression":
         borders = np.asarray(loaded.criterion_borders, np.float32)
@@ -271,8 +277,8 @@ def fine_tune_batched_cells(
     scorer = get_scorer(validation_metric)
 
     runs: list[_Run] = []
-    for (ci, s), (tr, va), mc, data in zip(run_cells, splits, run_mixer_cfgs,
-                                           _stack_val(X, image, y, splits, device)):
+    for r, data in zip(mine, _stack_val(X, image, y, [splits[r] for r in mine], device)):
+        (ci, s), (tr, va), mc = run_cells[r], splits[r], run_mixer_cfgs[r]
         params = dict(base)
         extras: dict[str, Any] = {}
         if mixer_on:
@@ -319,7 +325,7 @@ def fine_tune_batched_cells(
     step_seconds: list[float] = []
     sync()
     for step_i in range(1, int(hps["max_steps"]) + 1):
-        if time.time() - st > time_limit:
+        if _any_rank(time.time() - st > time_limit, mesh, device):
             logger.info("time limit reached at step %d", step_i)
             break
         t0 = time.time()
@@ -338,8 +344,9 @@ def fine_tune_batched_cells(
     bardist = FullSupportBarDistribution(borders) if task == "regression" else None
 
     def score(r: int, logits: torch.Tensor) -> float:
-        """Classification: softmax, cut to the classes of ``y``, renormalised;
-        regression: the bar distribution's mean (float32)."""
+        """Run ``r``'s (a global index) validation error from its logits."""
+        # classification: softmax, cut to the classes of ``y``, renormalised;
+        # regression: the bar distribution's mean (float32)
         va = splits[r][1]
         lo = logits.float().cpu()
         if bardist is not None:
@@ -354,11 +361,24 @@ def fine_tune_batched_cells(
 
     p_final = [eval_params(r.state) for r in runs]
     flat = [flatten_params(p) for p in p_final]
-    params_stacked = unflatten_params({k: torch.stack([f[k] for f in flat]) for k in flat[0]})
+    stacked = {k: torch.stack([f[k] for f in flat]) for k in flat[0]}
+    losses = torch.stack(loss_hist) if loss_hist else None  # (steps, local runs)
+    val_error = [(si, [score(r, lg) for r, lg in zip(mine, lgs)]) for si, lgs in val_hist]
+    skipped = [r.state.optimizer.total_notfinite for r in runs]
+    if mesh is not None and axis_size(mesh, "dp") > 1:
+        group = mesh.get_group("dp")
+        stacked = {k: all_gather_cat(v, group, 0) for k, v in stacked.items()}
+        losses = None if losses is None else all_gather_cat(losses, group, 1)
+        parts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(parts, (val_error, skipped, step_seconds), group=group)
+        val_error = [(si, [e for part in parts for e in part[0][i][1]]) for i, (si, _) in enumerate(val_error)]
+        skipped = [n for part in parts for n in part[1]]
+        step_seconds = [max(ts) for ts in zip(*(part[2] for part in parts))]
+    params_stacked = unflatten_params(stacked)
     history: dict[str, Any] = {
-        "train_loss": torch.stack(loss_hist).cpu().tolist() if loss_hist else [],
-        "val_error": [(si, [score(r, lg) for r, lg in enumerate(lgs)]) for si, lgs in val_hist],
-        "skipped_steps": [r.state.optimizer.total_notfinite for r in runs],
+        "train_loss": losses.cpu().tolist() if losses is not None else [],
+        "val_error": val_error,
+        "skipped_steps": skipped,
         "step_seconds": step_seconds,
     }
     history["best_val_error"] = np.min(np.asarray([e for _, e in history["val_error"]]), axis=0).tolist()
@@ -372,6 +392,26 @@ def fine_tune_batched_cells(
         "run_cells": run_cells,
         "run_mixer_cfgs": run_mixer_cfgs if mixer_on else None,
     }
+
+
+def _rank_runs(n_runs: int, mesh) -> list[int]:
+    """The runs this rank trains: all of them without a mesh, else its
+    ``dp`` rank's contiguous block."""
+    if mesh is None:
+        return list(range(n_runs))
+    n, r = axis_size(mesh, "dp"), mesh.get_local_rank("dp")
+    if n_runs % n:
+        raise ValueError(f"the sweep's {n_runs} runs do not divide over the {n} ranks of axis 'dp'")
+    m = n_runs // n
+    return list(range(r * m, (r + 1) * m))
+
+
+def _any_rank(flag: bool, mesh, device) -> bool:
+    """``flag`` on any ``dp`` rank (every rank stops at the same step)."""
+    if mesh is None or axis_size(mesh, "dp") == 1:
+        return flag
+    t = torch.tensor([float(flag)], device=device)
+    return bool(all_reduce_(t, mesh.get_group("dp"), dist.ReduceOp.MAX).item())
 
 
 def extract_run_params(result: dict[str, Any], r: int) -> tuple[dict, Any]:

@@ -16,14 +16,26 @@ same chain around ``optax.adamw`` (``optimizer="adamw"``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from multimodalpfn_tpu_torch.models.config import ModelConfig
 from multimodalpfn_tpu_torch.models.params import flatten_params, unflatten_params
+from multimodalpfn_tpu_torch.parallel.mesh import (
+    all_reduce_,
+    axis_size,
+    full_grad,
+    local_batch,
+    mark_shard,
+    set_mesh,
+    shard_axis,
+)
 
 
 @dataclasses.dataclass
@@ -75,7 +87,11 @@ class GuardedOptimizer(torch.optim.Optimizer):
     `MAX_GRAD_NORM`; a step whose gradients (frozen ones included) hold a NaN
     or an inf is skipped with no state change, up to
     `MAX_CONSECUTIVE_NONFINITE` in a row, then applied (optax
-    ``apply_if_finite``). Subclasses give the update (`_update`), the state
+    ``apply_if_finite``). A tensor-parallel shard (`parallel.mesh`) is
+    updated in place from its slice of the gradient, while the finiteness
+    check and the clip's norm read the whole gradient (gathered over the
+    ambient mesh's ``mp`` axis), so each rank's shard steps exactly as its
+    slice of the whole leaf would. Subclasses give the update (`_update`), the state
     of a leaf (`STATE`, tensors like the leaf) and their counters
     (`SCALARS`, written with the train state)."""
 
@@ -105,8 +121,8 @@ class GuardedOptimizer(torch.optim.Optimizer):
         zero). Returns whether it was applied."""
         if closure is not None:
             raise ValueError(f"{type(self).__name__}.step takes no closure")
-        grads = [p.grad for p in self._all() if p.grad is not None]
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()) if grads else True
+        full = {id(p): full_grad(p) for p in self._all() if p.grad is not None}
+        finite = bool(torch.stack([torch.isfinite(g).all() for g in full.values()]).all()) if full else True
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         if not finite:
             self.total_notfinite += 1
@@ -116,7 +132,7 @@ class GuardedOptimizer(torch.optim.Optimizer):
         if not params:
             return True
         grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p) for p in params]
-        gnorm = global_norm(grads)
+        gnorm = global_norm(full[id(p)].float() if id(p) in full else torch.zeros_like(p) for p in params)
         if not bool(gnorm < MAX_GRAD_NORM):  # optax: (g / ‖g‖) · max_norm
             grads = torch._foreach_mul(torch._foreach_div(grads, gnorm), MAX_GRAD_NORM)
         self.count += 1
@@ -268,13 +284,15 @@ def eval_params(state: TrainState) -> dict:
 
 
 def init_train_state(params: dict, optimizer_fn: Callable[[dict], GuardedOptimizer]) -> TrainState:
-    """Leaves as float32 tensors that require grad, and their optimizer."""
-    flat = {k: v.detach().float().clone().requires_grad_(True) for k, v in flatten_params(params).items()}
+    """Leaves as float32 tensors that require grad, and their optimizer; a
+    tensor-parallel shard stays marked as one."""
+    flat = {k: mark_shard(v.detach().float().clone().requires_grad_(True), shard_axis(v))
+            for k, v in flatten_params(params).items()}
     params = unflatten_params(flat)
     return TrainState(params=params, optimizer=optimizer_fn(params), step=0)
 
 
-def make_train_step(cfg: ModelConfig, loss_fn: Callable):
+def make_train_step(cfg: ModelConfig, loss_fn: Callable, mesh: DeviceMesh | None = None):
     """The step: ``batch`` holds ``x_train (b, s_tr, F) | None``, ``y_train
     (b, s_tr)``, ``x_test | None``, ``y_test (b, s_te)``, optional
     ``image_train/image_test (b, s, N, D)`` and ``feat_pos_noise``, as
@@ -282,28 +300,68 @@ def make_train_step(cfg: ModelConfig, loss_fn: Callable):
     heads of a padded mixer). ``generator`` draws the mixers' dropout.
     Returns the state and ``{"loss", "grad_norm", "applied"}``: the loss and
     the global norm of ALL gradients (frozen ones included, `step.py:186` of
-    the JAX package) as 0-d tensors, and whether the update was applied."""
+    the JAX package) as 0-d tensors, and whether the update was applied.
+
+    With a ``mesh`` (`parallel.mesh.make_mesh`) the step runs under it: each
+    ``dp`` rank takes its contiguous block of the batch's episodes
+    (`parallel.mesh.local_batch`), and the gradients and the loss are
+    averaged over ``dp`` before the norm and the optimizer, which gives the
+    global-mean loss of the JAX step under GSPMD (every rank passes the same
+    whole batch; a mixer's dropout draws from each rank's own generator).
+    The state's params may be tensor-parallel shards over ``mp``
+    (`parallel.mesh.shard_params` before `init_train_state`): each rank then
+    steps its shards. ``cfg.seq_shard_axis`` rings over an axis of the
+    ambient mesh; with a ``mesh`` it must not be ``dp``, which carries the
+    episodes."""
     from multimodalpfn_tpu_torch.models.transformer import forward_train_test
+
+    dp_group = None
+    if mesh is not None:
+        if cfg.seq_shard_axis == "dp":
+            raise ValueError("make_train_step: seq_shard_axis='dp' would ring over the axis that "
+                             "splits the episodes; ring over another axis of the mesh")
+        if axis_size(mesh, "dp") > 1:
+            dp_group = mesh.get_group("dp")
 
     def step_fn(state: TrainState, batch: dict, generator: torch.Generator | None):
         leaves = list(flatten_params(state.params).values())
         for p in leaves:
             p.grad = None
-        logits = forward_train_test(
-            state.params, cfg, batch.get("x_train"), batch["y_train"], batch.get("x_test"),
-            batch.get("image_train"), batch.get("image_test"),
-            train=True, generator=generator, feat_pos_noise=batch.get("feat_pos_noise"),
-            mgm_active=batch.get("mgm_active"),
-        )
-        loss = loss_fn(logits, batch["y_test"])
-        loss.backward()
-        with torch.no_grad():
-            grad_norm = global_norm(p.grad for p in leaves if p.grad is not None)
-        applied = state.optimizer.step()
+        with set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            if mesh is not None:
+                batch = local_batch(batch, mesh)
+            logits = forward_train_test(
+                state.params, cfg, batch.get("x_train"), batch["y_train"], batch.get("x_test"),
+                batch.get("image_train"), batch.get("image_test"),
+                train=True, generator=generator, feat_pos_noise=batch.get("feat_pos_noise"),
+                mgm_active=batch.get("mgm_active"),
+            )
+            loss = loss_fn(logits, batch["y_test"])
+            loss.backward()
+            loss = loss.detach()
+            if dp_group is not None:
+                loss = _dp_mean(leaves, loss, dp_group)
+            with torch.no_grad():
+                grad_norm = global_norm(full_grad(p) for p in leaves if p.grad is not None)
+            applied = state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm, "applied": applied}
+        return state, {"loss": loss, "grad_norm": grad_norm, "applied": applied}
 
     return step_fn
+
+
+@torch.no_grad()
+def _dp_mean(leaves: list[torch.Tensor], loss: torch.Tensor, group) -> torch.Tensor:
+    """Average the leaves' gradients and the loss over ``group`` in one
+    all-reduce of a flat float32 buffer; returns the mean loss."""
+    grads = [p.grad for p in leaves if p.grad is not None]
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
+    all_reduce_(flat, group).div_(dist.get_world_size(group))
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return flat[off].to(loss.dtype)
 
 
 # --- full-state checkpointing (params + optimizer state + step) --------------

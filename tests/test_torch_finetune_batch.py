@@ -323,12 +323,26 @@ def test_sweep_learns(tmp_path):
     assert out["params_stacked"]["mixer"]["mgm"]["w1"].shape[0] == 2
 
 
+class _TwoRankDpMesh:
+    """A mesh whose ``dp`` axis has two ranks, seen from its rank 0."""
+
+    mesh_dim_names = ("dp", "mp")
+
+    def size(self, dim: int) -> int:
+        return (2, 1)[dim]
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
+
+
 def test_sweep_refuses_mesh_and_split_caps_and_defaults_to_the_card(tiny_ckpt):
     X, img, y = _sweep_data()
     kw = dict(mixer_type="MGM+CAP", features_per_group=1, path_to_base_model=tiny_ckpt, X=X, image=img, y=y)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tfb.fine_tune_batched_cells(cells=[{"mgm_heads": 2, "cap_heads": 2, "seeds": [0]}], mesh=object(),
-                                    device="cpu", **kw)
+    # a mesh is accepted (tests/test_torch_multidevice.py); one whose dp
+    # axis does not divide the runs is refused
+    with pytest.raises(ValueError, match="1 runs do not divide over the 2 ranks of axis 'dp'"):
+        tfb.fine_tune_batched_cells(cells=[{"mgm_heads": 2, "cap_heads": 2, "seeds": [0]}],
+                                    mesh=_TwoRankDpMesh(), device="cpu", **kw)
     with pytest.raises(ValueError, match="cap_heads must be shared"):
         tfb.fine_tune_batched_cells(cells=[{"mgm_heads": 2, "cap_heads": 2, "seeds": [0]},
                                            {"mgm_heads": 4, "cap_heads": 4, "seeds": [0]}],
