@@ -15,13 +15,15 @@ Phases, each of which must pass:
    d = 16, 32, 64; ``cuobjdump``), each of which must issue wgmma, and of
    the 20 instantiations of the bf16 product tile of K7-K10 and of K2a's
    projection (``gemm_tile.cuh``: five epilogues by four storage orders),
-   of K3's wgmma body (``mlp_ln.cu``, e = 64, 128, 192), of the wgmma body
+   of K3's wgmma body (``mlp_ln.cu``, e = 64, 128, 192), of K8's row pass
+   (``mlp_ln_bwd.cu``, e = 64, 128, 192), of the wgmma body
    of K1, K5, K6a and K6b (``feat_attn.cu``, e = 64 and 192), of K2b's
    (``item_epilogue.cu``, e = 64, 128, 192) and of the per-row attention
    of K7 and K7s (``feat_attn_bwd.cu``, ``row_wg``: forward and softmax
    backward, both layouts, d = 16, 32, 64), each of which must issue wgmma
    with no local-memory load or store; the ``-Xptxas -v`` report must hold
-   no serialization warning (C75xx) for the last three (those of the
+   no serialization warning (C75xx) for K8's row pass and the last three
+   (those of the
    projection's instantiation are printed); write the model every phase
    serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
@@ -94,7 +96,8 @@ Phases, each of which must pass:
    versions at the fine-tune shapes (one episode of the flagship: x (1, 30,
    1838, 192), 1655 train + 183 test rows, nhid 768), in float32 (5e-5) and
    bf16 (2**-6), each output relative to its own largest magnitude; each run
-   twice on the same inputs must give the same bits. Times, bounds, and for
+   twice on the same inputs must give the same bits. K8's row pass (bf16)
+   also at e = 64 and 128 and on 100 rows, fewer than one of its tiles. Times, bounds, and for
    K9 the backward of ``scaled_dot_product_attention`` over both regions.
    For bf16 K7, K7s and K8, each launch of the sequence by profiler name,
    each product beside ``torch.matmul`` on operands of its shapes, and each
@@ -106,8 +109,9 @@ Phases, each of which must pass:
 9. ``fine_tune_mmpfn`` served: 100 bf16 steps on the PAD-UFES-shaped set (the
    full 12 layers, validation after every step); the counters, zeroed just
    before, show K7, K8, K9 and K10 launched 12 times per step, every K1
-   and K2b launch (training and validation) on its wgmma body and the
-   per-row attention of every K7 launch on its wgmma body; every loss and
+   and K2b launch (training and validation) on its wgmma body, the
+   per-row attention of every K7 launch on its wgmma body and every K8
+   launch on its row pass; every loss and
    gradient norm finite, no step skipped, no snapshot write failed; the
    snapshot on disk differs from the base model exactly when validation
    improved, and ``MMPFNClassifier`` serves it (rows sum to 1).
@@ -442,6 +446,10 @@ PATH_OF = {"K1": "split", "K2a": "preproc", "K2b": "preproc", "K3": "preproc",
 # split, 1655 train + 183 test rows of 21 + 8 + 1 = 30 tokens, one per step:
 # (b, t, S, sep, e, h, d, nhid) of the backward kernels
 FT_DIMS = (1, 30, 1838, 1655, 192, 6, 32, 768)
+# phase 8's further cases of K8's row pass: {id suffix: (x's leading shape,
+# e)}, nhid = 4·e; 6030 rows (ragged against 128, three weight-gradient
+# slabs) at e = 64 and 128, and 100 rows, fewer than one 128-row tile
+K8_CASES = {"e64": ((1, 30, 201), 64), "e128": ((1, 30, 201), 128), "rows100": ((1, 1, 100), 192)}
 FT_STEPS = 100
 # float32 kernel path against plain path over three training steps: loss and
 # gradient norm relative, params after the steps absolute, and the first
@@ -552,13 +560,14 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict, dict]:
     (`csrc/attn_tile.cuh`) and the dq and dk/dv passes of K9 and K11
     (`csrc/attn_bwd.cuh`), each at d = 16, 32, 64 (18 kernels); and of the
     product tile of `csrc/gemm_tile.cuh` by epilogue and transposes, of
-    K3's wgmma body (`csrc/mlp_ln.cu`) by width, of the wgmma body of K1,
+    K3's wgmma body (`csrc/mlp_ln.cu`) and K8's row pass
+    (`csrc/mlp_ln_bwd.cu`) by width, of the wgmma body of K1,
     K5, K6a and K6b (`csrc/feat_attn.cu`) by width, layout and mask, of
     K2b's wgmma body (`csrc/item_epilogue.cu`) by width and of the per-row
     attention of K7 and K7s (`csrc/feat_attn_bwd.cu`, `row_wg`) by pass,
     layout and d, each with its local-memory loads and stores (spills)
     beside. Returns (attention counts, {product kernel: (HGMMA, LDL +
-    STL)}, {K3 kernel: (HGMMA, LDL + STL)}, {feature-attention kernel:
+    STL)}, {K3 or K8 kernel: (HGMMA, LDL + STL)}, {feature-attention kernel:
     (HGMMA, LDL + STL)}, {K2b kernel: (HGMMA, LDL + STL)}, {row-attention
     kernel: (HGMMA, LDL + STL)})."""
     import os
@@ -576,6 +585,9 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict, dict]:
             fn = gfn = None
             if "mlp_ln_wg_kernel" in name:
                 gfn = f"K3 e={re.search(r'mlp_ln_wg_kernelILi(\d+)E', name).group(1)}"
+                k3.setdefault(gfn, [0, 0])
+            elif "mlp_ln_bwd_wg_kernel" in name:
+                gfn = f"K8 e={re.search(r'mlp_ln_bwd_wg_kernelILi(\d+)E', name).group(1)}"
                 k3.setdefault(gfn, [0, 0])
             elif "epilogue_ln_wg_kernel" in name:
                 gfn = f"K2b e={re.search(r'epilogue_ln_wg_kernelILi(\d+)E', name).group(1)}"
@@ -606,7 +618,7 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict, dict]:
         elif fn and "HGMMA" in line:
             counts[fn] += 1
         elif gfn and ("HGMMA" in line or re.search(r"\b(LDL|STL)\b", line)):
-            table = (k3 if gfn.startswith("K3") else k2b if gfn.startswith("K2b")
+            table = (k3 if gfn.startswith(("K3", "K8")) else k2b if gfn.startswith("K2b")
                      else rows if gfn.startswith("K7") else gemm if gfn in gemm else feat)
             table[gfn][0 if "HGMMA" in line else 1] += 1
     check(proc.wait(timeout=300) == 0, "cuobjdump failed")
@@ -670,14 +682,18 @@ K2A_PARTS = {"proj": ("proj_nt", "gemm::"), "attn": "attn"}
 
 
 def bwd_products(dims) -> dict:
-    """The launch sequences of K8 (`csrc/mlp_ln_bwd.cu`) and K7
-    (`csrc/feat_attn_bwd.cu`; K7s launches the same) at ``dims`` (FT_DIMS'
-    layout): per kernel its ``buffers`` {name: (shape, dtype)}, dtype "cd"
-    (the compute dtype) or "f32", the allocations of `ops/fused.py` plus the
-    weights and the weight gradients' slabs (views of ``work``); and its
-    ``launches`` in order, each {name, reads, writes} and, for a product of
-    `gemm_tile.cuh` (C = op(A)·op(B)), its M, N, K, a_t, b_t and operand
-    buffers a, b."""
+    """The launch sequences of K8 (`csrc/mlp_ln_bwd.cu`: "K8" its row pass,
+    the bf16 body at e = 64, 128, 192; "K8 sequence" the body of float32
+    and of bf16 at other widths) and K7 (`csrc/feat_attn_bwd.cu`; K7s
+    launches the same) at ``dims`` (FT_DIMS' layout): per body its
+    ``buffers`` {name: (shape, dtype)}, dtype "cd" (the compute dtype) or
+    "f32", the allocations of `ops/fused.py` plus the weights and the weight
+    gradients' slabs (views of ``work``); and its ``launches`` in order, each
+    {name, reads, writes} and, for a product of `gemm_tile.cuh` (C =
+    op(A)·op(B)), its M, N, K, a_t, b_t and operand buffers a, b. The row
+    pass names the products it computes on chip (``products``, each {name,
+    M, N, K}) and those of them that recompute the forward
+    (``recomputed``)."""
     b, t, S, _, e, h, d, nhid = dims
     R, hd = b * t * S, h * d
     slabs = max(1, -(-R // 2048))
@@ -689,15 +705,37 @@ def bwd_products(dims) -> dict:
     def rows(name, reads, writes):
         return dict(name=name, reads=reads, writes=writes)
 
+    k8_common = {
+        "x": ((R, e), "cd"), "g": ((R, e), "cd"), "w1": ((e, nhid), "cd"),
+        "w2": ((nhid, e), "cd"), "gz": ((R, nhid), "cd"), "du_c": ((R, e), "cd"),
+        "dz": ((R, nhid), "cd"), "dx": ((R, e), "cd"), "dw1": ((e, nhid), "f32"),
+        "dw2": ((nhid, e), "f32"), "work": ((slabs, e, nhid), "f32"),
+        "slabs_dw1": ((slabs, e, nhid), "f32"), "slabs_dw2": ((slabs, nhid, e), "f32"),
+    }
+    k8_wgrads = [
+        prod("dW1=xt.dz", "x", "dz", e, nhid, R, ["x", "dz"], ["slabs_dw1"], a_t=True),
+        rows("sum_slabs dW1", ["slabs_dw1"], ["dw1"]),
+        prod("dW2=gzt.du", "gz", "du_c", nhid, e, R, ["gz", "du_c"], ["slabs_dw2"], a_t=True),
+        rows("sum_slabs dW2", ["slabs_dw2"], ["dw2"]),
+    ]
+
+    def on_chip(name, M, N, K):
+        return dict(name=name, M=M, N=N, K=K)
+
     k8 = {
-        "buffers": {
-            "x": ((R, e), "cd"), "g": ((R, e), "cd"), "w1": ((e, nhid), "cd"),
-            "w2": ((nhid, e), "cd"), "gz": ((R, nhid), "cd"), "gzg": ((R, nhid), "f32"),
-            "u": ((R, e), "f32"), "du": ((R, e), "f32"), "du_c": ((R, e), "cd"),
-            "dz": ((R, nhid), "cd"), "dx": ((R, e), "cd"), "dw1": ((e, nhid), "f32"),
-            "dw2": ((nhid, e), "f32"), "work": ((slabs, e, nhid), "f32"),
-            "slabs_dw1": ((slabs, e, nhid), "f32"), "slabs_dw2": ((slabs, nhid, e), "f32"),
-        },
+        "buffers": k8_common,
+        "launches": [
+            dict(name="row pass", reads=["x", "g", "w1", "w2"], writes=["gz", "du_c", "dz", "dx"],
+                 products=[on_chip("z=x.W1", R, nhid, e), on_chip("u=x+gz.W2", R, e, nhid),
+                           on_chip("z=x.W1 again", R, nhid, e), on_chip("dh=du.W2t", R, nhid, e),
+                           on_chip("dx=du+dz.W1t", R, e, nhid)],
+                 recomputed=["z=x.W1 again"]),
+            *k8_wgrads,
+        ],
+    }
+    k8_sequence = {
+        "buffers": k8_common | {"gzg": ((R, nhid), "f32"), "u": ((R, e), "f32"),
+                                "du": ((R, e), "f32")},
         "launches": [
             prod("z=x.W1", "x", "w1", R, nhid, e, ["x", "w1"], ["gz", "gzg"]),
             prod("u=x+gz.W2", "gz", "w2", R, e, nhid, ["gz", "w2", "x"], ["u"]),
@@ -705,10 +743,7 @@ def bwd_products(dims) -> dict:
             prod("dz=du.W2t*gelu'", "du_c", "w2", R, nhid, e, ["du_c", "w2", "gzg"], ["dz"],
                  b_t=True),
             prod("dx=du+dz.W1t", "dz", "w1", R, e, nhid, ["dz", "w1", "du"], ["dx"], b_t=True),
-            prod("dW1=xt.dz", "x", "dz", e, nhid, R, ["x", "dz"], ["slabs_dw1"], a_t=True),
-            rows("sum_slabs dW1", ["slabs_dw1"], ["dw1"]),
-            prod("dW2=gzt.du", "gz", "du_c", nhid, e, R, ["gz", "du_c"], ["slabs_dw2"], a_t=True),
-            rows("sum_slabs dW2", ["slabs_dw2"], ["dw2"]),
+            *k8_wgrads,
         ],
     }
     k7 = {
@@ -736,7 +771,7 @@ def bwd_products(dims) -> dict:
             rows("sum_slabs dWout", ["slabs_dwout"], ["dwout"]),
         ],
     }
-    return {"K8": k8, "K7": k7}
+    return {"K8": k8, "K8 sequence": k8_sequence, "K7": k7}
 
 
 def launch_bytes(seq: dict, launch: dict, es: int) -> int:
@@ -760,7 +795,7 @@ def bwd_flops(dims) -> dict:
 
 # the kernels of K7's and K8's launch sequences, by profiler name
 SEQ_KERNELS = ("gemm::", "ln_bwd_kernel", "attn_o_kernel", "attn_bwd_kernel", "row_wg::attn_wg_kernel",
-               "sum_slabs_kernel")
+               "sum_slabs_kernel", "mlp_ln_bwd_wg_kernel")
 
 
 def sequence_ms(fn, device, iters: int, names: list) -> dict | None:
@@ -1119,11 +1154,17 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
     inputs, and the two results must be the same bits (the weight gradients
     are summed in a fixed order, and no kernel uses atomics). K11 runs at the
     flash path's three blocks: the train block (every head), the test block
-    unfolded (no multiquery) and folded (the heads against KV head 0). For
-    K7 and K8 in bf16 it also times each launch of their sequence by
-    profiler name (`sequence_ms`), each product beside ``torch.matmul`` on
-    operands of its shapes, and the sequence's bytes over the HBM rate
-    (`bwd_products`). ``only`` restricts the kernels run."""
+    unfolded (no multiquery) and folded (the heads against KV head 0). K8
+    also runs its bf16 row pass at e = 64 and 128 and on 100 rows, fewer than
+    one 128-row tile (`K8_CASES`: ids ``K8@e64``, ``K8@e128``,
+    ``K8@rows100``). For K7 and K8 in bf16 it also times each launch of
+    their sequence by profiler name (`sequence_ms`), each product beside
+    ``torch.matmul`` on operands of its shapes, and the sequence's bytes over
+    the HBM rate (`bwd_products`: K8's row pass where the package picks it,
+    its sequence otherwise). ``only`` restricts the kernels run (an id and
+    the ids ``id@...``)."""
+    import math
+
     import torch
     import torch.nn.functional as F
 
@@ -1248,12 +1289,29 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
     for kid, (G_, Sq) in blocks.items():
         cases[kid] = (flash.flash_attention_bwd, flash.flash_attention_bwd_plain,
                       lambda dt, G_=G_, Sq=Sq: flash_inputs(G_, Sq, dt), flash_work(G_, Sq))
+    # K8 at the other widths of its row pass (nhid = 4·e, as published) and
+    # on fewer rows than one of its 128-row tiles; inputs from a generator
+    # of their own, so that the other cases' inputs stay as they were
+    gen8 = torch.Generator().manual_seed(8)
+    for sub, (lead, e8) in K8_CASES.items():
+        n8, r8 = 4 * e8, math.prod(lead)
+        x8, g8 = (torch.randn((*lead, e8), generator=gen8).to(device) for _ in range(2))
+        w18 = (torch.randn((e8, n8), generator=gen8) * e8**-0.5).to(device)
+        w28 = (torch.randn((n8, e8), generator=gen8) * n8**-0.5).to(device)
+        cases[f"K8@{sub}"] = (
+            fused.mlp_ln_bwd, fused.mlp_ln_bwd_plain,
+            lambda dt, a=(x8, w18, w28, g8): (a[0].to(dt), a[1], a[2], a[3].to(dt)),
+            lambda es, r8=r8, e8=e8, n8=n8: (12 * r8 * e8 * n8, 3 * r8 * e8 * es + 2 * e8 * n8 * (es + 4)))
     libraries = {"K9": item_sdpa_bwd} | {kid: flash_sdpa_bwd(*blk) for kid, blk in blocks.items()}
     seqs = bwd_products(dims)
     seqs["K7s"] = seqs["K7"]
+    # a package without `mlp_bwd_body` (before K8's row pass) runs the
+    # sequence, as does this one at widths the row pass does not take
+    if not (hasattr(fused, "mlp_bwd_body") and fused.mlp_bwd_body(torch.bfloat16, e, nhid) == "wgmma"):
+        seqs["K8"] = seqs["K8 sequence"]
     results = {}
     for kid, (kern, plain, make, work) in cases.items():
-        if only is not None and kid not in only:
+        if only is not None and kid.split("@")[0] not in only:
             continue
         res = {"shape": list(make(torch.float32)[0].shape)}
         for dt, tag, rel_bound in (
@@ -1339,7 +1397,8 @@ def row_attn_sdpa_ms(dims, device, iters) -> dict:
 def launch_sequence(kid, seq, fn, device, iters, attn_dims=None) -> dict:
     """K7's, K7s' or K8's bf16 launch sequence: each launch's device time by
     profiler name, each product's ``torch.matmul`` time, each launch's bytes
-    over the HBM rate, all printed; the two measured ones are returned as
+    over the HBM rate (and the FLOPs of K8's row pass over the bf16 peak),
+    all printed; the two measured ones are returned as
     ``products_ms`` and ``matmul_ms`` (each {launch: ms}). With
     ``attn_dims`` (K7, K7s: the episode, `FT_DIMS`' layout) the per-row
     attention launches also print their exponential floor (one ex2 per
@@ -1360,6 +1419,10 @@ def launch_sequence(kid, seq, fn, device, iters, attn_dims=None) -> dict:
         name = ln["name"]
         ms, prof_name = got[name] if got else (None, "not measured")
         shape = f" {ln['M']}x{ln['N']}x{ln['K']}" if "M" in ln else ""
+        if "products" in ln:  # the row pass: its products at the bf16 peak, recompute included
+            flops = sum(2 * p["M"] * p["N"] * p["K"] for p in ln["products"])
+            shape = (f" ({len(ln['products'])} products on chip, {len(ln['recomputed'])} recomputed: "
+                     f"ops bound {flops / PEAK_FLOPS['bf16'] * 1e3:.4f} ms)")
         attn = ""
         if name in ROW_ATTN and attn_dims is not None:
             attn = (f", exp floor {'not measured' if floor is None else f'{floor:.4f} ms'}, SDPA"
@@ -1597,9 +1660,9 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
             check(launches[kid] >= L * steps, f"{kid} launched {launches[kid]} times")
         # training and validation in bf16: every K1 (and K5) and K2b launch
         # took the wgmma body, and so did the per-row attention of every K7
-        # (and K7s) launch
-        check_wgmma_bodies("fine-tune", launches, bodies, ("K2b",) + FEAT_IDS + ("K7", "K7s"))
-    print(f"  feature attention, K2b and K7's per-row attention by body "
+        # (and K7s) launch; every K8 launch was the row pass
+        check_wgmma_bodies("fine-tune", launches, bodies, ("K2b",) + FEAT_IDS + ("K7", "K7s", "K8"))
+    print(f"  feature attention, K2b, K7's per-row attention and K8 by body "
           f"{({k: v for k, v in bodies.items() if v and k[:2] != 'K3'})}",
           flush=True)
 
@@ -1898,7 +1961,7 @@ def phase_sweep(device, model_path, data, steps, n_layers, out_dir: Path) -> dic
                  | {kid: 0 for kid in ("K4", "K5", "K6a", "K6b", "K7s", "K11")})
         for kid, n in exact.items():
             check(launches[kid] == n, f"{kid} launched {launches[kid]} times in the sweep, expected {n}")
-        check_wgmma_bodies("sweep", launches, bodies, ("K2b", "K3", "K7") + FEAT_IDS)
+        check_wgmma_bodies("sweep", launches, bodies, ("K2b", "K3", "K7", "K8") + FEAT_IDS)
     n_tr = int(round(0.8 * len(data[2])))
     X, img, y = data
     served = []
@@ -2574,8 +2637,9 @@ def check_entry_launches(tag: str, device, launches: dict, bodies: dict, finetun
     """The launch counters of one CLI or example run (zeroed just before):
     K7, K8, K9 and K10 exactly ``n_layers`` times each fine-tune step (as
     phase 9 reckons them), the forward kernels of the served mode, every
-    K1, K5, K6a, K6b, K2b and K3 launch and K7's per-row attention on the
-    wgmma body, and neither K7s nor K11 (only the flash fine-tune runs them)."""
+    K1, K5, K6a, K6b, K2b and K3 launch, K7's per-row attention and K8 on
+    the wgmma body, and neither K7s nor K11 (only the flash fine-tune runs
+    them)."""
     print(f"  {tag} launches { {k: v for k, v in launches.items() if v} }; by body "
           f"{ {k: v for k, v in bodies.items() if v} }", flush=True)
     if device.type != "cuda":
@@ -2589,7 +2653,7 @@ def check_entry_launches(tag: str, device, launches: dict, bodies: dict, finetun
     feat = ("K5", "K6b") if cached else ("K1", "K6a")
     check(sum(launches[k] for k in feat) > 0, f"{tag}: no feature-attention kernel ({', '.join(feat)}) launched")
     check(launches["K7s"] == 0 and launches["K11"] == 0, f"{tag}: the flash fine-tune's kernels launched")
-    check_wgmma_bodies(tag, launches, bodies, ("K2b", "K3") + FEAT_IDS + ("K7",))
+    check_wgmma_bodies(tag, launches, bodies, ("K2b", "K3") + FEAT_IDS + ("K7", "K8"))
 
 
 def phase_entry_points(device, model_path: Path, reg_path: Path, data, image_emb, root: Path,
@@ -3356,7 +3420,7 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
     for kid, meta in KERNELS.items():
         r = dict(kres[kid])
         for sub in ("t48", "prime", "predict", "ft", "test", "folded", "ft_train", "ft_test",
-                    "ft_folded", "dinov2"):
+                    "ft_folded", "dinov2", *K8_CASES):
             r.update({f"{k}_{sub}": v for k, v in kres.get(f"{kid}@{sub}", {}).items()})
         main = {"max_abs_err": "max_abs_err_f32", "ms": "ms_bf16", "plain_ms": "plain_ms_bf16",
                 "bound_ms": "bound_ms_bf16", "bound_by": "bound_by_bf16",
@@ -3434,11 +3498,14 @@ def main() -> int:
         check({k.split()[0] for k in prods} == {"GeluEpi", "MulEpi", "AddStore", "Partial", "Store"}
               and all(h > 0 and spills == 0 for h, spills in prods.values()),
               "the bf16 products do not all issue wgmma without spilling")
-        print(f"  (HGMMA, local loads and stores) in the SASS of K3's wgmma body (mlp_ln.cu, by "
-              f"width): {k3_sass}", flush=True)
-        check({k.split()[1] for k in k3_sass} == {"e=64", "e=128", "e=192"}
+        print(f"  (HGMMA, local loads and stores) in the SASS of K3's wgmma body (mlp_ln.cu) and K8's "
+              f"row pass (mlp_ln_bwd.cu), by width: {k3_sass}", flush=True)
+        check(set(k3_sass) == {f"{kid} e={w}" for kid in ("K3", "K8") for w in (64, 128, 192)}
               and all(h > 0 and spills == 0 for h, spills in k3_sass.values()),
-              "K3's wgmma body does not issue wgmma without spilling at every width")
+              "K3's wgmma body or K8's row pass does not issue wgmma without spilling at every width")
+        serial = serialized_wgmma(kernels.build_log(), "mlp_ln_bwd_wg_kernel")
+        print(f"  ptxas serialization warnings (C75xx) for K8's row pass: {len(serial)}", flush=True)
+        check(not serial, "ptxas serialized K8's row pass: " + "; ".join(serial[:2]))
         print(f"  (HGMMA, local loads and stores) in the SASS of the wgmma body of K1, K5, K6a, K6b "
               f"(feat_attn.cu, by width): {feat_sass}", flush=True)
         check(set(feat_sass) == {f"{kid} {w}" for kid in FEAT_IDS for w in ("e=64 d=16", "e=192 d=32")}

@@ -273,8 +273,9 @@ int launch(const void* x, const void* w1, const void* w2, void* out, long long r
 //    their products, chunk c - 1's second with chunk c's first, so that
 //    one's gelu runs beside the other's products;
 //  * the gelu is the Pallas kernel's erf, Abramowitz-Stegun 7.1.26, on one
-//    ex2 and one rcp (error 1.5e-7, far inside the hidden layer's bf16
-//    rounding; with CUDA's erff the kernel was 26-29 % slower on the H100);
+//    ex2 and one rcp (ln_tile.cuh, error 1.5e-7, far inside the hidden
+//    layer's bf16 rounding; with CUDA's erff the kernel was 26-29 % slower
+//    on the H100);
 //  * no wgmma is issued under a condition: ptxas serializes every wgmma
 //    of a kernel that does (warnings C7514, C7515, C7520);
 //  * the epilogue adds the residual and normalises on the accumulator
@@ -306,20 +307,6 @@ struct Geo {
   static constexpr int SMEM = BARS + (2 * ST + 4 * XB) * 8 + 1024;  // + alignment slack
   static_assert(SMEM <= MMPFN_MAX_SMEM, "shared memory");
 };
-
-// 0.5·z·(1 + erf(z/√2)) by Abramowitz-Stegun 7.1.26 (pallas_fused.py:_erf):
-// erf(|u|) = 1 - poly(t)·exp(-u²), t = 1/(1 + p|u|), u = z/√2, so that
-// gelu(z) = max(z, 0) - |z|·poly(t)·exp(-u²)/2; the 1/√2 and the 1/2 are
-// folded into the constants, exp(-u²) is one ex2 and t one rcp
-__device__ __forceinline__ float gelu(float z) {
-  float t;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(t) : "f"(fmaf(0.2316418882663604f, fabsf(z), 1.f)));
-  const float half_poly =
-      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 0.5307027145f, -0.7265760135f), 0.7107068705f), -0.142248368f),
-               0.127414796f);
-  const float zc = z * 0.8493218002880191f;  // zc² = u²·log2(e)
-  return fmaf(-fabsf(z), half_poly * hopper::ex2(-zc * zc), fmaxf(z, 0.f));
-}
 
 // the tensor maps of x, W1, W2 and out, passed as a __grid_constant__
 struct Maps {

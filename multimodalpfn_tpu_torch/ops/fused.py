@@ -324,18 +324,18 @@ def mlp_ln_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.T
     return ln_rows(x32 + hid @ w2.to(cd).float()).to(cd)
 
 
-def mlp_ln_body(dtype: torch.dtype, e: int, nhid: int) -> str:
+def mlp_ln_body(dtype: torch.dtype, e: int, nhid: int, kid: str = "K3") -> str:
     """Which body of K3 (`csrc/mlp_ln.cu`) runs on the card for operands of
     ``dtype`` at width ``e`` and hidden width ``nhid``: ``"wgmma"`` (bf16, e
     = 64, 128, 192, nhid a multiple of 64; Hopper's wgmma fed by TMA),
     ``"mma_sync"`` (bf16, e = 32, 96, 160, nhid a multiple of 64) or
     ``"cuda_cores"`` (float32, and bf16 at other widths). Raises TypeError
     for another dtype and ValueError where no body takes the widths (e odd,
-    below 2 or above 256; nhid not a positive multiple of 4)."""
+    below 2 or above 256; nhid not a positive multiple of 4), naming ``kid``."""
     if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K3: dtype {dtype} is not supported (float32 or bfloat16)")
+        raise TypeError(f"{kid}: dtype {dtype} is not supported (float32 or bfloat16)")
     if e < 2 or e % 2 or e > 256 or nhid < 4 or nhid % 4:
-        raise ValueError(f"K3: unsupported widths e={e}, nhid={nhid}")
+        raise ValueError(f"{kid}: unsupported widths e={e}, nhid={nhid}")
     if dtype == torch.bfloat16 and nhid % 64 == 0:
         if e in (64, 128, 192):
             return "wgmma"
@@ -610,10 +610,31 @@ def mlp_ln_bwd_plain(
     return dx.to(cd).reshape(x.shape), x32.T @ dz, gz.T @ du_c
 
 
+def mlp_bwd_body(dtype: torch.dtype, e: int, nhid: int) -> str:
+    """Which body of K8 (`csrc/mlp_ln_bwd.cu`) runs on the card: ``"wgmma"``
+    (the row pass, `wg::mlp_ln_bwd_wg_kernel`, then the two weight
+    gradients: bf16 at the widths of K3's wgmma body, e = 64, 128, 192 with
+    nhid a multiple of 64) or ``"sequence"`` (float32, the parity mode, and
+    bf16 at other widths: the products of `csrc/gemm_tile.cuh` with their
+    epilogues and the LN backward, the intermediates in device memory).
+    Raises where `mlp_ln_body` raises."""
+    return "wgmma" if mlp_ln_body(dtype, e, nhid, "K8") == "wgmma" else "sequence"
+
+
+def _weight_grads(e: int, nhid: int, rows: int, dev) -> tuple[torch.Tensor, ...]:
+    """dW1, dW2 (float32) and the weight gradients' slabs."""
+    return (
+        torch.empty((e, nhid), dtype=torch.float32, device=dev),
+        torch.empty((nhid, e), dtype=torch.float32, device=dev),
+        kernels.wgrad_workspace(rows, e, nhid, dev),
+    )
+
+
 def _mlp_bwd_buffers(x, rows: int, nhid: int) -> tuple[torch.Tensor, ...]:
-    """The outputs and scratch of K8's C entry over ``rows`` rows of x, in
-    the entry's order: gz, gzg (float32), u, du (float32), du_c, dz, dx,
-    dW1, dW2 (float32) and the weight gradients' slabs."""
+    """The outputs and scratch of K8's sequence (C entry `mmpfn_mlp_ln_bwd`)
+    over ``rows`` rows of x, in the entry's order: gz, gzg (float32), u, du
+    (float32), du_c, dz, dx, dW1, dW2 (float32) and the weight gradients'
+    slabs."""
     e, cd, dev = x.shape[-1], x.dtype, x.device
 
     def ws(n, dtype):
@@ -621,10 +642,20 @@ def _mlp_bwd_buffers(x, rows: int, nhid: int) -> tuple[torch.Tensor, ...]:
 
     return (
         ws(nhid, cd), ws(nhid, torch.float32), ws(e, torch.float32), ws(e, torch.float32),
-        ws(e, cd), ws(nhid, cd), torch.empty_like(x),
-        torch.empty((e, nhid), dtype=torch.float32, device=dev),
-        torch.empty((nhid, e), dtype=torch.float32, device=dev),
-        kernels.wgrad_workspace(rows, e, nhid, dev),
+        ws(e, cd), ws(nhid, cd), torch.empty_like(x), *_weight_grads(e, nhid, rows, dev),
+    )
+
+
+def _mlp_bwd_wg_buffers(x, rows: int, nhid: int) -> tuple[torch.Tensor, ...]:
+    """The outputs and scratch of K8's row pass (C entry
+    `mmpfn_mlp_ln_bwd_wg`) over ``rows`` rows of x, in the entry's order:
+    gz, du_c, dz (x's dtype, read by the weight gradients), dx, dW1, dW2
+    (float32) and the weight gradients' slabs."""
+    e, cd, dev = x.shape[-1], x.dtype, x.device
+    return (
+        torch.empty((rows, nhid), dtype=cd, device=dev), torch.empty((rows, e), dtype=cd, device=dev),
+        torch.empty((rows, nhid), dtype=cd, device=dev), torch.empty_like(x),
+        *_weight_grads(e, nhid, rows, dev),
     )
 
 
@@ -633,7 +664,8 @@ def mlp_ln_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K8. Replaces `multimodalpfn_tpu/ops/pallas_fused.py:_mlp_bwd_kernel_g` /
     `_mlp_bwd_kernel` (called through `_mlp_bwd_call`); kernel in
-    `csrc/mlp_ln_bwd.cu`. Results as `mlp_ln_bwd_plain`."""
+    `csrc/mlp_ln_bwd.cu`, its body chosen by `mlp_bwd_body`. Results as
+    `mlp_ln_bwd_plain`."""
     if x.device.type == "cpu":
         return mlp_ln_bwd_plain(x, w1, w2, g)
     e = x.shape[-1]
@@ -642,20 +674,29 @@ def mlp_ln_bwd(
     kernels.require_shape("K8", "w2", w2, (nhid, e))
     kernels.require_shape("K8", "g", g, tuple(x.shape))
     cd = x.dtype
+    body = mlp_bwd_body(cd, e, nhid)
     w1c = kernels.aligned(w1.to(cd).contiguous())
     w2c = kernels.aligned(w2.to(cd).contiguous())
     x = kernels.aligned(x.contiguous())
     g = kernels.aligned(g.to(cd).contiguous())
     kernels.require_cuda("K8", x, g, w1c, w2c)
     rows = x.numel() // e
-    bufs = _mlp_bwd_buffers(x, rows, nhid)
-    rc = kernels.library().mmpfn_mlp_ln_bwd(
-        *(a.data_ptr() for a in (x, w1c, w2c, g) + bufs),
-        rows, e, nhid, kernels.WGRAD_ROWS, *kernels.launch_args(x, "K8"),
-    )
+    lib = kernels.library()
+    dtype, device, stream = kernels.launch_args(x, "K8")
+    if body == "wgmma":
+        bufs = _mlp_bwd_wg_buffers(x, rows, nhid)
+        rc = lib.mmpfn_mlp_ln_bwd_wg(*(a.data_ptr() for a in (x, w1c, w2c, g) + bufs),
+                                     rows, e, nhid, kernels.WGRAD_ROWS, device, stream)
+        out = bufs[3:6]
+    else:
+        bufs = _mlp_bwd_buffers(x, rows, nhid)
+        rc = lib.mmpfn_mlp_ln_bwd(*(a.data_ptr() for a in (x, w1c, w2c, g) + bufs),
+                                  rows, e, nhid, kernels.WGRAD_ROWS, dtype, device, stream)
+        out = bufs[6:9]
     kernels.check(rc, "K8")
     kernels.LAUNCHES["K8"] += 1
-    return bufs[6:9]
+    kernels.BODY_LAUNCHES[f"K8 {body}"] += 1
+    return out
 
 
 class _MlpLn(torch.autograd.Function):

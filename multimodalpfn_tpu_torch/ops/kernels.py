@@ -48,11 +48,12 @@ LAUNCHES: dict[str, int] = {
 # one body (K3: `ops/fused.py:mlp_ln_body`; K2b:
 # `ops/item_fused.py:item_epilogue_body`; K1, K5, K6a, K6b:
 # `ops/fused.py:feat_attn_body`; K7, K7s, by the body of their per-row
-# attention: `ops/fused.py:feat_attn_bwd_body`); each also counts in LAUNCHES
+# attention: `ops/fused.py:feat_attn_bwd_body`; K8:
+# `ops/fused.py:mlp_bwd_body`); each also counts in LAUNCHES
 BODY_LAUNCHES: dict[str, int] = {
     f"{kid} {body}": 0 for kid in ("K3", "K2b") for body in ("wgmma", "mma_sync", "cuda_cores")
 } | {f"{kid} {body}": 0 for kid in ("K1", "K5", "K6a", "K6b", "K7", "K7s")
-     for body in ("wgmma", "cuda_cores")}
+     for body in ("wgmma", "cuda_cores")} | {"K8 wgmma": 0, "K8 sequence": 0}
 
 
 # Rows of the weight-gradient contractions per block: each chunk's float32
@@ -108,6 +109,9 @@ _SIGNATURES = {
     # (x, w1, w2, g, gz, gzg, u, du, du_c, dz, dx, dw1, dw2, work,
     #  rows, e, nhid, wgrad_rows, dtype, device, stream)
     "mmpfn_mlp_ln_bwd": [_P] * 14 + [_L, _I, _I, _I, _I, _I, _P],
+    # (x, w1, w2, g, gz, du_c, dz, dx, dw1, dw2, work,
+    #  rows, e, nhid, wgrad_rows, device, stream): bf16 only
+    "mmpfn_mlp_ln_bwd_wg": [_P] * 11 + [_L, _I, _I, _I, _I, _P],
     # (x, wext, do, lse, delta, dx_epi, qkv, dqkv, dx, dwext, work,
     #  G, S, sep, h, d, e, wgrad_rows, dtype, device, stream)
     "mmpfn_item_attn_bwd": [_P] * 11 + [_I] * 7 + [_I, _I, _P],

@@ -1,8 +1,9 @@
 """The reckoning of the fine-tune backward's launch sequences in
-`chip_smoke.py` (`bwd_products`: what each launch of K7 and K8 reads and
-writes), against phase 8's FLOP counts and the buffers that `ops/fused.py`
-allocates; and the plain version of the product tile's direct entry
-`kernels.gemm_bf16`. CPU only: shapes on the meta device, no kernel launched.
+`chip_smoke.py` (`bwd_products`: what each launch of K7 and of both bodies
+of K8, its row pass and its sequence, reads and writes), against phase 8's
+FLOP counts and the buffers that `ops/fused.py` allocates; and the plain
+version of the product tile's direct entry `kernels.gemm_bf16`. CPU only:
+shapes on the meta device, no kernel launched.
 """
 
 import math
@@ -21,14 +22,27 @@ def _products(seq):
     return [ln for ln in seq["launches"] if "M" in ln]
 
 
+def _flops(prods):
+    return sum(2 * p["M"] * p["N"] * p["K"] for p in prods)
+
+
 @pytest.mark.parametrize("dims", [chip_smoke.FT_DIMS, (1, 5, 37, 21, 48, 3, 16, 96)])
 def test_products_add_up_to_phase_8_flops(dims):
+    """Each body's products add up to phase 8's FLOPs: the launches of the
+    product tile, and K8's row pass's products on chip less the forward it
+    recomputes (its z = x·W1 a second time)."""
     seqs = chip_smoke.bwd_products(dims)
     want = chip_smoke.bwd_flops(dims)
-    for kid in ("K7", "K8"):
-        got = sum(2 * ln["M"] * ln["N"] * ln["K"] for ln in _products(seqs[kid]))
-        assert got == want[kid], kid
-    assert len(_products(seqs["K8"])) == 6 and len(_products(seqs["K7"])) == 6
+    for kid in ("K7", "K8", "K8 sequence"):
+        got = _flops(_products(seqs[kid]))
+        for ln in seqs[kid]["launches"]:
+            on_chip = ln.get("products", [])
+            got += _flops(on_chip) - _flops(p for p in on_chip if p["name"] in ln["recomputed"])
+        assert got == want[kid.split()[0]], kid
+    assert len(_products(seqs["K8 sequence"])) == 6 and len(_products(seqs["K7"])) == 6
+    row_pass, *wgrads = seqs["K8"]["launches"]
+    assert len(row_pass["products"]) == 5 and row_pass["recomputed"] == ["z=x.W1 again"]
+    assert len(_products(seqs["K8"])) == 2 and all(ln["a_t"] for ln in _products(seqs["K8"]))
 
 
 @pytest.mark.parametrize("dims", [chip_smoke.FT_DIMS, (1, 5, 37, 21, 48, 3, 16, 96)])
@@ -41,8 +55,10 @@ def test_products_name_the_buffers_fused_allocates(dims):
     rows = b * t * S
     x = torch.empty((b, t, S, e), dtype=torch.bfloat16, device="meta")
     allocated = {
-        "K8": dict(zip(("gz", "gzg", "u", "du", "du_c", "dz", "dx", "dw1", "dw2", "work"),
-                       fused._mlp_bwd_buffers(x, rows, nhid))),
+        "K8": dict(zip(("gz", "du_c", "dz", "dx", "dw1", "dw2", "work"),
+                       fused._mlp_bwd_wg_buffers(x, rows, nhid))),
+        "K8 sequence": dict(zip(("gz", "gzg", "u", "du", "du_c", "dz", "dx", "dw1", "dw2", "work"),
+                                fused._mlp_bwd_buffers(x, rows, nhid))),
         "K7": dict(zip(("qkv", "o", "u", "du", "du_c", "do", "dqkv", "dx", "dwqkv", "dwout", "work"),
                        fused._attn_bwd_buffers(x, rows, h * d))),
     }
@@ -66,12 +82,15 @@ def test_products_name_the_buffers_fused_allocates(dims):
 
 
 def test_launch_bytes_of_the_flagship():
-    """K8's sequence moves 1.25 GB in bf16 at the flagship shape (0.374 ms at
-    3.35 TB/s), K7's products and row kernels 0.86 GB."""
+    """K8's sequence (the body of the float32 parity mode) moves 1.25 GB in
+    bf16 at the flagship shape (0.374 ms at 3.35 TB/s), its row pass with
+    the two weight gradients 0.53 GB (0.159 ms), K7's products and row
+    kernels 0.86 GB."""
     seqs = chip_smoke.bwd_products(chip_smoke.FT_DIMS)
     total = {kid: sum(chip_smoke.launch_bytes(seq, ln, 2) for ln in seq["launches"])
              for kid, seq in seqs.items()}
-    assert total["K8"] == 1_251_790_848
+    assert total["K8 sequence"] == 1_251_790_848
+    assert total["K8"] == 531_293_184
     assert total["K7"] == 858_806_784
 
 

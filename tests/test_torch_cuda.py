@@ -531,7 +531,9 @@ def _bwd_cases(gen, device, dtype, b, t, S, sep, e, h, d, nhid):
      (1, 3, 9, 1, 32, 4, 8, 64),        # one train row, d = 8
      (1, 4, 40, 40, 64, 2, 32, 128),    # no test rows
      (1, 30, 150, 131, 192, 6, 32, 768),   # the flagship's widths and tokens
-     (1, 30, 70, 51, 192, 6, 32, 768)],    # 2100 rows: a weight-gradient chunk edge at 2048
+     (1, 30, 70, 51, 192, 6, 32, 768),     # 2100 rows: a weight-gradient chunk edge at 2048
+     (1, 6, 45, 40, 128, 4, 32, 512),      # e = 128: K8's row pass at its middle width
+     (1, 2, 45, 40, 192, 6, 32, 768)],     # 90 rows, fewer than one of K8's 128-row tiles
 )
 def test_backward_kernels_match_plain(cuda, dtype, b, t, S, sep, e, h, d, nhid):
     """K7, K8, K10 and K9 against their plain versions, every output
@@ -550,6 +552,27 @@ def test_backward_kernels_match_plain(cuda, dtype, b, t, S, sep, e, h, d, nhid):
             assert torch.isfinite(a.float()).all(), (kid, i)
             rel = (a.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)
             assert rel <= bound, f"{kid} output {i}: rel err {float(rel):.3e}"
+
+
+def test_k8_row_pass_and_the_f32_sequence(cuda):
+    """bf16 K8 at e = 192 runs its row pass (`fused.mlp_bwd_body`) and no
+    other body; float32 K8 runs the sequence, whose outputs keep the bits
+    recorded in `chip_smoke.PARENT_F32_SHA256` (`chip_smoke.f32_fingerprints`)."""
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(19)
+    e, nhid = 192, 768
+    x, g = (_rand(gen, 1, 3, 70, e, device=cuda) for _ in range(2))
+    w1, w2 = _rand(gen, e, nhid, scale=e**-0.5, device=cuda), _rand(gen, nhid, e, scale=nhid**-0.5, device=cuda)
+    assert fused.mlp_bwd_body(torch.bfloat16, e, nhid) == "wgmma"
+    assert fused.mlp_bwd_body(torch.float32, e, nhid) == "sequence"
+    before = {k: kernels.BODY_LAUNCHES[f"K8 {k}"] for k in ("wgmma", "sequence")}
+    fused.mlp_ln_bwd(x.to(torch.bfloat16), w1, w2, g.to(torch.bfloat16))
+    assert kernels.BODY_LAUNCHES["K8 wgmma"] == before["wgmma"] + 1
+    assert kernels.BODY_LAUNCHES["K8 sequence"] == before["sequence"]
+    fused.mlp_ln_bwd(x, w1, w2, g)
+    assert kernels.BODY_LAUNCHES["K8 sequence"] == before["sequence"] + 1
+    assert chip_smoke.f32_fingerprints(cuda)["K8 f32"] == chip_smoke.PARENT_F32_SHA256["K8 f32"]
 
 
 # token counts that change how a 64-row tile of K7's per-row attention packs
