@@ -20,10 +20,11 @@ Phases, each of which must pass:
    of K1, K5, K6a and K6b (``feat_attn.cu``, e = 64 and 192), of K2b's
    (``item_epilogue.cu``, e = 64, 128, 192) and of the per-row attention
    of K7 and K7s (``feat_attn_bwd.cu``, ``row_wg``: forward and softmax
-   backward, both layouts, d = 16, 32, 64), each of which must issue wgmma
-   with no local-memory load or store; the ``-Xptxas -v`` report must hold
-   no serialization warning (C75xx) for K8's row pass and the last three
-   (those of the
+   backward, both layouts, d = 16, 32, 64) and of K10's row pass
+   (``item_epilogue_bwd.cu``, e = 64, 128, 192), each of which must issue
+   wgmma with no local-memory load or store; the ``-Xptxas -v`` report must
+   hold no serialization warning (C75xx) for K8's row pass, the last three
+   and K10's row pass, whose registers and spills it prints (those of the
    projection's instantiation are printed); write the model every phase
    serves (the published 192×12
    architecture with MGM+CAP 16/8, random weights from seed 0, output
@@ -97,9 +98,12 @@ Phases, each of which must pass:
    1838, 192), 1655 train + 183 test rows, nhid 768), in float32 (5e-5) and
    bf16 (2**-6), each output relative to its own largest magnitude; each run
    twice on the same inputs must give the same bits. K8's row pass (bf16)
-   also at e = 64 and 128 and on 100 rows, fewer than one of its tiles. Times, bounds, and for
+   also at e = 64 and 128 and on 100 rows, fewer than one of its tiles;
+   K10's at e = 64 and 128 and on 3 groups of 100 rows (units of 64 rows
+   straddle the groups), there also with heads of d = 48 that span its
+   64-column chunks and at h·d = 256. Times, bounds, and for
    K9 the backward of ``scaled_dot_product_attention`` over both regions.
-   For bf16 K7, K7s and K8, each launch of the sequence by profiler name,
+   For bf16 K7, K7s, K8 and K10, each launch of the sequence by profiler name,
    each product beside ``torch.matmul`` on operands of its shapes, and each
    launch's bytes over the HBM rate (`bwd_products`); K7's and K7s' two
    per-row attention launches also beside their exponential floor and SDPA
@@ -111,7 +115,7 @@ Phases, each of which must pass:
    before, show K7, K8, K9 and K10 launched 12 times per step, every K1
    and K2b launch (training and validation) on its wgmma body, the
    per-row attention of every K7 launch on its wgmma body and every K8
-   launch on its row pass; every loss and
+   and K10 launch on its row pass; every loss and
    gradient norm finite, no step skipped, no snapshot write failed; the
    snapshot on disk differs from the base model exactly when validation
    improved, and ``MMPFNClassifier`` serves it (rows sum to 1).
@@ -450,6 +454,14 @@ FT_DIMS = (1, 30, 1838, 1655, 192, 6, 32, 768)
 # e)}, nhid = 4·e; 6030 rows (ragged against 128, three weight-gradient
 # slabs) at e = 64 and 128, and 100 rows, fewer than one 128-row tile
 K8_CASES = {"e64": ((1, 30, 201), 64), "e128": ((1, 30, 201), 128), "rows100": ((1, 1, 100), 192)}
+# phase 8's further cases of K10's row pass: {id suffix: ((G, S), e, h, d)};
+# 6030 rows at e = 64 and 128 (ragged against the 64-row units, which
+# straddle the groups of 201); 3 groups of 100 rows at the flagship's
+# widths, with heads of d = 48 that span the 64-column chunks of h·d, and
+# at h·d = 256, the widest the row pass takes (two ring stages)
+K10_CASES = {"e64": ((30, 201), 64, 2, 32), "e128": ((30, 201), 128, 4, 32),
+             "rows300": ((3, 100), 192, 6, 32), "d48": ((3, 100), 192, 4, 48),
+             "hd256": ((3, 100), 192, 8, 32)}
 FT_STEPS = 100
 # float32 kernel path against plain path over three training steps: loss and
 # gradient norm relative, params after the steps absolute, and the first
@@ -563,13 +575,14 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict, dict]:
     K3's wgmma body (`csrc/mlp_ln.cu`) and K8's row pass
     (`csrc/mlp_ln_bwd.cu`) by width, of the wgmma body of K1,
     K5, K6a and K6b (`csrc/feat_attn.cu`) by width, layout and mask, of
-    K2b's wgmma body (`csrc/item_epilogue.cu`) by width and of the per-row
+    K2b's wgmma body (`csrc/item_epilogue.cu`) and K10's row pass
+    (`csrc/item_epilogue_bwd.cu`) by width and of the per-row
     attention of K7 and K7s (`csrc/feat_attn_bwd.cu`, `row_wg`) by pass,
     layout and d, each with its local-memory loads and stores (spills)
     beside. Returns (attention counts, {product kernel: (HGMMA, LDL +
     STL)}, {K3 or K8 kernel: (HGMMA, LDL + STL)}, {feature-attention kernel:
-    (HGMMA, LDL + STL)}, {K2b kernel: (HGMMA, LDL + STL)}, {row-attention
-    kernel: (HGMMA, LDL + STL)})."""
+    (HGMMA, LDL + STL)}, {K2b or K10 kernel: (HGMMA, LDL + STL)},
+    {row-attention kernel: (HGMMA, LDL + STL)})."""
     import os
     import re
     import shutil
@@ -591,6 +604,9 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict, dict]:
                 k3.setdefault(gfn, [0, 0])
             elif "epilogue_ln_wg_kernel" in name:
                 gfn = f"K2b e={re.search(r'epilogue_ln_wg_kernelILi(\d+)E', name).group(1)}"
+                k2b.setdefault(gfn, [0, 0])
+            elif "epilogue_ln_bwd_wg_kernel" in name:
+                gfn = f"K10 e={re.search(r'epilogue_ln_bwd_wg_kernelILi(\d+)E', name).group(1)}"
                 k2b.setdefault(gfn, [0, 0])
             elif "feat_attn_wg_kernel" in name:
                 e, d, sm, masked = re.search(
@@ -618,7 +634,7 @@ def wgmma_sass_counts(lib: Path) -> tuple[dict, dict, dict, dict, dict, dict]:
         elif fn and "HGMMA" in line:
             counts[fn] += 1
         elif gfn and ("HGMMA" in line or re.search(r"\b(LDL|STL)\b", line)):
-            table = (k3 if gfn.startswith(("K3", "K8")) else k2b if gfn.startswith("K2b")
+            table = (k3 if gfn.startswith(("K3", "K8")) else k2b if gfn.startswith(("K2b", "K10"))
                      else rows if gfn.startswith("K7") else gemm if gfn in gemm else feat)
             table[gfn][0 if "HGMMA" in line else 1] += 1
     check(proc.wait(timeout=300) == 0, "cuobjdump failed")
@@ -637,6 +653,21 @@ def serialized_wgmma(log: str, pattern: str) -> list[str]:
     import re
 
     return [ln for ln in log.splitlines() if re.search(r"\(C75\d\d\)", ln) and pattern in ln]
+
+
+def ptxas_usage(log: str, pattern: str) -> list[str]:
+    """ptxas' spill and register lines (``-Xptxas -v``, `kernels.build_log`)
+    of each kernel whose name contains ``pattern``, in the report's order."""
+    import re
+
+    out, mine = [], False
+    for ln in log.splitlines():
+        m = re.search(r"(Compiling entry function|Function properties for) '?(\S+?)'?( |$)", ln)
+        if m:
+            mine = pattern in m.group(2)
+        elif mine and re.search(r"spill|Used \d+ registers", ln):
+            out.append(ln.strip())
+    return out
 
 
 def exp_floor_ms(pairs: float, device) -> float | None:
@@ -684,16 +715,20 @@ K2A_PARTS = {"proj": ("proj_nt", "gemm::"), "attn": "attn"}
 def bwd_products(dims) -> dict:
     """The launch sequences of K8 (`csrc/mlp_ln_bwd.cu`: "K8" its row pass,
     the bf16 body at e = 64, 128, 192; "K8 sequence" the body of float32
-    and of bf16 at other widths) and K7 (`csrc/feat_attn_bwd.cu`; K7s
-    launches the same) at ``dims`` (FT_DIMS' layout): per body its
-    ``buffers`` {name: (shape, dtype)}, dtype "cd" (the compute dtype) or
-    "f32", the allocations of `ops/fused.py` plus the weights and the weight
-    gradients' slabs (views of ``work``); and its ``launches`` in order, each
-    {name, reads, writes} and, for a product of `gemm_tile.cuh` (C =
-    op(A)·op(B)), its M, N, K, a_t, b_t and operand buffers a, b. The row
-    pass names the products it computes on chip (``products``, each {name,
-    M, N, K}) and those of them that recompute the forward
-    (``recomputed``)."""
+    and of bf16 at other widths), K10 (`csrc/item_epilogue_bwd.cu`: "K10"
+    its row pass, the bf16 body at the widths of K2b's wgmma body; "K10
+    sequence" the other) and K7 (`csrc/feat_attn_bwd.cu`; K7s launches the
+    same) at ``dims`` (FT_DIMS' layout): per body its ``buffers`` {name:
+    (shape, dtype)}, dtype "cd" (the compute dtype) or "f32", the
+    allocations of `ops/fused.py` or `ops/item_fused.py` plus the weights
+    and the weight gradients' slabs (views of ``work``); and its
+    ``launches`` in order, each {name, reads, writes} and, for a product of
+    `gemm_tile.cuh` (C = op(A)·op(B)), its M, N, K, a_t, b_t and operand
+    buffers a, b. A row pass names the products it computes on chip
+    (``products``, each {name, M, N, K}) and those of them that repeat a
+    product the function computes once (``recomputed``: K8's z = x·W1
+    again; K10's u = x + o·W_out, K2b's product, is the first and only
+    time the backward computes it)."""
     b, t, S, _, e, h, d, nhid = dims
     R, hd = b * t * S, h * d
     slabs = max(1, -(-R // 2048))
@@ -719,16 +754,16 @@ def bwd_products(dims) -> dict:
         rows("sum_slabs dW2", ["slabs_dw2"], ["dw2"]),
     ]
 
-    def on_chip(name, M, N, K):
-        return dict(name=name, M=M, N=N, K=K)
+    def on_chip(name, M, N, K, b_t=False):  # b_t: B stored (N, K), as torch.matmul times it
+        return dict(name=name, M=M, N=N, K=K, b_t=b_t)
 
     k8 = {
         "buffers": k8_common,
         "launches": [
             dict(name="row pass", reads=["x", "g", "w1", "w2"], writes=["gz", "du_c", "dz", "dx"],
                  products=[on_chip("z=x.W1", R, nhid, e), on_chip("u=x+gz.W2", R, e, nhid),
-                           on_chip("z=x.W1 again", R, nhid, e), on_chip("dh=du.W2t", R, nhid, e),
-                           on_chip("dx=du+dz.W1t", R, e, nhid)],
+                           on_chip("z=x.W1 again", R, nhid, e), on_chip("dh=du.W2t", R, nhid, e, True),
+                           on_chip("dx=du+dz.W1t", R, e, nhid, True)],
                  recomputed=["z=x.W1 again"]),
             *k8_wgrads,
         ],
@@ -771,7 +806,36 @@ def bwd_products(dims) -> dict:
             rows("sum_slabs dWout", ["slabs_dwout"], ["dwout"]),
         ],
     }
-    return {"K8": k8, "K8 sequence": k8_sequence, "K7": k7}
+    G = b * t
+    k10_common = {
+        "x": ((R, e), "cd"), "o": ((R, hd), "cd"), "g": ((R, e), "cd"), "wout": ((hd, e), "cd"),
+        "du_c": ((R, e), "cd"), "do": ((R, hd), "cd"), "delta": ((G, h, S), "f32"),
+        "dw": ((hd, e), "f32"), "work": ((slabs, hd, e), "f32"), "slabs_dwout": ((slabs, hd, e), "f32"),
+    }
+    k10_wgrad = [
+        prod("dW_out=ot.du", "o", "du_c", hd, e, R, ["o", "du_c"], ["slabs_dwout"], a_t=True),
+        rows("sum_slabs dW_out", ["slabs_dwout"], ["dw"]),
+    ]
+    k10 = {
+        "buffers": k10_common,
+        "launches": [
+            dict(name="row pass", reads=["x", "o", "g", "wout"], writes=["du_c", "do", "delta"],
+                 products=[on_chip("u=x+o.Wout", R, e, hd), on_chip("do=du.Woutt", R, hd, e, True)],
+                 recomputed=[]),
+            *k10_wgrad,
+        ],
+    }
+    k10_sequence = {
+        "buffers": k10_common | {"u": ((R, e), "f32"), "do32": ((R, hd), "f32")},
+        "launches": [
+            prod("u=x+o.Wout", "o", "wout", R, e, hd, ["o", "wout", "x"], ["u"]),
+            rows("ln_bwd", ["u", "g"], ["du_c"]),
+            prod("do=du.Woutt", "du_c", "wout", R, hd, e, ["du_c", "wout"], ["do32"], b_t=True),
+            rows("delta", ["do32", "o"], ["do", "delta"]),
+            *k10_wgrad,
+        ],
+    }
+    return {"K8": k8, "K8 sequence": k8_sequence, "K7": k7, "K10": k10, "K10 sequence": k10_sequence}
 
 
 def launch_bytes(seq: dict, launch: dict, es: int) -> int:
@@ -785,17 +849,18 @@ def launch_bytes(seq: dict, launch: dict, es: int) -> int:
 
 
 def bwd_flops(dims) -> dict:
-    """FLOPs of phase 8's work for K8 (six products of 2·e·nhid a row) and
+    """FLOPs of phase 8's work for K8 (six products of 2·e·nhid a row),
     K7's products (twelve of 2·e·h·d a token: the QKV and out-projection
-    recomputed, do, dx, dW_qkv, dW_out)."""
+    recomputed, do, dx, dW_qkv, dW_out) and K10's (three of 2·e·h·d a row:
+    u, do, dW_out)."""
     b, t, S, _, e, h, d, nhid = dims
     R = b * t * S
-    return {"K8": 12 * R * e * nhid, "K7": 2 * R * e * h * d * 12}
+    return {"K8": 12 * R * e * nhid, "K7": 2 * R * e * h * d * 12, "K10": 6 * R * e * h * d}
 
 
-# the kernels of K7's and K8's launch sequences, by profiler name
+# the kernels of K7's, K8's and K10's launch sequences, by profiler name
 SEQ_KERNELS = ("gemm::", "ln_bwd_kernel", "attn_o_kernel", "attn_bwd_kernel", "row_wg::attn_wg_kernel",
-               "sum_slabs_kernel", "mlp_ln_bwd_wg_kernel")
+               "sum_slabs_kernel", "mlp_ln_bwd_wg_kernel", "epilogue_ln_bwd_wg_kernel", "delta_kernel")
 
 
 def sequence_ms(fn, device, iters: int, names: list) -> dict | None:
@@ -803,24 +868,29 @@ def sequence_ms(fn, device, iters: int, names: list) -> dict | None:
     position: the profiler's kernels whose names hold one of `SEQ_KERNELS`
     (weight casts and copies left out), in start order, ``len(names)`` a
     call; {name: (ms, profiler name)}, or None off the card or where the
-    count does not match."""
+    count does not match in three traces (the profiler has been seen to
+    drop one kernel of a trace)."""
     import torch
 
     if device.type != "cuda":
         return None
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    evs = sorted((ev for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and any(k in ev.name for k in SEQ_KERNELS)),
-                 key=lambda ev: ev.time_range.start)
-    if len(evs) != iters * len(names):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and any(k in ev.name for k in SEQ_KERNELS)),
+                     key=lambda ev: ev.time_range.start)
+        if len(evs) == iters * len(names):
+            break
         print(f"  launch sequence: {len(evs)} kernels in {iters} calls, expected "
-              f"{iters * len(names)}: not split", flush=True)
+              f"{iters * len(names)}", flush=True)
+    else:
+        print("  launch sequence: not split", flush=True)
         return None
     out = {}
     for i, name in enumerate(names):
@@ -832,18 +902,17 @@ def sequence_ms(fn, device, iters: int, names: list) -> dict | None:
 def matmul_ms(seq: dict, device, iters: int) -> dict:
     """``torch.matmul`` of bf16 operands of each product's shapes and
     storage orders (A (M, K) or stored (K, M); B (K, N) or stored (N, K)):
-    the product alone, with no epilogue. Timed here, used nowhere in the
-    port."""
+    the product alone, with no epilogue; a row pass's products on chip too
+    (A (M, K), B as ``b_t`` says). Timed here, used nowhere in the port."""
     import torch
 
     out = {}
-    for ln in seq["launches"]:
-        if "M" not in ln:
-            continue
-        M, N, K = ln["M"], ln["N"], ln["K"]
-        a = torch.randn((K, M) if ln["a_t"] else (M, K), device=device, dtype=torch.bfloat16)
-        bb = torch.randn((N, K) if ln["b_t"] else (K, N), device=device, dtype=torch.bfloat16)
-        a, bb = (a.t() if ln["a_t"] else a), (bb.t() if ln["b_t"] else bb)
+    prods = [p for ln in seq["launches"] for p in ([ln] if "M" in ln else ln.get("products", []))]
+    for ln in prods:
+        M, N, K, a_t, b_t = ln["M"], ln["N"], ln["K"], ln.get("a_t", False), ln.get("b_t", False)
+        a = torch.randn((K, M) if a_t else (M, K), device=device, dtype=torch.bfloat16)
+        bb = torch.randn((N, K) if b_t else (K, N), device=device, dtype=torch.bfloat16)
+        a, bb = (a.t() if a_t else a), (bb.t() if b_t else bb)
         out[ln["name"]] = timed(lambda: torch.matmul(a, bb), device, iters)
         del a, bb
     return out
@@ -1157,12 +1226,15 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
     unfolded (no multiquery) and folded (the heads against KV head 0). K8
     also runs its bf16 row pass at e = 64 and 128 and on 100 rows, fewer than
     one 128-row tile (`K8_CASES`: ids ``K8@e64``, ``K8@e128``,
-    ``K8@rows100``). For K7 and K8 in bf16 it also times each launch of
-    their sequence by profiler name (`sequence_ms`), each product beside
-    ``torch.matmul`` on operands of its shapes, and the sequence's bytes over
-    the HBM rate (`bwd_products`: K8's row pass where the package picks it,
-    its sequence otherwise). ``only`` restricts the kernels run (an id and
-    the ids ``id@...``)."""
+    ``K8@rows100``), and K10 its bf16 row pass at e = 64 and 128, on groups
+    that its 64-row units straddle, with heads that span its chunks and at
+    h·d = 256 (`K10_CASES`: ids ``K10@e64`` ...). For K7, K8 and K10 in bf16
+    it also times each launch of their sequence by profiler name
+    (`sequence_ms`), each product beside ``torch.matmul`` on operands of its
+    shapes, and the sequence's bytes over the HBM rate (`bwd_products`: the
+    row pass of K8 and K10 where the package picks it, the sequence
+    otherwise). ``only`` restricts the kernels run (an id and the ids
+    ``id@...``)."""
     import math
 
     import torch
@@ -1247,6 +1319,13 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
             return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
         return make
 
+    def k10_work(rows_, e_, hd_, n_delta):
+        """K10's three products (u, do, dW_out) and the per-head delta;
+        x, g, du (e wide), o, do (h·d wide) and delta once, W_out read and
+        dW_out written."""
+        return lambda es: (6 * rows_ * hd_ * e_ + 2 * rows_ * hd_,
+                           rows_ * (3 * e_ + 2 * hd_) * es + n_delta * 4 + hd_ * e_ * (es + 4))
+
     hS = S - sep
     blocks = {"K11": (G * h, sep), "K11@test": (G * h, hS), "K11@folded": (G, h * hS)}
     # the (query, key) pairs each pass of K9 and K11 exponentiates: K9's
@@ -1267,8 +1346,7 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
                lambda es: (bwd_flops(dims)["K8"], 3 * R * e * es + 2 * e * nhid * (es + 4))),
         "K10": (item_fused.item_epilogue_bwd, item_fused.item_epilogue_bwd_plain,
                 lambda dt: (lambda a: (a["x3"], a["o"], w_out, a["g3"]))(item_inputs(dt)),
-                lambda es: (6 * R * hd * e + 2 * R * hd,
-                            R * (3 * e + 2 * hd) * es + G * h * S * 4 + hd * e * (es + 4))),
+                k10_work(R, e, hd, G * h * S)),
         "K9": (item_fused.item_attention_bwd, item_fused.item_attention_bwd_plain,
                lambda dt: (lambda a: (a["x3"], w_qkv, a["do"], a["delta"], a["lse"], sep, a["du"]))(
                    item_inputs(dt)),
@@ -1302,6 +1380,18 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
             fused.mlp_ln_bwd, fused.mlp_ln_bwd_plain,
             lambda dt, a=(x8, w18, w28, g8): (a[0].to(dt), a[1], a[2], a[3].to(dt)),
             lambda es, r8=r8, e8=e8, n8=n8: (12 * r8 * e8 * n8, 3 * r8 * e8 * es + 2 * e8 * n8 * (es + 4)))
+    # K10 at the other widths of its row pass, on groups its units straddle,
+    # with heads across its chunks and at h·d = 256; random o, as K10 takes
+    # any attention output
+    gen10 = torch.Generator().manual_seed(10)
+    for sub, ((n_grp, n_seq), e10, h10, d10) in K10_CASES.items():
+        hd10 = h10 * d10
+        x10, gr10, o10 = (torch.randn((n_grp, n_seq, w), generator=gen10).to(device) for w in (e10, e10, hd10))
+        w10 = (torch.randn((h10, d10, e10), generator=gen10) * hd10**-0.5).to(device)
+        cases[f"K10@{sub}"] = (
+            item_fused.item_epilogue_bwd, item_fused.item_epilogue_bwd_plain,
+            lambda dt, a=(x10, o10, w10, gr10): (a[0].to(dt), a[1].to(dt), a[2], a[3].to(dt)),
+            k10_work(n_grp * n_seq, e10, hd10, n_grp * h10 * n_seq))
     libraries = {"K9": item_sdpa_bwd} | {kid: flash_sdpa_bwd(*blk) for kid, blk in blocks.items()}
     seqs = bwd_products(dims)
     seqs["K7s"] = seqs["K7"]
@@ -1309,6 +1399,10 @@ def phase_bwd_kernels(device, dims, iters, only=None) -> dict:
     # sequence, as does this one at widths the row pass does not take
     if not (hasattr(fused, "mlp_bwd_body") and fused.mlp_bwd_body(torch.bfloat16, e, nhid) == "wgmma"):
         seqs["K8"] = seqs["K8 sequence"]
+    # the same for K10 (`item_epilogue_bwd_body`, before its row pass)
+    if not (hasattr(item_fused, "item_epilogue_bwd_body")
+            and item_fused.item_epilogue_bwd_body(torch.bfloat16, e, hd, d) == "wgmma"):
+        seqs["K10"] = seqs["K10 sequence"]
     results = {}
     for kid, (kern, plain, make, work) in cases.items():
         if only is not None and kid.split("@")[0] not in only:
@@ -1395,9 +1489,10 @@ def row_attn_sdpa_ms(dims, device, iters) -> dict:
 
 
 def launch_sequence(kid, seq, fn, device, iters, attn_dims=None) -> dict:
-    """K7's, K7s' or K8's bf16 launch sequence: each launch's device time by
-    profiler name, each product's ``torch.matmul`` time, each launch's bytes
-    over the HBM rate (and the FLOPs of K8's row pass over the bf16 peak),
+    """K7's, K7s', K8's or K10's bf16 launch sequence: each launch's device
+    time by profiler name, each product's ``torch.matmul`` time (a row
+    pass's products on chip too), each launch's bytes over the HBM rate (and
+    the FLOPs of a row pass over the bf16 peak),
     all printed; the two measured ones are returned as
     ``products_ms`` and ``matmul_ms`` (each {launch: ms}). With
     ``attn_dims`` (K7, K7s: the episode, `FT_DIMS`' layout) the per-row
@@ -1421,8 +1516,10 @@ def launch_sequence(kid, seq, fn, device, iters, attn_dims=None) -> dict:
         shape = f" {ln['M']}x{ln['N']}x{ln['K']}" if "M" in ln else ""
         if "products" in ln:  # the row pass: its products at the bf16 peak, recompute included
             flops = sum(2 * p["M"] * p["N"] * p["K"] for p in ln["products"])
+            on_mm = ", ".join(f"{p['name']} {mm[p['name']]:.4f}" for p in ln["products"] if p["name"] in mm)
             shape = (f" ({len(ln['products'])} products on chip, {len(ln['recomputed'])} recomputed: "
-                     f"ops bound {flops / PEAK_FLOPS['bf16'] * 1e3:.4f} ms)")
+                     f"ops bound {flops / PEAK_FLOPS['bf16'] * 1e3:.4f} ms"
+                     + (f"; torch.matmul on them (ms): {on_mm}" if on_mm else "") + ")")
         attn = ""
         if name in ROW_ATTN and attn_dims is not None:
             attn = (f", exp floor {'not measured' if floor is None else f'{floor:.4f} ms'}, SDPA"
@@ -1660,9 +1757,9 @@ def phase_finetune(device, model_path, data, steps, n_layers, out_path, flash_di
             check(launches[kid] >= L * steps, f"{kid} launched {launches[kid]} times")
         # training and validation in bf16: every K1 (and K5) and K2b launch
         # took the wgmma body, and so did the per-row attention of every K7
-        # (and K7s) launch; every K8 launch was the row pass
-        check_wgmma_bodies("fine-tune", launches, bodies, ("K2b",) + FEAT_IDS + ("K7", "K7s", "K8"))
-    print(f"  feature attention, K2b, K7's per-row attention and K8 by body "
+        # (and K7s) launch; every K8 and K10 launch was the row pass
+        check_wgmma_bodies("fine-tune", launches, bodies, ("K2b",) + FEAT_IDS + ("K7", "K7s", "K8", "K10"))
+    print(f"  feature attention, K2b, K7's per-row attention, K8 and K10 by body "
           f"{({k: v for k, v in bodies.items() if v and k[:2] != 'K3'})}",
           flush=True)
 
@@ -1961,7 +2058,7 @@ def phase_sweep(device, model_path, data, steps, n_layers, out_dir: Path) -> dic
                  | {kid: 0 for kid in ("K4", "K5", "K6a", "K6b", "K7s", "K11")})
         for kid, n in exact.items():
             check(launches[kid] == n, f"{kid} launched {launches[kid]} times in the sweep, expected {n}")
-        check_wgmma_bodies("sweep", launches, bodies, ("K2b", "K3", "K7", "K8") + FEAT_IDS)
+        check_wgmma_bodies("sweep", launches, bodies, ("K2b", "K3", "K7", "K8", "K10") + FEAT_IDS)
     n_tr = int(round(0.8 * len(data[2])))
     X, img, y = data
     served = []
@@ -2637,9 +2734,9 @@ def check_entry_launches(tag: str, device, launches: dict, bodies: dict, finetun
     """The launch counters of one CLI or example run (zeroed just before):
     K7, K8, K9 and K10 exactly ``n_layers`` times each fine-tune step (as
     phase 9 reckons them), the forward kernels of the served mode, every
-    K1, K5, K6a, K6b, K2b and K3 launch, K7's per-row attention and K8 on
-    the wgmma body, and neither K7s nor K11 (only the flash fine-tune runs
-    them)."""
+    K1, K5, K6a, K6b, K2b and K3 launch, K7's per-row attention, K8 and
+    K10 on the wgmma body, and neither K7s nor K11 (only the flash fine-tune
+    runs them)."""
     print(f"  {tag} launches { {k: v for k, v in launches.items() if v} }; by body "
           f"{ {k: v for k, v in bodies.items() if v} }", flush=True)
     if device.type != "cuda":
@@ -2653,7 +2750,7 @@ def check_entry_launches(tag: str, device, launches: dict, bodies: dict, finetun
     feat = ("K5", "K6b") if cached else ("K1", "K6a")
     check(sum(launches[k] for k in feat) > 0, f"{tag}: no feature-attention kernel ({', '.join(feat)}) launched")
     check(launches["K7s"] == 0 and launches["K11"] == 0, f"{tag}: the flash fine-tune's kernels launched")
-    check_wgmma_bodies(tag, launches, bodies, ("K2b", "K3") + FEAT_IDS + ("K7", "K8"))
+    check_wgmma_bodies(tag, launches, bodies, ("K2b", "K3") + FEAT_IDS + ("K7", "K8", "K10"))
 
 
 def phase_entry_points(device, model_path: Path, reg_path: Path, data, image_emb, root: Path,
@@ -3420,7 +3517,7 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
     for kid, meta in KERNELS.items():
         r = dict(kres[kid])
         for sub in ("t48", "prime", "predict", "ft", "test", "folded", "ft_train", "ft_test",
-                    "ft_folded", "dinov2", *K8_CASES):
+                    "ft_folded", "dinov2", *K8_CASES, *K10_CASES):
             r.update({f"{k}_{sub}": v for k, v in kres.get(f"{kid}@{sub}", {}).items()})
         main = {"max_abs_err": "max_abs_err_f32", "ms": "ms_bf16", "plain_ms": "plain_ms_bf16",
                 "bound_ms": "bound_ms_bf16", "bound_by": "bound_by_bf16",
@@ -3517,14 +3614,18 @@ def main() -> int:
         check(kernels.build_log() != "" and not serial,
               "ptxas serialized the feature-attention body's wgmma (or printed no report): "
               + "; ".join(serial[:2]))
-        print(f"  (HGMMA, local loads and stores) in the SASS of K2b's wgmma body (item_epilogue.cu, "
-              f"by width): {k2b_sass}", flush=True)
-        check({k.split()[1] for k in k2b_sass} == {"e=64", "e=128", "e=192"}
+        print(f"  (HGMMA, local loads and stores) in the SASS of K2b's wgmma body (item_epilogue.cu) "
+              f"and K10's row pass (item_epilogue_bwd.cu), by width: {k2b_sass}", flush=True)
+        check(set(k2b_sass) == {f"{kid} e={w}" for kid in ("K2b", "K10") for w in (64, 128, 192)}
               and all(h > 0 and spills == 0 for h, spills in k2b_sass.values()),
-              "K2b's wgmma body does not issue wgmma without spilling at every width")
+              "K2b's wgmma body or K10's row pass does not issue wgmma without spilling at every width")
         serial = serialized_wgmma(kernels.build_log(), "epilogue_ln_wg_kernel")
         print(f"  ptxas serialization warnings (C75xx) for K2b's wgmma body: {len(serial)}", flush=True)
         check(not serial, "ptxas serialized K2b's wgmma body: " + "; ".join(serial[:2]))
+        serial = serialized_wgmma(kernels.build_log(), "epilogue_ln_bwd_wg_kernel")
+        print(f"  ptxas serialization warnings (C75xx) for K10's row pass: {len(serial)}; its report: "
+              f"{ptxas_usage(kernels.build_log(), 'epilogue_ln_bwd_wg_kernel')}", flush=True)
+        check(not serial, "ptxas serialized K10's row pass: " + "; ".join(serial[:2]))
         print(f"  (HGMMA, local loads and stores) in the SASS of the per-row attention of K7 and "
               f"K7s (feat_attn_bwd.cu, row_wg, by pass and width): {row_sass}", flush=True)
         check(set(row_sass) == {f"{kid} {pas} d={d}" for kid in ("K7", "K7s") for pas in ("fwd", "bwd")

@@ -242,12 +242,56 @@ def item_epilogue_bwd_plain(
     return du_c.to(cd), do32.to(cd), delta, dw.reshape(h, d, e)
 
 
+def item_epilogue_bwd_body(dtype: torch.dtype, e: int, hd: int, d: int) -> str:
+    """Which body of K10 (`csrc/item_epilogue_bwd.cu`) runs on the card for
+    operands of ``dtype`` at width ``e``, ``hd`` = h·d and head width ``d``:
+    ``"wgmma"`` (the row pass, `wg::epilogue_ln_bwd_wg_kernel`, then the
+    weight gradient: bf16 at the widths of K2b's wgmma body, e = 64, 128,
+    192 with hd a multiple of 64 up to 256, and d a multiple of 8, so that a
+    head owns whole 8-column register groups) or ``"sequence"`` (float32, the
+    parity mode, and bf16 at other widths: the products of
+    `csrc/gemm_tile.cuh`, the LN backward and the delta kernel, the float32
+    intermediates u and do32 in device memory). Raises TypeError for another
+    dtype and ValueError where hd is not a whole number of heads of d."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K10: dtype {dtype} is not supported (float32 or bfloat16)")
+    if e < 1 or d < 1 or hd < d or hd % d:
+        raise ValueError(f"K10: unsupported widths e={e}, h·d={hd}, d={d}")
+    if dtype == torch.bfloat16 and e in (64, 128, 192) and hd % 64 == 0 and hd <= 256 and d % 8 == 0:
+        return "wgmma"
+    return "sequence"
+
+
+def _epilogue_bwd_buffers(x3, o, h: int, body: str) -> tuple[torch.Tensor, ...]:
+    """The outputs and scratch of K10's ``body`` over x3 ``(G, S, e)`` and o
+    ``(G, S, h·d)``, in its C entry's order: the sequence (C entry
+    `mmpfn_item_epilogue_bwd`) u (float32), du_c, do32 (float32), do, delta,
+    dW_out and the weight gradient's slabs; the row pass
+    (`mmpfn_item_epilogue_bwd_wg`) the same without u and do32."""
+    G, S, e = x3.shape
+    hd, dev = o.shape[-1], x3.device
+    rows = G * S
+    du_c, do = torch.empty_like(x3), torch.empty_like(o)
+    tail = (
+        torch.empty((G, h, S), dtype=torch.float32, device=dev),
+        torch.empty((hd, e), dtype=torch.float32, device=dev),
+        kernels.wgrad_workspace(rows, hd, e, dev),
+    )
+    if body == "wgmma":
+        return (du_c, do, *tail)
+    return (
+        torch.empty((rows, e), dtype=torch.float32, device=dev), du_c,
+        torch.empty((rows, hd), dtype=torch.float32, device=dev), do, *tail,
+    )
+
+
 def item_epilogue_bwd(
     x3: torch.Tensor, o: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K10. Replaces `multimodalpfn_tpu/ops/pallas_item_fused.py:_epi_bwd_kernel`
-    (called through `_epi_bwd_call`); kernel in `csrc/item_epilogue_bwd.cu`.
-    Results as `item_epilogue_bwd_plain`."""
+    (called through `_epi_bwd_call`); kernel in `csrc/item_epilogue_bwd.cu`,
+    its body chosen by `item_epilogue_bwd_body`. Results as
+    `item_epilogue_bwd_plain`."""
     if x3.device.type == "cpu":
         return item_epilogue_bwd_plain(x3, o, w_out, g)
     G, S, e = x3.shape
@@ -257,25 +301,25 @@ def item_epilogue_bwd(
     kernels.require_shape("K10", "o", o, (G, S, hd))
     kernels.require_shape("K10", "g", g, (G, S, e))
     cd = x3.dtype
+    body = item_epilogue_bwd_body(cd, e, hd, d)
     wout = kernels.aligned(w_out.reshape(hd, e).to(cd).contiguous())
     x3, o = kernels.aligned(x3.contiguous()), kernels.aligned(o.to(cd).contiguous())
     g = kernels.aligned(g.to(cd).contiguous())
     kernels.require_cuda("K10", x3, o, g, wout)
-    rows, dev = G * S, x3.device
-    u = torch.empty((rows, e), dtype=torch.float32, device=dev)
-    du_c = torch.empty_like(x3)
-    do32 = torch.empty((rows, hd), dtype=torch.float32, device=dev)
-    do = torch.empty_like(o)
-    delta = torch.empty((G, h, S), dtype=torch.float32, device=dev)
-    dw = torch.empty((hd, e), dtype=torch.float32, device=dev)
-    work = kernels.wgrad_workspace(rows, hd, e, dev)
-    rc = kernels.library().mmpfn_item_epilogue_bwd(
-        x3.data_ptr(), o.data_ptr(), wout.data_ptr(), g.data_ptr(), u.data_ptr(),
-        du_c.data_ptr(), do32.data_ptr(), do.data_ptr(), delta.data_ptr(), dw.data_ptr(),
-        work.data_ptr(), rows, S, e, h, d, kernels.WGRAD_ROWS, *kernels.launch_args(x3, "K10"),
-    )
+    rows = G * S
+    lib = kernels.library()
+    dtype, device, stream = kernels.launch_args(x3, "K10")
+    bufs = _epilogue_bwd_buffers(x3, o, h, body)
+    ptrs = [t.data_ptr() for t in (x3, o, wout, g) + bufs]
+    if body == "wgmma":
+        rc = lib.mmpfn_item_epilogue_bwd_wg(*ptrs, rows, S, e, h, d, kernels.WGRAD_ROWS, device, stream)
+        du_c, do, delta, dw = bufs[:4]
+    else:
+        rc = lib.mmpfn_item_epilogue_bwd(*ptrs, rows, S, e, h, d, kernels.WGRAD_ROWS, dtype, device, stream)
+        _, du_c, _, do, delta, dw = bufs[:6]
     kernels.check(rc, "K10")
     kernels.LAUNCHES["K10"] += 1
+    kernels.BODY_LAUNCHES[f"K10 {body}"] += 1
     return du_c, do, delta, dw.reshape(h, d, e)
 
 

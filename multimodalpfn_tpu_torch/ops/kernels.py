@@ -49,11 +49,13 @@ LAUNCHES: dict[str, int] = {
 # `ops/item_fused.py:item_epilogue_body`; K1, K5, K6a, K6b:
 # `ops/fused.py:feat_attn_body`; K7, K7s, by the body of their per-row
 # attention: `ops/fused.py:feat_attn_bwd_body`; K8:
-# `ops/fused.py:mlp_bwd_body`); each also counts in LAUNCHES
+# `ops/fused.py:mlp_bwd_body`; K10: `ops/item_fused.py:item_epilogue_bwd_body`);
+# each also counts in LAUNCHES
 BODY_LAUNCHES: dict[str, int] = {
     f"{kid} {body}": 0 for kid in ("K3", "K2b") for body in ("wgmma", "mma_sync", "cuda_cores")
 } | {f"{kid} {body}": 0 for kid in ("K1", "K5", "K6a", "K6b", "K7", "K7s")
-     for body in ("wgmma", "cuda_cores")} | {"K8 wgmma": 0, "K8 sequence": 0}
+     for body in ("wgmma", "cuda_cores")} | {f"{kid} {body}": 0 for kid in ("K8", "K10")
+                                             for body in ("wgmma", "sequence")}
 
 
 # Rows of the weight-gradient contractions per block: each chunk's float32
@@ -118,6 +120,9 @@ _SIGNATURES = {
     # (x, o, wout, g, u, du_c, do32, do, delta, dw, work,
     #  rows, s, e, h, d, wgrad_rows, dtype, device, stream)
     "mmpfn_item_epilogue_bwd": [_P] * 11 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (x, o, wout, g, du_c, do, delta, dw, work,
+    #  rows, s, e, h, d, wgrad_rows, device, stream): bf16 only
+    "mmpfn_item_epilogue_bwd_wg": [_P] * 9 + [_L, _I, _I, _I, _I, _I, _I, _P],
     # (a, b, c, work, M, N, K, a_t, b_t, k_chunk, device, stream)
     "mmpfn_gemm_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
 }

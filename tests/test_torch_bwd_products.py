@@ -1,7 +1,8 @@
 """The reckoning of the fine-tune backward's launch sequences in
 `chip_smoke.py` (`bwd_products`: what each launch of K7 and of both bodies
-of K8, its row pass and its sequence, reads and writes), against phase 8's
-FLOP counts and the buffers that `ops/fused.py` allocates; and the plain
+of K8 and of K10, their row passes and their sequences, reads and writes),
+against phase 8's FLOP counts and the buffers that `ops/fused.py` and
+`ops/item_fused.py` allocate; and the plain
 version of the product tile's direct entry `kernels.gemm_bf16`. CPU only:
 shapes on the meta device, no kernel launched.
 """
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
-from multimodalpfn_tpu_torch.ops import fused, kernels
+from multimodalpfn_tpu_torch.ops import fused, item_fused, kernels
 
 DTYPES = {"cd": torch.bfloat16, "f32": torch.float32}
 
@@ -30,10 +31,10 @@ def _flops(prods):
 def test_products_add_up_to_phase_8_flops(dims):
     """Each body's products add up to phase 8's FLOPs: the launches of the
     product tile, and K8's row pass's products on chip less the forward it
-    recomputes (its z = x·W1 a second time)."""
+    recomputes (its z = x·W1 a second time); K10's two bodies likewise."""
     seqs = chip_smoke.bwd_products(dims)
     want = chip_smoke.bwd_flops(dims)
-    for kid in ("K7", "K8", "K8 sequence"):
+    for kid in ("K7", "K8", "K8 sequence", "K10", "K10 sequence"):
         got = _flops(_products(seqs[kid]))
         for ln in seqs[kid]["launches"]:
             on_chip = ln.get("products", [])
@@ -47,13 +48,15 @@ def test_products_add_up_to_phase_8_flops(dims):
 
 @pytest.mark.parametrize("dims", [chip_smoke.FT_DIMS, (1, 5, 37, 21, 48, 3, 16, 96)])
 def test_products_name_the_buffers_fused_allocates(dims):
-    """Every buffer of the reckoning that `ops/fused.py` allocates has the
+    """Every buffer of the reckoning that `ops/fused.py` or
+    `ops/item_fused.py` allocates has the
     shape and dtype it allocates (bf16 compute dtype), every slab view fits
     in the workspace, each product's operands have its shapes, and every
     launch reads and writes named buffers only."""
     b, t, S, _, e, h, d, nhid = dims
     rows = b * t * S
     x = torch.empty((b, t, S, e), dtype=torch.bfloat16, device="meta")
+    x3, o = x.reshape(b * t, S, e), torch.empty((b * t, S, h * d), dtype=torch.bfloat16, device="meta")
     allocated = {
         "K8": dict(zip(("gz", "du_c", "dz", "dx", "dw1", "dw2", "work"),
                        fused._mlp_bwd_wg_buffers(x, rows, nhid))),
@@ -61,6 +64,10 @@ def test_products_name_the_buffers_fused_allocates(dims):
                                 fused._mlp_bwd_buffers(x, rows, nhid))),
         "K7": dict(zip(("qkv", "o", "u", "du", "du_c", "do", "dqkv", "dx", "dwqkv", "dwout", "work"),
                        fused._attn_bwd_buffers(x, rows, h * d))),
+        "K10": dict(zip(("du_c", "do", "delta", "dw", "work"),
+                        item_fused._epilogue_bwd_buffers(x3, o, h, "wgmma"))),
+        "K10 sequence": dict(zip(("u", "du_c", "do32", "do", "delta", "dw", "work"),
+                                 item_fused._epilogue_bwd_buffers(x3, o, h, "sequence"))),
     }
     for kid, seq in chip_smoke.bwd_products(dims).items():
         bufs = seq["buffers"]

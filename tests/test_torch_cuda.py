@@ -575,6 +575,51 @@ def test_k8_row_pass_and_the_f32_sequence(cuda):
     assert chip_smoke.f32_fingerprints(cuda)["K8 f32"] == chip_smoke.PARENT_F32_SHA256["K8 f32"]
 
 
+@pytest.mark.parametrize("e", [64, 128, 192])
+@pytest.mark.parametrize("h,d", [(2, 32), (4, 32), (6, 32), (8, 32), (4, 48), (8, 8), (2, 128)])
+@pytest.mark.parametrize("G,S", [(1, 64), (3, 37), (2, 150)])
+def test_k10_row_pass_matches_plain(cuda, e, h, d, G, S):
+    """bf16 K10 on its row pass (`item_fused.item_epilogue_bwd_body`) at
+    e = 64, 128, 192 and h·d = 64 ... 256 (heads of d = 48 and 128 across
+    its 64-column chunks), on one whole unit of rows and on ragged groups
+    that its 64-row units straddle: du, do, delta and dW_out within 2**-6
+    of their own largest magnitude of the plain version; a repeat gives the
+    same bits; every launch counted on the row pass."""
+    gen = torch.Generator().manual_seed(100 * e + 10 * h + d + G * S)
+    hd = h * d
+    x3, g3 = (_rand(gen, G, S, e, device=cuda).to(torch.bfloat16) for _ in range(2))
+    o = _rand(gen, G, S, hd, device=cuda).to(torch.bfloat16)
+    w_out = _rand(gen, h, d, e, scale=hd**-0.5, device=cuda)
+    assert item_fused.item_epilogue_bwd_body(torch.bfloat16, e, hd, d) == "wgmma"
+    before = kernels.BODY_LAUNCHES["K10 wgmma"]
+    got, again = item_fused.item_epilogue_bwd(x3, o, w_out, g3), item_fused.item_epilogue_bwd(x3, o, w_out, g3)
+    assert kernels.BODY_LAUNCHES["K10 wgmma"] == before + 2
+    for i, (a, c, w) in enumerate(zip(got, again, item_fused.item_epilogue_bwd_plain(x3, o, w_out, g3))):
+        assert a.dtype == w.dtype and a.shape == w.shape, i
+        assert torch.equal(a, c), f"output {i} differs between runs"
+        rel = (a.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)
+        assert rel <= 2.0**-6, f"output {i}: rel err {float(rel):.3e}"
+
+
+def test_k10_row_pass_and_the_f32_sequence(cuda):
+    """bf16 K10 at the flagship's widths runs its row pass and no other
+    body; float32 K10 runs the sequence, whose outputs keep the bits
+    recorded in `chip_smoke.PARENT_F32_SHA256` (`chip_smoke.f32_fingerprints`)."""
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(20)
+    e, h, d = 192, 6, 32
+    x3, g3, o = (_rand(gen, 3, 70, w, device=cuda) for w in (e, e, h * d))
+    w_out = _rand(gen, h, d, e, scale=(h * d) ** -0.5, device=cuda)
+    before = {k: kernels.BODY_LAUNCHES[f"K10 {k}"] for k in ("wgmma", "sequence")}
+    item_fused.item_epilogue_bwd(x3.to(torch.bfloat16), o.to(torch.bfloat16), w_out, g3.to(torch.bfloat16))
+    assert kernels.BODY_LAUNCHES["K10 wgmma"] == before["wgmma"] + 1
+    assert kernels.BODY_LAUNCHES["K10 sequence"] == before["sequence"]
+    item_fused.item_epilogue_bwd(x3, o, w_out, g3)
+    assert kernels.BODY_LAUNCHES["K10 sequence"] == before["sequence"] + 1
+    assert chip_smoke.f32_fingerprints(cuda)["K10 f32"] == chip_smoke.PARENT_F32_SHA256["K10 f32"]
+
+
 # token counts that change how a 64-row tile of K7's per-row attention packs
 # whole samples (64 // t of them): one key, two, ragged rows, the episode's
 # 30, a tile of one sample from 33 on, no idle row at 64

@@ -25,14 +25,15 @@ the ``fit_preprocessors``, KV-cache prime and predict and fine-tune episode
 shapes beside ``torch.matmul`` on its two products, K4 at the KV-cache
 prime and predict shapes and at the flash fine-tune's three blocks),
 backward ids (K7, K7s, K8, K9, K10, K11) phase 8's at the fine-tune
-shape (`chip_smoke.phase_bwd_kernels`: for K7, K7s and K8 each launch of
-the sequence by profiler name beside ``torch.matmul`` on operands of its
+shape (`chip_smoke.phase_bwd_kernels`: for K7, K7s, K8 and K10 each launch
+of the sequence by profiler name beside ``torch.matmul`` on operands of its
 shapes and its bytes bound, K7's and K7s' per-row attention launches also
-beside SDPA and its backward); each in float32 and bf16 beside its plain version and
+beside SDPA and its backward; K8 and K10 also their row pass's further
+cases, `K8_CASES` and `K10_CASES`); each in float32 and bf16 beside its plain version and
 bound, and each must pass `chip_smoke.py`'s error bounds. ``--tile`` adds,
 where the tree has it, the bf16 product tile alone (`kernels.gemm_bf16`,
 float32 out, weight gradients in chunks of `kernels.WGRAD_ROWS`) on each of
-K7's and K8's products beside ``torch.matmul``. Then
+K7's, K8's and K10's products beside ``torch.matmul``. Then
 `chip_smoke.f32_fingerprints` (the CUDA-core bodies' bits).
 
 The last line is a JSON object with the card, the package root, the build
@@ -55,7 +56,7 @@ BWD_IDS = ("K7", "K7s", "K8", "K9", "K10", "K11")
 
 
 def tile_alone(smoke, kernels, device, iters) -> dict:
-    """Each product of K7's and K8's sequences through `kernels.gemm_bf16`
+    """Each product of K7's, K8's and K10's sequences through `kernels.gemm_bf16`
     on random bf16 operands of its shapes, beside ``torch.matmul``."""
     import torch
 
@@ -82,7 +83,7 @@ def main() -> int:
     ap.add_argument("--only", default="K2a,K2b,K3,K4,K7,K8,K9,K10",
                     help="comma-separated kernel ids (default: %(default)s)")
     ap.add_argument("--tile", action="store_true",
-                    help="also time the bf16 product tile alone on K7's and K8's products")
+                    help="also time the bf16 product tile alone on K7's, K8's and K10's products")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
