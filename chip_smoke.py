@@ -187,6 +187,19 @@ CUDA-core body).
    finite; the snapshot keeps the borders and ``MMPFNRegressor`` serves it;
    then three float32 steps on 3 layers, kernel path against plain path, as
    phase 10.
+26. (Run after 18.) The regressor of phase 15 with each quantile and robust
+   target transform, ``REGRESSION_Y_PREPROCESS_TRANSFORMS=(None, name)`` for
+   ``quantile_uni_coarse``, ``quantile_norm_coarse``, ``quantile_uni``,
+   ``quantile_norm``, ``quantile_uni_fine``, ``quantile_norm_fine`` and
+   ``robust``: the members' target transforms checked against the name; one
+   bf16 ``predict(output_type="full")`` of the 460 test rows with the
+   counters zeroed just before, checked as phase 15's (K1 or K6a, K2a, K2b,
+   K3 on their wgmma bodies; every answer as `check_regression`), then the
+   same request warm, split into dispatch + forward + fetch and host
+   finalize (the borders go back through the quantile or robust inverse on
+   the host). ``quantile_norm`` and ``robust`` also in ``fit_with_cache`` as
+   phase 17 (K6b, K4, K3; ``predict_many`` equal to sequential predict bit
+   for bit) and as phase 16's float32 kernel path against plain path.
 
 19. The sweep, served by the kernels: ``fine_tune_batched_cells``
    (`train/finetune_batch.py`) on the same data and model at full width,
@@ -483,6 +496,12 @@ REG_PROBA_ABS_BOUND = 1e-4
 REG_STAT_REL_BOUND = 1e-4
 REG_MONOTONE_SLACK = 1e-6
 REG_FT_STEPS = 20
+# phase 26: the regressor's quantile and robust target transforms, each as the
+# second member pair's (None, name); the cached mode and the float32 gates
+# take two of them
+REG_TARGET_NAMES = ("quantile_uni_coarse", "quantile_norm_coarse", "quantile_uni", "quantile_norm",
+                    "quantile_uni_fine", "quantile_norm_fine", "robust")
+REG_TARGET_CACHED = ("quantile_norm", "robust")
 # resume: the first call's steps and state cadence (the state is written
 # before step 4, so it holds the state after step 3; the resumed call runs
 # steps 4 to 6)
@@ -2500,16 +2519,17 @@ def phase_regressor_served(device, model_path, data, request_sizes, n_layers, fi
     return out
 
 
-def phase_regressor_kernel_vs_plain(device, model_path, data) -> dict:
+def phase_regressor_kernel_vs_plain(device, model_path, data, **kw) -> dict:
     """float32 ``predict(output_type="full")`` of the kernel path against the
-    plain path of the same fitted regressor (fit_preprocessors): the averaged
-    bar probabilities within `REG_PROBA_ABS_BOUND`, the mean, median and
-    quantiles within `REG_STAT_REL_BOUND` of std(y_train)."""
+    plain path of the same fitted regressor (fit_preprocessors; ``kw`` to
+    `make_regressor`): the averaged bar probabilities within
+    `REG_PROBA_ABS_BOUND`, the mean, median and quantiles within
+    `REG_STAT_REL_BOUND` of std(y_train)."""
     import numpy as np
 
     X_tr, img_tr, y_tr, X_te, img_te = data
     scale = float(np.std(y_tr))
-    reg = make_regressor(device, model_path, inference_precision="float32")
+    reg = make_regressor(device, model_path, inference_precision="float32", **kw)
     reg.fit(X_tr, img_tr, y_tr)
     answers = {}
     for use_kernels in (True, False):
@@ -2528,6 +2548,100 @@ def phase_regressor_kernel_vs_plain(device, model_path, data) -> dict:
     check(prob_err <= REG_PROBA_ABS_BOUND, f"regressor bar probabilities differ by {prob_err:.3e}")
     check(max(stat_err.values()) <= REG_STAT_REL_BOUND, f"regressor statistics differ: {stat_err}")
     return dict(prob_err=prob_err, stat_err=stat_err)
+
+
+def target_transforms_of(reg) -> list:
+    """Each member's target transform as (class name, output distribution,
+    n_quantiles), None for none."""
+    return [None if (t := m.config.target_transform) is None else
+            (type(t).__name__, getattr(t, "output_distribution", None), getattr(t, "n_quantiles", None))
+            for m in reg.executor_.members]
+
+
+def phase_regressor_targets(device, model_path, data, n_layers) -> dict:
+    """The regressor through the public API in bf16 with
+    ``REGRESSION_Y_PREPROCESS_TRANSFORMS=(None, name)`` for each name of
+    `REG_TARGET_NAMES`: the members' target transforms checked against the
+    name (two members with its transform, two with none); one
+    ``predict(output_type="full")`` of every test row with the launch
+    counters zeroed just before and checked as the classifier's
+    (`check_served_launches`), the answer checked by `check_regression`; then
+    the same request warm, timed as phase 15 (dispatch, forward and fetch;
+    host finalize). For each name of `REG_TARGET_CACHED`, ``fit_with_cache``:
+    the counters zeroed before the fit, phase 15's three requests, and
+    ``predict_many`` over them equal to the sequential answers bit for bit;
+    and its float32 kernel path against the plain path
+    (`phase_regressor_kernel_vs_plain`). Returns the launches summed over the
+    runs of each mode and the timings by name."""
+    import numpy as np
+    import torch
+
+    from multimodalpfn_tpu_torch.ops import kernels
+    from multimodalpfn_tpu_torch.preprocess.steps import ReshapeFeatureDistributionsStep
+
+    X_tr, img_tr, y_tr, X_te, img_te = data
+    scale = float(np.std(y_tr))
+    n = len(X_te)
+    out = {"launches": dict.fromkeys(kernels.LAUNCHES, 0), "launches_cached": dict.fromkeys(kernels.LAUNCHES, 0),
+           "warm_device": {}, "warm_host": {}, "many_ms": {}, "f32": {}}
+
+    def fitted(name, fit_mode):
+        reg = make_regressor(device, model_path, fit_mode=fit_mode,
+                             inference_config={"REGRESSION_Y_PREPROCESS_TRANSFORMS": (None, name)})
+        if fit_mode == "fit_with_cache":
+            kernels.reset_launches()
+        reg.fit(X_tr, img_tr, y_tr)
+        want = ReshapeFeatureDistributionsStep.make_transformer(name, num_examples=len(y_tr), random_state=0)
+        want = (type(want).__name__, getattr(want, "output_distribution", None),
+                getattr(want, "n_quantiles", None))
+        got = target_transforms_of(reg)
+        print(f"  {name} ({fit_mode}): member target transforms {got}", flush=True)
+        check(got.count(want) == 2 and got.count(None) == 2,
+              f"{name}: the members' target transforms are {got}, expected two {want}")
+        return reg
+
+    for name in REG_TARGET_NAMES:
+        reg = fitted(name, "fit_preprocessors")
+        plans = planned_groups(reg, False, [n])
+        kernels.reset_launches()
+        full = reg.predict(X_te, img_te, output_type="full")
+        check_regression(full, n, scale, f"{name}: request of {n} rows")
+        launches = check_served_launches(device, "fit_preprocessors", plans, 1, n_layers)
+        out["launches"] = {k: v + launches[k] for k, v in out["launches"].items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs = reg.executor_.finalize_outputs(reg._dispatch_predict(X_te, img_te))
+        t1 = time.perf_counter()
+        reg.predict_from_outputs(outputs, output_type="full")
+        t2 = time.perf_counter()
+        out["warm_device"][name], out["warm_host"][name] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        print(f"  {name}: warm request of {n} rows {(t2 - t0) * 1e3:.1f} ms = dispatch + forward + fetch "
+              f"{(t1 - t0) * 1e3:.1f} ms + host finalize {(t2 - t1) * 1e3:.1f} ms; mean of the means "
+              f"{full['mean'].mean():.4f} (y_train mean {float(np.mean(y_tr)):.4f}, std {scale:.4f})", flush=True)
+
+    sizes = [n, min(128, n), min(300, n)]
+    for name in REG_TARGET_CACHED:
+        reg = fitted(name, "fit_with_cache")
+        plans = planned_groups(reg, True, sizes)
+        reqs = [(X_te[:k], img_te[:k]) for k in sizes]
+        answers = [reg.predict(*r, output_type="full") for r in reqs]
+        for k, full in zip(sizes, answers):
+            check_regression(full, k, scale, f"{name} (fit_with_cache): request of {k} rows")
+        launches = check_served_launches(device, "fit_with_cache", plans, len(sizes), n_layers)
+        out["launches_cached"] = {k: v + launches[k] for k, v in out["launches_cached"].items()}
+        t0 = time.perf_counter()
+        many = reg.predict_many([r[0] for r in reqs], [r[1] for r in reqs], output_type="full")
+        out["many_ms"][name] = (time.perf_counter() - t0) * 1e3
+        same = all(np.array_equal(a[k], b[k]) for a, b in zip(many, answers)
+                   for k in ("logits", "mean", "median", "mode", "quantiles"))
+        print(f"  {name} (fit_with_cache): predict_many over the {len(reqs)} requests "
+              f"{out['many_ms'][name]:.1f} ms, equal to the sequential answers: {same}", flush=True)
+        check(same, f"{name}: predict_many differs from sequential predict")
+        print(f"  {name}: float32 kernel path against plain path", flush=True)
+        out["f32"][name] = phase_regressor_kernel_vs_plain(
+            device, model_path, data, inference_config={"REGRESSION_Y_PREPROCESS_TRANSFORMS": (None, name)})
+    return out
 
 
 def phase_profile_sweep(device, model_path, data, top: int = 16) -> dict:
@@ -3538,7 +3652,8 @@ def kernel_rows(kres: dict, launches: dict) -> list[dict]:
             row["launches_ring_forward"] = launches["ring_forward"][kid]
             row["launches_ring_step"] = launches["ring_step"][kid]
             row["launches_ring_nccl"] = launches["ring_nccl"][kid]
-        for path in ("regressor", "regressor_cached", "regressor_finetune", "sweep", "sweep_padded_mgm",
+        for path in ("regressor", "regressor_cached", "regressor_finetune", "regressor_targets",
+                     "regressor_targets_cached", "sweep", "sweep_padded_mgm",
                      "study_cross_cell", "study_sequential", "dinov2", "cli_published", "cli_experiment",
                      "cli_finetune", "examples"):
             row[f"launches_{path}"] = launches[path][kid]
@@ -3740,6 +3855,10 @@ def main() -> int:
                          ROOT / "build" / "chip_smoke_regressor_finetuned.ckpt", task="regression")
     rft_cmp = phase_finetune_kernel_vs_plain(device, reg_path, (X, img, y_reg), cmp_layers,
                                              task="regression")
+    print(f"== phase 26: MMPFNRegressor with the target transforms {', '.join(REG_TARGET_NAMES)}: "
+          f"served in fit_preprocessors, {' and '.join(REG_TARGET_CACHED)} also in fit_with_cache and as "
+          "float32 kernel path against plain path", flush=True)
+    rtt = phase_regressor_targets(device, reg_path, reg_data, 12)
 
     sweep_steps = 2 if args.rehearse else SWEEP_STEPS
     sweep_data = (X[:300], img[:300], y[:300]) if args.rehearse else ft_data
@@ -3792,7 +3911,9 @@ def main() -> int:
     rows = kernel_rows(kres, {"preproc": pre["launches"], "cached": kv["launches"],
                               "finetune": ft["launches"], "flash_finetune": fl["launches"],
                               "regressor": rpre["launches"], "regressor_cached": rkv["launches"],
-                              "regressor_finetune": rft["launches"], "sweep": sw["launches"],
+                              "regressor_finetune": rft["launches"],
+                              "regressor_targets": rtt["launches"],
+                              "regressor_targets_cached": rtt["launches_cached"], "sweep": sw["launches"],
                               "sweep_padded_mgm": sw32["c"]["launches"],
                               "study_cross_cell": study["cross_cell"]["launches"],
                               "study_sequential": study["sequential"]["launches"],
@@ -3815,7 +3936,9 @@ def main() -> int:
           f"{rpre['warm_host']}), fit_with_cache fit {rkv['fit_ms']:.1f} ms, warm {rkv['warm']} "
           f"(host finalize {rkv['warm_host']}), f32 probabilities err {rcmp['prob_err']:.3e}; "
           f"regression fine-tune {rft['hist']['steps']} steps, warm step {rft['warm_step_ms']:.1f} ms, "
-          f"f32 kernel vs plain grads {rft_cmp['grad_rel']:.2e}; sweep of {len(sw['hist']['best_val_error'])} "
+          f"f32 kernel vs plain grads {rft_cmp['grad_rel']:.2e}; target transforms: host finalize ms "
+          f"{ {k: round(v, 1) for k, v in rtt['warm_host'].items()} }, f32 probabilities err "
+          f"{ {k: round(v['prob_err'], 9) for k, v in rtt['f32'].items()} }; sweep of {len(sw['hist']['best_val_error'])} "
           f"runs: warm sweep step {sw['warm_step_ms']:.1f} ms ({sw['per_run_ms']:.1f} ms per run), f32 "
           f"kernel vs plain loss {sw32['a']['loss_rel']:.2e} params {sw32['a']['param_err']:.2e}, padded vs "
           f"unpadded mixers {sw32['b_lr1e-12']['mixer_err']:.2e}; study {study['cross_cell']['wall_s']:.1f} s "

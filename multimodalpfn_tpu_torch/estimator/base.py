@@ -15,7 +15,12 @@ import torch
 
 from multimodalpfn_tpu_torch.estimator.data_utils import OrdinalEncoder, fix_dtypes
 from multimodalpfn_tpu_torch.models.download import ensure_model, resolve_model_path
-from multimodalpfn_tpu_torch.models.loading import LoadedModel, load_model
+from multimodalpfn_tpu_torch.models.loading import (
+    DEFAULT_CLASSIFIER_CONFIG,
+    DEFAULT_REGRESSOR_CONFIG,
+    LoadedModel,
+    load_model,
+)
 
 
 class NotFittedError(ValueError, AttributeError):
@@ -77,6 +82,13 @@ def _cache_dir() -> Path:
     if env:
         return Path(env)
     return Path.home() / ".cache" / "multimodalpfn_tpu"
+
+
+def default_model_config(which: Literal["classifier", "regressor"]) -> dict:
+    """The published TabPFN-v2 architecture (reference `model/config.py:25-84`,
+    `loading.py:492-495`): a copy of `models/loading.py`'s dict for the
+    classifier, else the regressor's."""
+    return dict(DEFAULT_CLASSIFIER_CONFIG if which == "classifier" else DEFAULT_REGRESSOR_CONFIG)
 
 
 def resolve_auto_checkpoint(which: Literal["classifier", "regressor"] = "classifier") -> Path:

@@ -6,7 +6,8 @@ re-implements the reference `mmpfn/models/mmpfn/model/bar_distribution.py`
 `get_bucket_limits:761-843`), on torch tensors. The methods are the JAX
 package's, formula for formula (masked ``where`` rather than boolean
 indexing), so the loss differentiates through plain autograd. Numpy borders
-become float32, as they do in JAX with x64 off; ``plot`` is not ported.
+become float32, as they do in JAX with x64 off. ``plot`` imports matplotlib
+when it is called, and nothing else of the port imports it.
 
 The softmax's row sum and the cumsum over the bars add in the order the JAX
 package's compiled programs add on the CPU (XLA sums a row in windows of 32,

@@ -43,7 +43,7 @@ from multimodalpfn_tpu_torch.models.transformer import (
     positional_embedding,
     residual_ln,
 )
-from multimodalpfn_tpu_torch.ops.attention import mha
+from multimodalpfn_tpu_torch.ops.attention import mha, self_attention
 from multimodalpfn_tpu_torch.ops.flash import flash_attention
 from multimodalpfn_tpu_torch.ops.fused import (
     MAX_FUSED_ATTN_TOKENS,
@@ -228,7 +228,7 @@ def _feat_sublayer(
         return fused_feature_attention_ln(st.to(cd), w_qkv, w_out, key_mask=km)
     st = st.to(cd)
     km = None if token_valid is None else token_valid[:, None, None, None, :]
-    return residual_ln(st, mha(st, st, w_qkv, w_out, compute_dtype=cd, key_mask=km))
+    return residual_ln(st, self_attention(st, w_qkv, w_out, compute_dtype=cd, key_mask=km))
 
 
 def _mlp_sublayer(st: torch.Tensor, lp: dict, cd: torch.dtype, cfg: ModelConfig) -> torch.Tensor:

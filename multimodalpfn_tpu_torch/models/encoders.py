@@ -11,6 +11,8 @@ reproduces the reference's ``select_features`` batch>1 semantics
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from multimodalpfn_tpu_torch.models.config import ModelConfig
@@ -154,6 +156,50 @@ def flatten_targets(y: torch.Tensor, sep: int) -> torch.Tensor:
     )
     below = (t[:, None, :] < y[:, :, None]) & is_first[:, None, :]
     return below.sum(dim=-1).to(y.dtype)
+
+
+def frequency_features(
+    x: torch.Tensor,
+    num_frequencies: int,
+    freq_power_base: float = 2.0,
+    max_wave_length: float = 4.0,
+) -> torch.Tensor:
+    """`FrequencyFeatureEncoderStep` (`encoders.py:785-852`): each feature
+    followed by its sines and cosines at ``num_frequencies`` geometrically
+    spaced wavelengths, the longest ``max_wave_length``.
+    ``(..., F) -> (..., F·(1 + 2K))``. The forward does not call it (nor does
+    the JAX package's)."""
+    waves = torch.tensor([freq_power_base**i for i in range(num_frequencies)], dtype=torch.float32,
+                         device=x.device)
+    waves = waves / waves[-1] * max_wave_length
+    ext = x[..., None] / waves * 2 * math.pi
+    feats = torch.cat([x[..., None], torch.sin(ext), torch.cos(ext)], dim=-1)
+    return feats.reshape(*x.shape[:-1], -1)
+
+
+def categorical_embedding_encoder(
+    params: dict, x: torch.Tensor, is_categorical: torch.Tensor, continuous_embs: torch.Tensor
+) -> torch.Tensor:
+    """`CategoricalInputEncoderPerFeatureEncoderStep` (`encoders.py:855-918`):
+    a categorical feature's code looks up ``params["embedding"]``
+    ``(num_embs, e)`` (truncated and clipped to ``[0, num_embs - 2]``; NaN
+    or inf takes the last slot), a continuous one keeps ``continuous_embs``
+    ``(b, s, f, e)``. x ``(b, s, f)``, is_categorical ``(b, f)`` bool. The
+    forward does not call it."""
+    table = params["embedding"]
+    num_embs = table.shape[0]
+    bad = torch.isnan(x) | torch.isinf(x)
+    # clipped as a float, then truncated: a float-to-int cast that saturates
+    idx = torch.where(bad, 0.0, x).clamp(0, num_embs - 2).to(torch.int64)
+    idx = torch.where(bad, num_embs - 1, idx)
+    return torch.where(is_categorical[:, None, :, None], table[idx], continuous_embs)
+
+
+def style_encoder(params: dict, hyperparameters: torch.Tensor) -> torch.Tensor:
+    """`StyleEncoder` (`encoders.py:921-928`): a linear embedding of style or
+    hyperparameter vectors, ``hyperparameters @ w + b``. The forward does not
+    call it."""
+    return hyperparameters @ params["w"] + params["b"]
 
 
 def encode_y(params_y: dict, cfg: ModelConfig, y: torch.Tensor, sep: int) -> torch.Tensor:

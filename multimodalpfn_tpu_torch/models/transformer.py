@@ -31,7 +31,7 @@ from multimodalpfn_tpu_torch.models.config import ModelConfig
 from multimodalpfn_tpu_torch.models.encoders import encode_x, encode_y
 from multimodalpfn_tpu_torch.models.mixers import apply_mixer
 from multimodalpfn_tpu_torch.models.params import get_subspace_noise
-from multimodalpfn_tpu_torch.ops.attention import can_use_fused_item, item_attention, mha
+from multimodalpfn_tpu_torch.ops.attention import can_use_fused_item, item_attention, self_attention
 from multimodalpfn_tpu_torch.ops.fused import (
     MAX_FUSED_ATTN_TOKENS,
     fused_feature_attention_ln_im,
@@ -171,8 +171,8 @@ def encoder_layer(
     cd = DTYPES[cfg.compute_dtype]
     state = state.to(cd)
     km = None if token_valid is None else token_valid[:, None, None, None, :]  # (b, s, h, q, k)
-    h = mha(state, state, lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"], compute_dtype=cd,
-            key_mask=km)
+    h = self_attention(state, lp["attn_feat"]["w_qkv"], lp["attn_feat"]["w_out"], compute_dtype=cd,
+                       key_mask=km)
     state = residual_ln(state, h)
     state = _item_sublayer(
         state.transpose(1, 2), lp, single_eval_pos=single_eval_pos, cfg=cfg

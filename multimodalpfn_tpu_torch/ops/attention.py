@@ -97,6 +97,18 @@ def mha(
     return torch.einsum("...qhd,hdo->...qo", o, w_out.to(cd))
 
 
+def self_attention(
+    x: torch.Tensor,
+    w_qkv: torch.Tensor,
+    w_out: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    key_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """`mha` of x over itself: queries, keys and values all from x."""
+    return mha(x, x, w_qkv, w_out, compute_dtype=compute_dtype, key_mask=key_mask)
+
+
 def _masked(logits: torch.Tensor, key_mask: torch.Tensor | None) -> torch.Tensor:
     if key_mask is None:
         return logits

@@ -169,10 +169,23 @@ class QuantileTransformer(Transformer):
         self.quantiles_ = np.nanpercentile(X, references, axis=0)
         return self
 
-    def _transform_col(self, X_col, quantiles):
-        lower_bound_x, upper_bound_x = quantiles[0], quantiles[-1]
+    def _transform_col(self, X_col, quantiles, inverse: bool):
+        """One feature onto the output distribution, or back from it with
+        ``inverse`` (`_data.py:2923-2986`): the inverse takes a normal
+        output through ``norm.cdf`` first, marks the bounds on [0, 1] and
+        interpolates ``references_`` onto the quantiles."""
+        normal = self.output_distribution == "normal"
+        if not inverse:
+            lower_bound_x, upper_bound_x = quantiles[0], quantiles[-1]
+            lower_bound_y, upper_bound_y = 0, 1
+        else:
+            lower_bound_x, upper_bound_x = 0, 1
+            lower_bound_y, upper_bound_y = quantiles[0], quantiles[-1]
+            if normal:
+                with np.errstate(invalid="ignore"):
+                    X_col = stats.norm.cdf(X_col)
         with np.errstate(invalid="ignore"):  # NaN comparisons
-            if self.output_distribution == "normal":
+            if normal:
                 lower_bounds_idx = X_col - BOUNDS_THRESHOLD < lower_bound_x
                 upper_bounds_idx = X_col + BOUNDS_THRESHOLD > upper_bound_x
             else:
@@ -180,14 +193,17 @@ class QuantileTransformer(Transformer):
                 upper_bounds_idx = X_col == upper_bound_x
         isfinite_mask = ~np.isnan(X_col)
         X_col_finite = X_col[isfinite_mask]
-        # interpolate from both ends and average, for repeated quantiles
-        X_col[isfinite_mask] = 0.5 * (
-            np.interp(X_col_finite, quantiles, self.references_)
-            - np.interp(-X_col_finite, -quantiles[::-1], -self.references_[::-1])
-        )
-        X_col[upper_bounds_idx] = 1
-        X_col[lower_bounds_idx] = 0
-        if self.output_distribution == "normal":
+        if not inverse:
+            # interpolate from both ends and average, for repeated quantiles
+            X_col[isfinite_mask] = 0.5 * (
+                np.interp(X_col_finite, quantiles, self.references_)
+                - np.interp(-X_col_finite, -quantiles[::-1], -self.references_[::-1])
+            )
+        else:
+            X_col[isfinite_mask] = np.interp(X_col_finite, self.references_, quantiles)
+        X_col[upper_bounds_idx] = upper_bound_y
+        X_col[lower_bounds_idx] = lower_bound_y
+        if not inverse and normal:
             with np.errstate(invalid="ignore"):
                 X_col = stats.norm.ppf(X_col)
                 clip_min = stats.norm.ppf(BOUNDS_THRESHOLD - np.spacing(1))
@@ -195,11 +211,22 @@ class QuantileTransformer(Transformer):
                 X_col = np.clip(X_col, clip_min, clip_max)
         return X_col
 
-    def transform(self, X):
+    def _transform(self, X, inverse: bool):
         X = _check_array(X, copy=True)
+        if X.shape[1] != self.quantiles_.shape[1]:
+            raise ValueError(f"X has {X.shape[1]} features, but QuantileTransformer is expecting "
+                             f"{self.quantiles_.shape[1]} features as input.")
         for i in range(X.shape[1]):
-            X[:, i] = self._transform_col(X[:, i], self.quantiles_[:, i])
+            X[:, i] = self._transform_col(X[:, i], self.quantiles_[:, i], inverse)
         return X
+
+    def transform(self, X):
+        return self._transform(X, inverse=False)
+
+    def inverse_transform(self, X):
+        """Back from the output distribution to the feature's scale; NaN
+        stays NaN."""
+        return self._transform(X, inverse=True)
 
 
 class StandardScaler(Transformer):
@@ -300,6 +327,13 @@ class RobustScaler(Transformer):
         X = _check_array(X, copy=True)
         X -= self.center_
         X /= self.scale_
+        return X
+
+    def inverse_transform(self, X):
+        """Scaled back by ``scale_``, then ``center_`` added."""
+        X = _check_array(X, copy=True)
+        X *= self.scale_
+        X += self.center_
         return X
 
 

@@ -184,3 +184,23 @@ class EpisodeSampler:
             train_idx = np.concatenate([train_idx, test_idx[:cut]])
             test_idx = test_idx[cut:]
         return train_idx, test_idx
+
+    def sample(self, batch_size: int = 1) -> dict[str, np.ndarray]:
+        """``batch_size`` episodes' rows stacked on a leading axis, float32:
+        ``y_train``, ``y_test``, and ``x_train``, ``x_test`` and
+        ``image_train``, ``image_test`` where the sampler holds X and images."""
+        idx = self.sample_indices(batch_size)
+        out = {}
+        for key, rows in (("y", self.y), ("x", self.X), ("image", self.image)):
+            if rows is not None:
+                out[f"{key}_train"] = rows[idx["train_idx"]].astype(np.float32)
+                out[f"{key}_test"] = rows[idx["test_idx"]].astype(np.float32)
+        return out
+
+    def sample_indices(self, batch_size: int = 1) -> dict[str, np.ndarray]:
+        """``batch_size`` episodes' row indices: int32 ``train_idx``
+        ``(b, train_size)`` and ``test_idx`` ``(b, test_size)``, the next
+        folds of the stream `episode_indices` and `sample` draw from."""
+        eps = [self.episode_indices() for _ in range(batch_size)]
+        return {"train_idx": np.stack([tr.astype(np.int32) for tr, _ in eps]),
+                "test_idx": np.stack([te.astype(np.int32) for _, te in eps])}
