@@ -1,0 +1,5 @@
+"""The host's lead of a cached stream's request: its dispatch's
+validation, the members' preprocessing and the uploads before the card
+gets work."""
+
+from portbench.metrics.served import host_lead_ms as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""The fitted classifier's window's share of the card's bf16 peak: the
+operations its requests need over the window's wall time."""
+
+from portbench.metrics.served import mfu as read  # noqa: F401
