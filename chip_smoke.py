@@ -2646,7 +2646,7 @@ def phase_regressor_targets(device, model_path, data, n_layers) -> dict:
 
 def phase_profile_sweep(device, model_path, data, top: int = 16) -> dict:
     """torch.profiler around a 3-step bf16 sweep of `SWEEP_CELLS`: of its
-    last sweep step (the ``sweep_step`` range of `train/finetune_batch.py`,
+    last sweep step (the ``mmpfn.train.sweep_step`` span of `train/finetune_batch.py`,
     which ends in a device synchronize, so every kernel of the step runs
     inside it), the wall time, the device kernel time, the idle share and
     the kernels that took the most time."""
@@ -2657,8 +2657,8 @@ def phase_profile_sweep(device, model_path, data, top: int = 16) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = sweep(device, model_path, data, SWEEP_CELLS, 3)
     events = prof.events()
-    steps = [e for e in events if e.name == "sweep_step" and e.device_type == DeviceType.CPU]
-    check(len(steps) == 3, f"the profile holds {len(steps)} sweep_step ranges, expected 3")
+    steps = [e for e in events if e.name == "mmpfn.train.sweep_step" and e.device_type == DeviceType.CPU]
+    check(len(steps) == 3, f"the profile holds {len(steps)} mmpfn.train.sweep_step spans, expected 3")
     t0, t1 = steps[-1].time_range.start, steps[-1].time_range.end
     sums: dict[str, list] = {}
     for e in events:

@@ -13,7 +13,7 @@ from typing import Literal
 import numpy as np
 import torch
 
-from multimodalpfn_tpu_torch.estimator.data_utils import OrdinalEncoder, fix_dtypes
+from multimodalpfn_tpu_torch.estimator.data_utils import OrdinalEncoder, fix_dtypes, validate_X_predict
 from multimodalpfn_tpu_torch.models.download import ensure_model, resolve_model_path
 from multimodalpfn_tpu_torch.models.loading import (
     DEFAULT_CLASSIFIER_CONFIG,
@@ -21,6 +21,7 @@ from multimodalpfn_tpu_torch.models.loading import (
     LoadedModel,
     load_model,
 )
+from multimodalpfn_tpu_torch.utils.profiling import span
 
 
 class NotFittedError(ValueError, AttributeError):
@@ -75,6 +76,15 @@ class EstimatorBase:
         elif self.preprocessor_ is not None:
             return np.asarray(self.preprocessor_.transform(X))
         return np.asarray(X)
+
+    def _dispatch_predict(self, X, image_test: np.ndarray | None):
+        """Validation, encoding and the engine's dispatch (no host sync)."""
+        self._check_fitted()
+        with span("mmpfn.predict.dispatch"):
+            if X is not None:
+                with span("mmpfn.preprocess.validate"):
+                    X = self._encode_X(validate_X_predict(X, self), fit=False)
+            return self.executor_.dispatch_outputs(X, image_test)
 
 
 def _cache_dir() -> Path:

@@ -32,7 +32,6 @@ from multimodalpfn_tpu_torch.estimator.base import (
 )
 from multimodalpfn_tpu_torch.estimator.data_utils import (
     infer_categorical_features,
-    validate_X_predict,
     validate_Xy_fit,
 )
 from multimodalpfn_tpu_torch.estimator.inference import create_inference_engine
@@ -45,6 +44,7 @@ from multimodalpfn_tpu_torch.preprocess.ensemble import (
     EnsembleConfig,
     default_classifier_preprocessor_configs,
 )
+from multimodalpfn_tpu_torch.utils.profiling import span
 from multimodalpfn_tpu_torch.utils.rng import infer_random_state
 
 
@@ -123,108 +123,109 @@ class MMPFNClassifier(EstimatorBase):
         """Load weights, encode labels, build ensemble configs, fit member
         preprocessing, and prepare the batched inference engine. No model
         forward happens here (reference `classifier.py:364-502`)."""
-        static_seed, rng = infer_random_state(self.random_state)
-        self.device_ = resolve_device(self.device)
+        with span("mmpfn.fit"):
+            static_seed, rng = infer_random_state(self.random_state)
+            self.device_ = resolve_device(self.device)
 
-        loaded = initialize_model(
-            model_path=self.model_path,
-            static_seed=static_seed,
-            mixer_type=self.mixer_type if image is not None else "none",
-            mgm_heads=self.mgm_heads,
-            cap_heads=self.cap_heads,
-            features_per_group=self.features_per_group,
-            device=self.device_,
-        )
-        self.use_autocast_, forced = determine_precision(self.inference_precision, self.device_)
-        if forced is not None:
-            self.use_autocast_ = forced == "bfloat16"
-
-        self.interface_config_ = ModelInterfaceConfig.from_user_input(
-            inference_config=self.inference_config
-        )
-        icfg = self.interface_config_
-
-        outlier_std = icfg.OUTLIER_REMOVAL_STD
-        if outlier_std == "auto":
-            outlier_std = icfg._CLASSIFICATION_DEFAULT_OUTLIER_REMOVAL_STD
-        self.config_ = dataclasses.replace(
-            loaded.config,
-            remove_outliers=outlier_std is not None and outlier_std > 0,
-            remove_outliers_sigma=float(outlier_std) if outlier_std else 12.0,
-        )
-        self.params_ = loaded.params
-
-        if X is not None:
-            X, y, feature_names_in, n_features_in = validate_Xy_fit(
-                X,
-                y,
-                estimator=self,
-                max_num_samples=icfg.MAX_NUMBER_OF_SAMPLES,
-                max_num_features=icfg.MAX_NUMBER_OF_FEATURES,
-                ignore_pretraining_limits=self.ignore_pretraining_limits,
+            loaded = initialize_model(
+                model_path=self.model_path,
+                static_seed=static_seed,
+                mixer_type=self.mixer_type if image is not None else "none",
+                mgm_heads=self.mgm_heads,
+                cap_heads=self.cap_heads,
+                features_per_group=self.features_per_group,
+                device=self.device_,
             )
-            if feature_names_in is not None:
-                self.feature_names_in_ = feature_names_in
-            self.n_features_in_ = n_features_in
+            self.use_autocast_, forced = determine_precision(self.inference_precision, self.device_)
+            if forced is not None:
+                self.use_autocast_ = forced == "bfloat16"
 
-        # LabelEncoder semantics: sorted unique labels, codes are their indices
-        self.classes_, y, counts = np.unique(y, return_inverse=True, return_counts=True)
-        self.class_counts_ = counts
-        self.n_classes_ = len(self.classes_)
-        if self.n_classes_ > icfg.MAX_NUMBER_OF_CLASSES:
-            raise ValueError(
-                f"Number of classes {self.n_classes_} exceeds the maximum "
-                f"{icfg.MAX_NUMBER_OF_CLASSES} supported by the model; reduce the "
-                "number of classes (e.g. OneVsRest)."
+            self.interface_config_ = ModelInterfaceConfig.from_user_input(
+                inference_config=self.inference_config
             )
+            icfg = self.interface_config_
 
-        if X is not None:
-            X = self._encode_X(X, fit=True)
-            self.inferred_categorical_indices_ = infer_categorical_features(
-                X,
-                provided=self.categorical_features_indices,
-                min_samples_for_inference=icfg.MIN_NUMBER_SAMPLES_FOR_CATEGORICAL_INFERENCE,
-                max_unique_for_category=icfg.MAX_UNIQUE_FOR_CATEGORICAL_FEATURES,
-                min_unique_for_numerical=icfg.MIN_UNIQUE_FOR_NUMERICAL_FEATURES,
+            outlier_std = icfg.OUTLIER_REMOVAL_STD
+            if outlier_std == "auto":
+                outlier_std = icfg._CLASSIFICATION_DEFAULT_OUTLIER_REMOVAL_STD
+            self.config_ = dataclasses.replace(
+                loaded.config,
+                remove_outliers=outlier_std is not None and outlier_std > 0,
+                remove_outliers_sigma=float(outlier_std) if outlier_std else 12.0,
             )
-            max_index = len(X)
-        else:
-            self.inferred_categorical_indices_ = []
-            max_index = len(image)
+            self.params_ = loaded.params
 
-        preprocess_transforms = icfg.PREPROCESS_TRANSFORMS
-        ensemble_configs = EnsembleConfig.generate_for_classification(
-            n=self.n_estimators,
-            subsample_size=icfg.SUBSAMPLE_SAMPLES,
-            add_fingerprint_feature=icfg.FINGERPRINT_FEATURE,
-            feature_shift_decoder=icfg.FEATURE_SHIFT_METHOD,
-            polynomial_features=icfg.POLYNOMIAL_FEATURES,
-            max_index=max_index,
-            preprocessor_configs=(
-                preprocess_transforms
-                if preprocess_transforms is not None
-                else default_classifier_preprocessor_configs()
-            ),
-            class_shift_method=icfg.CLASS_SHIFT_METHOD,
-            n_classes=self.n_classes_,
-            random_state=rng,
-        )
-        assert len(ensemble_configs) == self.n_estimators
+            if X is not None:
+                X, y, feature_names_in, n_features_in = validate_Xy_fit(
+                    X,
+                    y,
+                    estimator=self,
+                    max_num_samples=icfg.MAX_NUMBER_OF_SAMPLES,
+                    max_num_features=icfg.MAX_NUMBER_OF_FEATURES,
+                    ignore_pretraining_limits=self.ignore_pretraining_limits,
+                )
+                if feature_names_in is not None:
+                    self.feature_names_in_ = feature_names_in
+                self.n_features_in_ = n_features_in
 
-        self.executor_ = create_inference_engine(
-            X_train=X,
-            y_train=y,
-            image_train=image,
-            params=self.params_,
-            cfg=self.config_,
-            ensemble_configs=ensemble_configs,
-            cat_ix=self.inferred_categorical_indices_,
-            fit_mode=self.fit_mode,
-            rng=rng,
-            autocast=self.use_autocast_,
-            device=self.device_,
-        )
-        return self
+            # LabelEncoder semantics: sorted unique labels, codes are their indices
+            self.classes_, y, counts = np.unique(y, return_inverse=True, return_counts=True)
+            self.class_counts_ = counts
+            self.n_classes_ = len(self.classes_)
+            if self.n_classes_ > icfg.MAX_NUMBER_OF_CLASSES:
+                raise ValueError(
+                    f"Number of classes {self.n_classes_} exceeds the maximum "
+                    f"{icfg.MAX_NUMBER_OF_CLASSES} supported by the model; reduce the "
+                    "number of classes (e.g. OneVsRest)."
+                )
+
+            if X is not None:
+                X = self._encode_X(X, fit=True)
+                self.inferred_categorical_indices_ = infer_categorical_features(
+                    X,
+                    provided=self.categorical_features_indices,
+                    min_samples_for_inference=icfg.MIN_NUMBER_SAMPLES_FOR_CATEGORICAL_INFERENCE,
+                    max_unique_for_category=icfg.MAX_UNIQUE_FOR_CATEGORICAL_FEATURES,
+                    min_unique_for_numerical=icfg.MIN_UNIQUE_FOR_NUMERICAL_FEATURES,
+                )
+                max_index = len(X)
+            else:
+                self.inferred_categorical_indices_ = []
+                max_index = len(image)
+
+            preprocess_transforms = icfg.PREPROCESS_TRANSFORMS
+            ensemble_configs = EnsembleConfig.generate_for_classification(
+                n=self.n_estimators,
+                subsample_size=icfg.SUBSAMPLE_SAMPLES,
+                add_fingerprint_feature=icfg.FINGERPRINT_FEATURE,
+                feature_shift_decoder=icfg.FEATURE_SHIFT_METHOD,
+                polynomial_features=icfg.POLYNOMIAL_FEATURES,
+                max_index=max_index,
+                preprocessor_configs=(
+                    preprocess_transforms
+                    if preprocess_transforms is not None
+                    else default_classifier_preprocessor_configs()
+                ),
+                class_shift_method=icfg.CLASS_SHIFT_METHOD,
+                n_classes=self.n_classes_,
+                random_state=rng,
+            )
+            assert len(ensemble_configs) == self.n_estimators
+
+            self.executor_ = create_inference_engine(
+                X_train=X,
+                y_train=y,
+                image_train=image,
+                params=self.params_,
+                cfg=self.config_,
+                ensemble_configs=ensemble_configs,
+                cat_ix=self.inferred_categorical_indices_,
+                fit_mode=self.fit_mode,
+                rng=rng,
+                autocast=self.use_autocast_,
+                device=self.device_,
+            )
+            return self
 
     def predict(self, X, X_image: np.ndarray | None = None) -> np.ndarray:
         proba = self._predict_proba_impl(X, X_image)
@@ -252,40 +253,34 @@ class MMPFNClassifier(EstimatorBase):
     def _predict_proba_impl(self, X, image_test: np.ndarray | None) -> np.ndarray:
         return self._finalize_predict(self._dispatch_predict(X, image_test))
 
-    def _dispatch_predict(self, X, image_test: np.ndarray | None):
-        """Validation, encoding and the engine's dispatch (no host sync)."""
-        self._check_fitted()
-        if X is not None:
-            X = self._encode_X(validate_X_predict(X, self), fit=False)
-        return self.executor_.dispatch_outputs(X, image_test)
-
     def _finalize_predict(self, handle) -> np.ndarray:
         """Member logits -> temperature -> reverse class permutation -> softmax/
         average -> balance -> renormalize (reference `classifier.py:517-576`)."""
-        outputs = []
-        for output, config in self.executor_.finalize_outputs(handle):
-            output = np.asarray(output, dtype=np.float64)
-            if self.softmax_temperature != 1:
-                output = output[:, : self.n_classes_] / self.softmax_temperature
-            if config.class_permutation is not None:
-                output = output[..., config.class_permutation]
-            outputs.append(output)
+        with span("mmpfn.predict.finalize"):
+            outputs = []
+            for output, config in self.executor_.finalize_outputs(handle):
+                output = np.asarray(output, dtype=np.float64)
+                if self.softmax_temperature != 1:
+                    output = output[:, : self.n_classes_] / self.softmax_temperature
+                if config.class_permutation is not None:
+                    output = output[..., config.class_permutation]
+                outputs.append(output)
 
-        if self.average_before_softmax:
-            proba = _softmax(np.stack(outputs).mean(axis=0), axis=1)
-        else:
-            proba = np.stack([_softmax(o, axis=1) for o in outputs]).mean(axis=0)
+            if self.average_before_softmax:
+                proba = _softmax(np.stack(outputs).mean(axis=0), axis=1)
+            else:
+                proba = np.stack([_softmax(o, axis=1) for o in outputs]).mean(axis=0)
 
-        if self.balance_probabilities:
-            prior = self.class_counts_ / self.class_counts_.sum()
-            proba = proba * prior
-            proba = proba / proba.sum(axis=-1, keepdims=True)
+            if self.balance_probabilities:
+                prior = self.class_counts_ / self.class_counts_.sum()
+                proba = proba * prior
+                proba = proba / proba.sum(axis=-1, keepdims=True)
 
-        if self.interface_config_.USE_SKLEARN_16_DECIMAL_PRECISION:
-            proba = np.around(proba, decimals=SKLEARN_16_DECIMAL_PRECISION)
-            proba = np.where(proba < PROBABILITY_EPSILON_ROUND_ZERO, 0.0, proba)
+            if self.interface_config_.USE_SKLEARN_16_DECIMAL_PRECISION:
+                proba = np.around(proba, decimals=SKLEARN_16_DECIMAL_PRECISION)
+                proba = np.where(proba < PROBABILITY_EPSILON_ROUND_ZERO, 0.0, proba)
 
-        return proba / proba.sum(axis=1, keepdims=True)
+            return proba / proba.sum(axis=1, keepdims=True)
 
 
 class TabPFNClassifier(MMPFNClassifier):

@@ -13,6 +13,10 @@ enqueues the device work without waiting for it, and `finalize_outputs`,
 which copies every group's logits to the host at once. A request stream
 (`MMPFNClassifier.predict_proba_many`) dispatches request N+1 before it
 finalizes request N, so host work overlaps device work.
+
+Each phase of a predict is a span (`utils.profiling.span`, named
+``mmpfn.preprocess.*``, ``mmpfn.forward``), and each point where the host
+waits for the card is a ``mmpfn.sync.<site>`` span of its own.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from multimodalpfn_tpu_torch.models.params import get_subspace_noise
 from multimodalpfn_tpu_torch.models.transformer import forward, member_token_valid
 from multimodalpfn_tpu_torch.preprocess.ensemble import EnsembleConfig, fit_preprocessing
 from multimodalpfn_tpu_torch.utils.memory import split_batch_for_memory
+from multimodalpfn_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -93,7 +98,8 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def _fetch(pending: list[tuple[list[int], torch.Tensor]], n_members: int, pad_rows: int):
     """Per-member logits of every pending forward, ``pad_rows`` bucket rows
     cut, with one device-to-host copy (one host sync) for all of them."""
-    flat = torch.cat([lg.reshape(-1) for _, lg in pending]).cpu().numpy()
+    with span("mmpfn.sync.fetch"):
+        flat = torch.cat([lg.reshape(-1) for _, lg in pending]).cpu().numpy()
     outputs: list[np.ndarray | None] = [None] * n_members
     off = 0
     for idxs, lg in pending:
@@ -281,7 +287,9 @@ def _group_and_run(
     """Stack members into batched forwards, one per planned group
     (`_plan_groups`); return per-member logits.
 
-    ``use_kernels`` (None = on a CUDA device) runs the item-major kernel path."""
+    ``use_kernels`` (None = on a CUDA device) runs the item-major kernel path.
+    The uploads from pageable host memory block until the card has run
+    everything queued before them (spans ``mmpfn.sync.upload``)."""
     run_cfg, kernels = _run_config(cfg, autocast, device, use_kernels)
 
     n_test = None
@@ -292,14 +300,15 @@ def _group_and_run(
             n_test = len(Xt)
             break
     pad_rows = _bucket_test_rows(n_test) - n_test
-    X_tests = [None if Xt is None else _repeat_last_pad(Xt, pad_rows) for Xt in X_tests]
-
-    image_full = None
-    if image_train is not None and image_test is not None:
-        img_te = torch.from_numpy(
-            _repeat_last_pad(np.asarray(image_test, dtype=np.float32), pad_rows)
-        ).to(device)
-        image_full = torch.cat([image_train, img_te], dim=0)[None]  # shared by members
+    img_te = image_full = None
+    with span("mmpfn.preprocess.stack"):
+        X_tests = [None if Xt is None else _repeat_last_pad(Xt, pad_rows) for Xt in X_tests]
+        if image_train is not None and image_test is not None:
+            img_te = _repeat_last_pad(np.asarray(image_test, dtype=np.float32), pad_rows)
+    if img_te is not None:
+        with span("mmpfn.sync.upload"):
+            img_dev = torch.from_numpy(img_te).to(device)
+        image_full = torch.cat([image_train, img_dev], dim=0)[None]  # shared by members
 
     groups = _width_groups(members, [-1 if Xt is None else Xt.shape[1] for Xt in X_tests])
     n_img_tokens = (
@@ -310,24 +319,28 @@ def _group_and_run(
     pending: list[tuple[list[int], torch.Tensor]] = []
     for idxs, width, tab_valid, noise in plans:
         sep = len(members[idxs[0]].y_train)
-        ys = torch.from_numpy(
-            np.stack([members[i].y_train.astype(np.float32) for i in idxs])
-        ).to(device)
-        xs = None
-        if width >= 0:
-            xs = torch.from_numpy(
-                np.stack(
-                    [
-                        _pad_width(
-                            np.concatenate(
-                                [members[i].X_train, X_tests[i]], axis=0, dtype=np.float32
-                            ),
-                            width,
-                        )
-                        for i in idxs
-                    ]
+        with span("mmpfn.preprocess.stack"):
+            ys = torch.from_numpy(np.stack([members[i].y_train.astype(np.float32) for i in idxs]))
+            xs = None
+            if width >= 0:
+                xs = torch.from_numpy(
+                    np.stack(
+                        [
+                            _pad_width(
+                                np.concatenate(
+                                    [members[i].X_train, X_tests[i]], axis=0, dtype=np.float32
+                                ),
+                                width,
+                            )
+                            for i in idxs
+                        ]
+                    )
                 )
-            ).to(device)
+        with span("mmpfn.sync.upload"):
+            ys = ys.to(device)
+        if xs is not None:
+            with span("mmpfn.sync.upload"):
+                xs = xs.to(device)
         total_len = xs.shape[1] if xs is not None else image_full.shape[1]
         n_tokens = (0 if width < 0 else -(-width // cfg.features_per_group)) + n_img_tokens
         for chunk in split_batch_for_memory(
@@ -339,17 +352,18 @@ def _group_and_run(
             kernels=kernels,
         ):
             sl = slice(chunk.start, chunk.stop)
-            logits = forward(
-                params,
-                run_cfg,
-                None if xs is None else xs[sl],
-                ys[sl],
-                image_full,
-                single_eval_pos=sep,
-                # the mask stays on the host: K6a checks it there, no sync
-                tab_valid=None if tab_valid is None else torch.from_numpy(tab_valid[sl]),
-                feat_pos_noise=None if noise is None else _to_device(noise[sl], device),
-            )
+            with span("mmpfn.forward"):
+                logits = forward(
+                    params,
+                    run_cfg,
+                    None if xs is None else xs[sl],
+                    ys[sl],
+                    image_full,
+                    single_eval_pos=sep,
+                    # the mask stays on the host: K6a checks it there, no sync
+                    tab_valid=None if tab_valid is None else torch.from_numpy(tab_valid[sl]),
+                    feat_pos_noise=None if noise is None else _to_device(noise[sl], device),
+                )
             pending.append((idxs[sl], logits))
     return _fetch(pending, len(members), pad_rows)  # type: ignore[return-value]
 
@@ -389,15 +403,16 @@ class InferenceEngine:
         if self.image_train is None:
             return None
         if not hasattr(self, "_image_train_dev"):
-            self._image_train_dev = torch.from_numpy(
-                np.asarray(self.image_train, dtype=np.float32)
-            ).to(self.device)
+            img = torch.from_numpy(np.asarray(self.image_train, dtype=np.float32))
+            with span("mmpfn.sync.upload"):
+                self._image_train_dev = img.to(self.device)
         return self._image_train_dev
 
     def _run(self, members, X, image_test):
-        X_tests = [
-            None if m.X_train is None else m.preprocessor.transform(X).X for m in members
-        ]
+        with span("mmpfn.preprocess.transform"):
+            X_tests = [
+                None if m.X_train is None else m.preprocessor.transform(X).X for m in members
+            ]
         outs = _group_and_run(
             self.params,
             self.cfg,
@@ -421,9 +436,10 @@ class InferenceEngineCachePreprocessing(InferenceEngine):
     @classmethod
     def prepare(cls, X_train, y_train, image_train, *, cat_ix, params, cfg,
                 ensemble_configs, rng, autocast, device):
-        fitted = fit_preprocessing(
-            ensemble_configs, X_train, y_train, random_state=rng, cat_ix=cat_ix
-        )
+        with span("mmpfn.fit.preprocess"):
+            fitted = fit_preprocessing(
+                ensemble_configs, X_train, y_train, random_state=rng, cat_ix=cat_ix
+            )
         return cls(
             params=params,
             cfg=cfg,
@@ -466,13 +482,14 @@ class InferenceEngineOnDemand(InferenceEngine):
         )
 
     def iter_outputs(self, X, image_test):
-        fitted = fit_preprocessing(
-            self.ensemble_configs,
-            self.X_train,
-            self.y_train,
-            random_state=np.random.default_rng(self.static_seed),
-            cat_ix=self.cat_ix,
-        )
+        with span("mmpfn.fit.preprocess"):
+            fitted = fit_preprocessing(
+                self.ensemble_configs,
+                self.X_train,
+                self.y_train,
+                random_state=np.random.default_rng(self.static_seed),
+                cat_ix=self.cat_ix,
+            )
         return self._run([_Member(*row) for row in fitted], X, image_test)
 
 
@@ -545,16 +562,19 @@ class InferenceEngineCacheKV(InferenceEngineCachePreprocessing):
         nothing here waits for the card."""
         run_cfg, kernels = self._run_cfg()
         if run_cfg != self.primed_cfg:
-            self._prime()
+            with span("mmpfn.cache.prime"):
+                self._prime()
         img_dev, n_test = None, None
         if image_test is not None:
-            a = np.asarray(image_test, dtype=np.float32)
-            n_test = len(a)
-            img_dev = _to_device(_repeat_last_pad(a, _bucket_test_rows(n_test) - n_test),
-                                 self.device)[None]  # shared by the members
-        X_tests = [
-            None if m.X_train is None else m.preprocessor.transform(X).X for m in self.members
-        ]
+            with span("mmpfn.preprocess.stack"):
+                a = np.asarray(image_test, dtype=np.float32)
+                n_test = len(a)
+                a = _repeat_last_pad(a, _bucket_test_rows(n_test) - n_test)
+            img_dev = _to_device(a, self.device)[None]  # shared by the members
+        with span("mmpfn.preprocess.transform"):
+            X_tests = [
+                None if m.X_train is None else m.preprocessor.transform(X).X for m in self.members
+            ]
         if n_test is None:
             n_test = len(next(Xt for Xt in X_tests if Xt is not None))
         n_rows = _bucket_test_rows(n_test)
@@ -563,21 +583,21 @@ class InferenceEngineCacheKV(InferenceEngineCachePreprocessing):
         for cache, idxs, width in self.caches:
             xs = None
             if width >= 0:
-                xs = _to_device(
-                    np.stack([_pad_width(_repeat_last_pad(X_tests[i], pad_rows), width)
-                              for i in idxs]),
-                    self.device,
-                )
+                with span("mmpfn.preprocess.stack"):
+                    a = np.stack([_pad_width(_repeat_last_pad(X_tests[i], pad_rows), width)
+                                  for i in idxs])
+                xs = _to_device(a, self.device)
             # the plain path materializes (b, t, h, rows, sep) scores
             for chunk in split_batch_for_memory(
                 len(idxs), run_cfg, seq_len=n_rows, kv_len=cache.kv0.shape[-2],
                 n_feature_tokens=cache.kv0.shape[2] - 1, device=self.device, kernels=kernels,
             ):
                 sl = slice(chunk.start, chunk.stop)
-                logits = forward_cached(
-                    self.params, run_cfg, slice_members(cache, sl),
-                    None if xs is None else xs[sl], img_dev,
-                )
+                with span("mmpfn.forward"):
+                    logits = forward_cached(
+                        self.params, run_cfg, slice_members(cache, sl),
+                        None if xs is None else xs[sl], img_dev,
+                    )
                 pending.append((idxs[sl], logits))
         return ("kv", pending, pad_rows)
 
@@ -623,5 +643,6 @@ def create_inference_engine(
         device=device,
     )
     if isinstance(engine, InferenceEngineCacheKV):
-        engine._prime()  # the cache is built at fit time, as in the reference
+        with span("mmpfn.cache.prime"):  # the cache is built at fit time, as in the reference
+            engine._prime()
     return engine

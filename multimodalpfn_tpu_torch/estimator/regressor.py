@@ -37,7 +37,6 @@ from multimodalpfn_tpu_torch.estimator.borders import (
 )
 from multimodalpfn_tpu_torch.estimator.data_utils import (
     infer_categorical_features,
-    validate_X_predict,
     validate_Xy_fit,
 )
 from multimodalpfn_tpu_torch.estimator.inference import create_inference_engine
@@ -49,6 +48,7 @@ from multimodalpfn_tpu_torch.preprocess.ensemble import (
 )
 from multimodalpfn_tpu_torch.preprocess.steps import ReshapeFeatureDistributionsStep
 from multimodalpfn_tpu_torch.train.metrics import r2_score
+from multimodalpfn_tpu_torch.utils.profiling import span
 from multimodalpfn_tpu_torch.utils.rng import infer_random_state
 
 _OUTPUT_TYPES = ("mean", "median", "mode", "quantiles")
@@ -124,120 +124,121 @@ class MMPFNRegressor(EstimatorBase):
         target transforms, standardize y and fit the member preprocessing
         (reference `regressor.py:390-538`). No model forward happens here,
         except the KV cache's prime in ``fit_with_cache``."""
-        static_seed, rng = infer_random_state(self.random_state)
-        self.device_ = resolve_device(self.device)
+        with span("mmpfn.fit"):
+            static_seed, rng = infer_random_state(self.random_state)
+            self.device_ = resolve_device(self.device)
 
-        loaded = initialize_model(
-            model_path=self.model_path,
-            which="regressor",
-            static_seed=static_seed,
-            mixer_type=self.mixer_type if image is not None else "none",
-            mgm_heads=self.mgm_heads,
-            cap_heads=self.cap_heads,
-            features_per_group=self.features_per_group,
-            device=self.device_,
-        )
-        if loaded.criterion_borders is None:
-            raise ValueError(f"{self.model_path!r} is not a regression model: it has no borders")
-        self.bardist_ = FullSupportBarDistribution(np.asarray(loaded.criterion_borders, np.float32))
-        self.use_autocast_, forced = determine_precision(self.inference_precision, self.device_)
-        if forced is not None:
-            self.use_autocast_ = forced == "bfloat16"
-
-        self.interface_config_ = ModelInterfaceConfig.from_user_input(
-            inference_config=self.inference_config
-        )
-        icfg = self.interface_config_
-
-        outlier_std = icfg.OUTLIER_REMOVAL_STD
-        if outlier_std == "auto":
-            outlier_std = icfg._REGRESSION_DEFAULT_OUTLIER_REMOVAL_STD
-        self.config_ = dataclasses.replace(
-            loaded.config,
-            remove_outliers=outlier_std is not None and outlier_std > 0,
-            remove_outliers_sigma=float(outlier_std) if outlier_std else 12.0,
-        )
-        self.params_ = loaded.params
-
-        if X is not None:
-            X, y, feature_names_in, n_features_in = validate_Xy_fit(
-                X,
-                y,
-                estimator=self,
-                max_num_samples=icfg.MAX_NUMBER_OF_SAMPLES,
-                max_num_features=icfg.MAX_NUMBER_OF_FEATURES,
-                ignore_pretraining_limits=self.ignore_pretraining_limits,
-                classification=False,
+            loaded = initialize_model(
+                model_path=self.model_path,
+                which="regressor",
+                static_seed=static_seed,
+                mixer_type=self.mixer_type if image is not None else "none",
+                mgm_heads=self.mgm_heads,
+                cap_heads=self.cap_heads,
+                features_per_group=self.features_per_group,
+                device=self.device_,
             )
-            if feature_names_in is not None:
-                self.feature_names_in_ = feature_names_in
-            self.n_features_in_ = n_features_in
-            X = self._encode_X(X, fit=True)
-            self.inferred_categorical_indices_ = infer_categorical_features(
-                X,
-                provided=self.categorical_features_indices,
-                min_samples_for_inference=icfg.MIN_NUMBER_SAMPLES_FOR_CATEGORICAL_INFERENCE,
-                max_unique_for_category=icfg.MAX_UNIQUE_FOR_CATEGORICAL_FEATURES,
-                min_unique_for_numerical=icfg.MIN_UNIQUE_FOR_NUMERICAL_FEATURES,
+            if loaded.criterion_borders is None:
+                raise ValueError(f"{self.model_path!r} is not a regression model: it has no borders")
+            self.bardist_ = FullSupportBarDistribution(np.asarray(loaded.criterion_borders, np.float32))
+            self.use_autocast_, forced = determine_precision(self.inference_precision, self.device_)
+            if forced is not None:
+                self.use_autocast_ = forced == "bfloat16"
+
+            self.interface_config_ = ModelInterfaceConfig.from_user_input(
+                inference_config=self.inference_config
             )
-            max_index = len(X)
-        else:
-            self.inferred_categorical_indices_ = []
-            max_index = len(image)
+            icfg = self.interface_config_
 
-        y = np.asarray(y, dtype=np.float64)
+            outlier_std = icfg.OUTLIER_REMOVAL_STD
+            if outlier_std == "auto":
+                outlier_std = icfg._REGRESSION_DEFAULT_OUTLIER_REMOVAL_STD
+            self.config_ = dataclasses.replace(
+                loaded.config,
+                remove_outliers=outlier_std is not None and outlier_std > 0,
+                remove_outliers_sigma=float(outlier_std) if outlier_std else 12.0,
+            )
+            self.params_ = loaded.params
 
-        # per-member target transforms (reference `regressor.py:477-493`)
-        target_preprocessors = [
-            None if name is None else ReshapeFeatureDistributionsStep.make_transformer(
-                name, num_examples=y.shape[0], random_state=static_seed)
-            for name in icfg.REGRESSION_Y_PREPROCESS_TRANSFORMS or (None,)
-        ]
-        preprocess_transforms = icfg.PREPROCESS_TRANSFORMS
-        ensemble_configs = EnsembleConfig.generate_for_regression(
-            n=self.n_estimators,
-            subsample_size=icfg.SUBSAMPLE_SAMPLES,
-            add_fingerprint_feature=icfg.FINGERPRINT_FEATURE,
-            feature_shift_decoder=icfg.FEATURE_SHIFT_METHOD,
-            polynomial_features=icfg.POLYNOMIAL_FEATURES,
-            max_index=max_index,
-            preprocessor_configs=(
-                preprocess_transforms
-                if preprocess_transforms is not None
-                else default_regressor_preprocessor_configs()
-            ),
-            target_transforms=target_preprocessors,
-            random_state=rng,
-        )
-        assert len(ensemble_configs) == self.n_estimators
+            if X is not None:
+                X, y, feature_names_in, n_features_in = validate_Xy_fit(
+                    X,
+                    y,
+                    estimator=self,
+                    max_num_samples=icfg.MAX_NUMBER_OF_SAMPLES,
+                    max_num_features=icfg.MAX_NUMBER_OF_FEATURES,
+                    ignore_pretraining_limits=self.ignore_pretraining_limits,
+                    classification=False,
+                )
+                if feature_names_in is not None:
+                    self.feature_names_in_ = feature_names_in
+                self.n_features_in_ = n_features_in
+                X = self._encode_X(X, fit=True)
+                self.inferred_categorical_indices_ = infer_categorical_features(
+                    X,
+                    provided=self.categorical_features_indices,
+                    min_samples_for_inference=icfg.MIN_NUMBER_SAMPLES_FOR_CATEGORICAL_INFERENCE,
+                    max_unique_for_category=icfg.MAX_UNIQUE_FOR_CATEGORICAL_FEATURES,
+                    min_unique_for_numerical=icfg.MIN_UNIQUE_FOR_NUMERICAL_FEATURES,
+                )
+                max_index = len(X)
+            else:
+                self.inferred_categorical_indices_ = []
+                max_index = len(image)
 
-        # standardize y; the renormalized criterion maps back to raw-y space
-        # (reference `regressor.py:510-518`). Its borders are float32, each
-        # operation rounded as the JAX package's (float32 borders times a
-        # Python float, plus a Python float)
-        mean, std = float(np.mean(y)), float(np.std(y))
-        self.y_train_std_ = std + 1e-20
-        self.y_train_mean_ = mean
-        y = (y - self.y_train_mean_) / self.y_train_std_
-        borders32 = self.bardist_.borders.numpy()
-        self.renormalized_criterion_ = FullSupportBarDistribution(
-            torch.from_numpy(borders32 * np.float32(self.y_train_std_) + np.float32(self.y_train_mean_))
-        )
+            y = np.asarray(y, dtype=np.float64)
 
-        self.executor_ = create_inference_engine(
-            X_train=X,
-            y_train=y,
-            image_train=image,
-            params=self.params_,
-            cfg=self.config_,
-            ensemble_configs=ensemble_configs,
-            cat_ix=self.inferred_categorical_indices_,
-            fit_mode=self.fit_mode,
-            rng=rng,
-            autocast=self.use_autocast_,
-            device=self.device_,
-        )
-        return self
+            # per-member target transforms (reference `regressor.py:477-493`)
+            target_preprocessors = [
+                None if name is None else ReshapeFeatureDistributionsStep.make_transformer(
+                    name, num_examples=y.shape[0], random_state=static_seed)
+                for name in icfg.REGRESSION_Y_PREPROCESS_TRANSFORMS or (None,)
+            ]
+            preprocess_transforms = icfg.PREPROCESS_TRANSFORMS
+            ensemble_configs = EnsembleConfig.generate_for_regression(
+                n=self.n_estimators,
+                subsample_size=icfg.SUBSAMPLE_SAMPLES,
+                add_fingerprint_feature=icfg.FINGERPRINT_FEATURE,
+                feature_shift_decoder=icfg.FEATURE_SHIFT_METHOD,
+                polynomial_features=icfg.POLYNOMIAL_FEATURES,
+                max_index=max_index,
+                preprocessor_configs=(
+                    preprocess_transforms
+                    if preprocess_transforms is not None
+                    else default_regressor_preprocessor_configs()
+                ),
+                target_transforms=target_preprocessors,
+                random_state=rng,
+            )
+            assert len(ensemble_configs) == self.n_estimators
+
+            # standardize y; the renormalized criterion maps back to raw-y space
+            # (reference `regressor.py:510-518`). Its borders are float32, each
+            # operation rounded as the JAX package's (float32 borders times a
+            # Python float, plus a Python float)
+            mean, std = float(np.mean(y)), float(np.std(y))
+            self.y_train_std_ = std + 1e-20
+            self.y_train_mean_ = mean
+            y = (y - self.y_train_mean_) / self.y_train_std_
+            borders32 = self.bardist_.borders.numpy()
+            self.renormalized_criterion_ = FullSupportBarDistribution(
+                torch.from_numpy(borders32 * np.float32(self.y_train_std_) + np.float32(self.y_train_mean_))
+            )
+
+            self.executor_ = create_inference_engine(
+                X_train=X,
+                y_train=y,
+                image_train=image,
+                params=self.params_,
+                cfg=self.config_,
+                ensemble_configs=ensemble_configs,
+                cat_ix=self.inferred_categorical_indices_,
+                fit_mode=self.fit_mode,
+                rng=rng,
+                autocast=self.use_autocast_,
+                device=self.device_,
+            )
+            return self
 
     def predict(
         self,
@@ -274,18 +275,12 @@ class MMPFNRegressor(EstimatorBase):
             max_in_flight,
         )
 
-    def _dispatch_predict(self, X, image_test: np.ndarray | None):
-        """Validation, encoding and the engine's dispatch (no host sync)."""
-        self._check_fitted()
-        if X is not None:
-            X = self._encode_X(validate_X_predict(X, self), fit=False)
-        return self.executor_.dispatch_outputs(X, image_test)
-
     def _finalize_predict(self, handle, *, output_type: str = "mean", quantiles=None):
         """The engine's member logits (the host sync), then the host finalize."""
-        return self.predict_from_outputs(
-            self.executor_.finalize_outputs(handle), output_type=output_type, quantiles=quantiles
-        )
+        with span("mmpfn.predict.finalize"):
+            return self.predict_from_outputs(
+                self.executor_.finalize_outputs(handle), output_type=output_type, quantiles=quantiles
+            )
 
     def predict_from_outputs(self, member_outputs, *, output_type: str = "mean", quantiles=None):
         """The host finalize of a predict from the members' (logits, config)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from multimodalpfn_tpu_torch.models.config import MixerConfig, ModelConfig
+from multimodalpfn_tpu_torch.utils.profiling import span
 
 Params = dict
 
@@ -53,8 +54,14 @@ def get_subspace_noise(
     always made with the CPU generator and moved to ``device`` afterwards: a
     CUDA generator gives other numbers, and with them other predictions. CPU
     draws are not prefix-stable across shapes, so the exact shape is drawn.
+    The copy to a card is from pageable memory: the host waits for the card
+    to run everything queued before it (the span ``mmpfn.sync.upload``).
     """
-    return _subspace_noise_cpu(int(model_seed), int(n_tokens), int(sub_dim)).to(device)
+    noise = _subspace_noise_cpu(int(model_seed), int(n_tokens), int(sub_dim))
+    if torch.device(device).type == "cpu":
+        return noise
+    with span("mmpfn.sync.upload"):
+        return noise.to(device)
 
 
 # ---------------------------------------------------------------------------

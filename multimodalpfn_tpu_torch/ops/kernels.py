@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from multimodalpfn_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(
     os.environ.get(
@@ -206,11 +208,15 @@ def build(verbose: bool = False) -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (the span
+    ``mmpfn.kernels.build``, which holds the compile when the library is
+    missing)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            with span("mmpfn.kernels.build"):
+                path = build()
+            lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -71,6 +71,7 @@ from multimodalpfn_tpu_torch.train.step import (
     train_state_arrays,
     write_train_state,
 )
+from multimodalpfn_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -133,11 +134,15 @@ class EpisodeTrainer:
     data: dict[str, torch.Tensor | None]  # "x", "image", "y" of the train split on the device
 
     def next_batch(self, n_episodes: int = 1) -> dict:
-        """The next ``n_episodes`` episodes, gathered on the device."""
+        """The next ``n_episodes`` episodes, gathered on the device. The two
+        index uploads from pageable host memory each wait for the card."""
         eps = [self.sampler.episode_indices() for _ in range(n_episodes)]
         y = self.data["y"]
-        idx_tr = torch.as_tensor(np.stack([e[0] for e in eps]), device=y.device)
-        idx_te = torch.as_tensor(np.stack([e[1] for e in eps]), device=y.device)
+        idx_tr, idx_te = np.stack([e[0] for e in eps]), np.stack([e[1] for e in eps])
+        with span("mmpfn.sync.upload"):
+            idx_tr = torch.as_tensor(idx_tr, device=y.device)
+        with span("mmpfn.sync.upload"):
+            idx_te = torch.as_tensor(idx_te, device=y.device)
         batch = {"y_train": y[idx_tr], "y_test": y[idx_te]}
         for key in ("x", "image"):
             if self.data[key] is not None:
@@ -145,8 +150,12 @@ class EpisodeTrainer:
         return batch
 
     def step(self, n_episodes: int = 1) -> dict:
-        """One training step on the next episodes; returns its metrics."""
-        self.state, metrics = self.train_step(self.state, self.next_batch(n_episodes), self.generator)
+        """One training step on the next episodes (the span
+        ``mmpfn.train.step``); returns its metrics."""
+        with span("mmpfn.train.step"):
+            with span("mmpfn.train.batch"):
+                batch = self.next_batch(n_episodes)
+            self.state, metrics = self.train_step(self.state, batch, self.generator)
         return metrics
 
 
@@ -327,7 +336,8 @@ def fine_tune_mmpfn(
         x = None if x_tr is None else torch.cat([x_tr, x_va])[None]
         img = None if i_tr is None else torch.cat([i_tr, i_va])[None]
         logits = forward(p, cfg, x, y_tr[None], img, single_eval_pos=n_tr)
-        return logits[0].float().cpu().numpy()
+        with span("mmpfn.sync.validation"):
+            return logits[0].float().cpu().numpy()
 
     if is_classification:
         n_classes = int(y_tr.max()) + 1
@@ -390,27 +400,36 @@ def fine_tune_mmpfn(
             logger.info("time limit reached at step %d", step_i)
             break
         if state_checkpoint_every and step_i % state_checkpoint_every == 0:
-            state_writer.submit(train_state_arrays(trainer.state))
+            with span("mmpfn.train.bookkeeping"):
+                state_writer.submit(train_state_arrays(trainer.state))
         metrics = trainer.step(episode_batch_size)
-        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
-        history["skipped_steps"] += int(not metrics["applied"])
-        history["train_loss"].append(loss)
-        history["grad_norm"].append(gn)
-        history["steps"] = step_i
-        if validate_inline or step_i % int(cfg_hp["validate_every_n_steps"]) == 0:
-            p_eval = eval_params(trainer.state)
-            err = score_val_logits(validation_logits(p_eval))
-            history["val_error"].append((step_i, err))
-            is_best = err < best_err
-            if is_best:
-                best_err = err
-                history["best_val_error"] = err
-                best_snap = p_eval
-            if es.update(cur_round=step_i, is_best=is_best) and use_early_stopping:
-                history["step_seconds"].append(time.time() - t_iter)
-                logger.info("early stopping at step %d", step_i)
-                break
-        history["step_seconds"].append(time.time() - t_iter)
+        with span("mmpfn.sync.loss"):
+            loss = float(metrics["loss"])
+        with span("mmpfn.sync.grad_norm"):
+            gn = float(metrics["grad_norm"])
+        validate = validate_inline or step_i % int(cfg_hp["validate_every_n_steps"]) == 0
+        if validate:
+            with span("mmpfn.train.validation"):
+                p_eval = eval_params(trainer.state)
+                err = score_val_logits(validation_logits(p_eval))
+        with span("mmpfn.train.bookkeeping"):
+            history["skipped_steps"] += int(not metrics["applied"])
+            history["train_loss"].append(loss)
+            history["grad_norm"].append(gn)
+            history["steps"] = step_i
+            stop = False
+            if validate:
+                history["val_error"].append((step_i, err))
+                is_best = err < best_err
+                if is_best:
+                    best_err = err
+                    history["best_val_error"] = err
+                    best_snap = p_eval
+                stop = es.update(cur_round=step_i, is_best=is_best) and use_early_stopping
+            history["step_seconds"].append(time.time() - t_iter)
+        if stop:
+            logger.info("early stopping at step %d", step_i)
+            break
 
     t_phase = time.time()
     if best_snap is not None:

@@ -67,6 +67,7 @@ from multimodalpfn_tpu_torch.train.step import (
     make_optimizer,
     make_train_step,
 )
+from multimodalpfn_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -315,7 +316,8 @@ def fine_tune_batched_cells(
 
     def sync():
         if on_card:
-            torch.cuda.synchronize(device)
+            with span("mmpfn.sync.step"):
+                torch.cuda.synchronize(device)
 
     # the loop keeps losses and validation logits on the device; nothing in
     # it needs a device value
@@ -329,7 +331,7 @@ def fine_tune_batched_cells(
             logger.info("time limit reached at step %d", step_i)
             break
         t0 = time.time()
-        with torch.profiler.record_function("sweep_step"):  # a profiler's range of one sweep step
+        with span("mmpfn.train.sweep_step"):
             idx_tr, idx_te = _stack_batches([r.sampler for r in runs], device)
             losses = []
             for run, tr, te in zip(runs, idx_tr, idx_te):
@@ -348,7 +350,8 @@ def fine_tune_batched_cells(
         # classification: softmax, cut to the classes of ``y``, renormalised;
         # regression: the bar distribution's mean (float32)
         va = splits[r][1]
-        lo = logits.float().cpu()
+        with span("mmpfn.sync.validation"):
+            lo = logits.float().cpu()
         if bardist is not None:
             pred = bardist.mean(lo).numpy()
         else:
@@ -410,8 +413,10 @@ def _any_rank(flag: bool, mesh, device) -> bool:
     """``flag`` on any ``dp`` rank (every rank stops at the same step)."""
     if mesh is None or axis_size(mesh, "dp") == 1:
         return flag
-    t = torch.tensor([float(flag)], device=device)
-    return bool(all_reduce_(t, mesh.get_group("dp"), dist.ReduceOp.MAX).item())
+    with span("mmpfn.sync.upload"):
+        t = torch.tensor([float(flag)], device=device)
+    with span("mmpfn.sync.stop"):
+        return bool(all_reduce_(t, mesh.get_group("dp"), dist.ReduceOp.MAX).item())
 
 
 def extract_run_params(result: dict[str, Any], r: int) -> tuple[dict, Any]:
@@ -440,6 +445,11 @@ def _stack_val(X, image, y, splits, device) -> list[dict[str, torch.Tensor | Non
 
 def _stack_batches(samplers: list[EpisodeSampler], device) -> tuple[torch.Tensor, torch.Tensor]:
     """The next fold of every run: train and test indices ``(runs, n)``,
-    uploaded to the device in one copy each."""
+    uploaded to the device in one blocking copy each (``mmpfn.sync.upload``)."""
     eps = [s.episode_indices() for s in samplers]
-    return tuple(torch.as_tensor(np.stack([e[i] for e in eps]), device=device) for i in (0, 1))
+    out = []
+    for i in (0, 1):
+        idx = np.stack([e[i] for e in eps])
+        with span("mmpfn.sync.upload"):
+            out.append(torch.as_tensor(idx, device=device))
+    return tuple(out)

@@ -36,6 +36,7 @@ from multimodalpfn_tpu_torch.parallel.mesh import (
     set_mesh,
     shard_axis,
 )
+from multimodalpfn_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -118,11 +119,17 @@ class GuardedOptimizer(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None) -> bool:
         """One update from the params' ``.grad`` (a missing one counts as
-        zero). Returns whether it was applied."""
+        zero). Returns whether it was applied. The finiteness check and the
+        clip's test each read a device value on the host: two host syncs
+        (spans ``mmpfn.sync.finite``, ``mmpfn.sync.clip``)."""
         if closure is not None:
             raise ValueError(f"{type(self).__name__}.step takes no closure")
         full = {id(p): full_grad(p) for p in self._all() if p.grad is not None}
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in full.values()]).all()) if full else True
+        finite = True
+        if full:
+            all_finite = torch.stack([torch.isfinite(g).all() for g in full.values()]).all()
+            with span("mmpfn.sync.finite"):
+                finite = bool(all_finite)
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         if not finite:
             self.total_notfinite += 1
@@ -133,7 +140,10 @@ class GuardedOptimizer(torch.optim.Optimizer):
             return True
         grads = [p.grad.float() if p.grad is not None else torch.zeros_like(p) for p in params]
         gnorm = global_norm(full[id(p)].float() if id(p) in full else torch.zeros_like(p) for p in params)
-        if not bool(gnorm < MAX_GRAD_NORM):  # optax: (g / ‖g‖) · max_norm
+        below = gnorm < MAX_GRAD_NORM
+        with span("mmpfn.sync.clip"):
+            below = bool(below)
+        if not below:  # optax: (g / ‖g‖) · max_norm
             grads = torch._foreach_mul(torch._foreach_div(grads, gnorm), MAX_GRAD_NORM)
         self.count += 1
         self._update(params, grads, float(self.param_groups[0]["lr"]))
@@ -330,20 +340,23 @@ def make_train_step(cfg: ModelConfig, loss_fn: Callable, mesh: DeviceMesh | None
         with set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
             if mesh is not None:
                 batch = local_batch(batch, mesh)
-            logits = forward_train_test(
-                state.params, cfg, batch.get("x_train"), batch["y_train"], batch.get("x_test"),
-                batch.get("image_train"), batch.get("image_test"),
-                train=True, generator=generator, feat_pos_noise=batch.get("feat_pos_noise"),
-                mgm_active=batch.get("mgm_active"),
-            )
-            loss = loss_fn(logits, batch["y_test"])
-            loss.backward()
-            loss = loss.detach()
-            if dp_group is not None:
-                loss = _dp_mean(leaves, loss, dp_group)
-            with torch.no_grad():
-                grad_norm = global_norm(full_grad(p) for p in leaves if p.grad is not None)
-            applied = state.optimizer.step()
+            with span("mmpfn.train.forward"):
+                logits = forward_train_test(
+                    state.params, cfg, batch.get("x_train"), batch["y_train"], batch.get("x_test"),
+                    batch.get("image_train"), batch.get("image_test"),
+                    train=True, generator=generator, feat_pos_noise=batch.get("feat_pos_noise"),
+                    mgm_active=batch.get("mgm_active"),
+                )
+                loss = loss_fn(logits, batch["y_test"])
+            with span("mmpfn.train.backward"):
+                loss.backward()
+                loss = loss.detach()
+                if dp_group is not None:
+                    loss = _dp_mean(leaves, loss, dp_group)
+            with span("mmpfn.train.optimizer"):
+                with torch.no_grad():
+                    grad_norm = global_norm(full_grad(p) for p in leaves if p.grad is not None)
+                applied = state.optimizer.step()
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm, "applied": applied}
 

@@ -3,8 +3,14 @@
 
 Phase timers that wait for the card before they read the clock, a
 `torch.profiler` trace context that writes a Chrome trace (Perfetto,
-chrome://tracing), the FLOPs of a call counted by
-`torch.utils.flop_counter`, and the bytes each CUDA device holds.
+chrome://tracing), the program's spans (`span`), the FLOPs of a call
+counted by `torch.utils.flop_counter`, and the bytes each CUDA device holds.
+
+The spans are named ``mmpfn.<layer>.<what>``: ``mmpfn.fit``,
+``mmpfn.predict.dispatch`` / ``.finalize``, ``mmpfn.preprocess.*``,
+``mmpfn.fit.preprocess``, ``mmpfn.forward``, ``mmpfn.cache.prime``,
+``mmpfn.kernels.build``, ``mmpfn.train.*``, and ``mmpfn.sync.<site>`` around
+each point where the host waits for the card.
 """
 
 from __future__ import annotations
@@ -69,6 +75,25 @@ class PhaseTimer:
 
     def log(self, level: int = logging.INFO) -> None:
         logger.log(level, "phase timings: %s", json.dumps(self.report()))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the block as the span ``name`` while a
+    `torch.profiler` records, and does nothing otherwise.
+
+    The span is a ``record_function`` range: an event of the profiler's own
+    trace, on the clock of the card's kernels and copies, nested in the
+    spans open on the calling thread (so the spans of one request nest in
+    its ``mmpfn.predict.dispatch`` and ``mmpfn.predict.finalize``). With no
+    profiler recording, the cost is one check of
+    ``torch.autograd._profiler_enabled()`` (an ungated ``record_function``
+    costs tens of times more)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

@@ -1148,3 +1148,54 @@ def test_padded_sweep_equals_unpadded_on_the_card(cuda, tmp_path, mixer_type):
         pb, pa = extract_run_params(both, r)[0], extract_run_params(alone, r)[0]
         for k, v in tparams.flatten_params(pa["mixer"]).items():
             torch.testing.assert_close(tparams.flatten_params(pb["mixer"])[k], v, rtol=0, atol=1e-9)
+
+
+def _small_classifier_base(tmp_path):
+    """A 2-layer, width-64 MGM+CAP classifier in the reference format, with
+    120 rows of 3 classes and a 96-wide image embedding a row."""
+    import numpy as np
+
+    from multimodalpfn_tpu_torch.datasets.synthetic import toy_classification
+    from multimodalpfn_tpu_torch.models.config import MixerConfig
+    from multimodalpfn_tpu_torch.models.loading import save_model
+
+    cfg = ModelConfig(emsize=64, nhead=4, nhid_factor=2, nlayers=2, n_out=10, max_num_classes=10,
+                      mixer=MixerConfig("MGM+CAP", mgm_heads=2, cap_heads=2, in_dim=96))
+    base = tmp_path / "base.ckpt"
+    save_model(base, tparams.init_params(torch.Generator().manual_seed(0), cfg), cfg)
+    X, y = toy_classification(n=120, n_classes=3, seed=6)
+    img = np.random.default_rng(6).standard_normal((120, 1, 96)).astype(np.float32)
+    return base, X, img, y
+
+
+@pytest.mark.parametrize("fit_mode", ["fit_preprocessors", "fit_with_cache"])
+def test_every_sync_of_a_warm_request_is_a_sync_span(cuda, tmp_path, fit_mode):
+    """PyTorch's sync debug mode, over two warm pipelined requests: every
+    sync it reports lies in a ``mmpfn.sync.*`` span, and every such span
+    holds exactly one (`tools/torch_sync_audit.py`)."""
+    from multimodalpfn_tpu_torch import MMPFNClassifier
+    from tools.torch_sync_audit import audit
+
+    base, X, img, y = _small_classifier_base(tmp_path)
+    clf = MMPFNClassifier(model_path=base, mixer_type="MGM+CAP", mgm_heads=2, cap_heads=2,
+                          n_estimators=4, device="cuda", fit_mode=fit_mode)
+    clf.fit(X[:90], img[:90], y[:90])
+    for _ in range(2):
+        clf.predict_proba_many([X[90:]] * 2, [img[90:]] * 2)
+    result = audit(lambda: clf.predict_proba_many([X[90:]] * 2, [img[90:]] * 2))
+    assert result.main_syncs() and result.unmatched() == [], result.report()
+
+
+def test_every_sync_of_a_warm_iteration_is_a_sync_span(cuda, tmp_path):
+    """The same over the warm iterations of a ``fine_tune_mmpfn`` call."""
+    from tools.torch_sync_audit import audit_finetune
+
+    base, X, img, y = _small_classifier_base(tmp_path)
+    iterations = audit_finetune(dict(
+        mixer_type="MGM+CAP", mgm_heads=2, cap_heads=2, features_per_group=1,
+        path_to_base_model=base, save_path_to_fine_tuned_model=tmp_path / "ft.ckpt",
+        finetuning_config={"max_steps": 5, "learning_rate": 1e-3},
+        X_train=X, image_train=img, y_train=y, random_seed=0, state_checkpoint_every=0), warm=2)
+    assert len(iterations) == 2
+    for it in iterations:
+        assert it.main_syncs() and it.unmatched() == [], it.report()
