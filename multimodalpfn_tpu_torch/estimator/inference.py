@@ -12,7 +12,9 @@ A predict splits into `dispatch_outputs`, which transforms the test rows and
 enqueues the device work without waiting for it, and `finalize_outputs`,
 which copies every group's logits to the host at once. A request stream
 (`MMPFNClassifier.predict_proba_many`) dispatches request N+1 before it
-finalizes request N, so host work overlaps device work.
+finalizes request N, so host work overlaps device work. Every upload of a
+predict goes through pinned memory without blocking (`_to_device`), so the
+copy of the logits is the only point where the host waits for the card.
 
 Each phase of a predict is a span (`utils.profiling.span`, named
 ``mmpfn.preprocess.*``, ``mmpfn.forward``), and each point where the host
@@ -38,7 +40,7 @@ from multimodalpfn_tpu_torch.models.config import ModelConfig
 from multimodalpfn_tpu_torch.models.params import get_subspace_noise
 from multimodalpfn_tpu_torch.models.transformer import forward, member_token_valid
 from multimodalpfn_tpu_torch.preprocess.ensemble import EnsembleConfig, fit_preprocessing
-from multimodalpfn_tpu_torch.utils.memory import split_batch_for_memory
+from multimodalpfn_tpu_torch.utils.memory import memory_budget, split_batch_for_memory
 from multimodalpfn_tpu_torch.utils.profiling import span
 
 
@@ -88,11 +90,16 @@ def _run_config(
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``; to a CUDA device through pinned memory
-    without blocking the host, so a dispatch does not wait for the card."""
+    without blocking the host, so a dispatch does not wait for the card. numpy
+    fills the pinned buffer on this thread: ``Tensor.pin_memory`` copies on
+    torch's thread pool, whose wake-up held the host for up to 10 ms on the
+    H100's host (PERF.md)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type != "cuda":
         return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.numpy()[...] = a
+    return pinned.to(device, non_blocking=True)
 
 
 def _fetch(pending: list[tuple[list[int], torch.Tensor]], n_members: int, pad_rows: int):
@@ -272,75 +279,86 @@ def _width_groups(members: Sequence[_Member], widths: Sequence[int]) -> dict[tup
     return groups
 
 
+def _train_side(
+    members: Sequence[_Member], idxs: Sequence[int], width: int, noise: np.ndarray | None,
+    device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """A planned group's train side on ``device``, uploaded without blocking:
+    its members' ``y_train`` ``(b, sep)``, their train rows padded to the
+    group's width ``(b, sep, width)`` (None image-only) and a merged group's
+    noise tables (None otherwise)."""
+    ys = _to_device(np.stack([members[i].y_train.astype(np.float32) for i in idxs]), device)
+    xs = None
+    if width >= 0:
+        xs = _to_device(np.stack([_pad_width(members[i].X_train, width) for i in idxs]), device)
+    return ys, xs, None if noise is None else _to_device(noise, device)
+
+
 def _group_and_run(
     params: dict,
     cfg: ModelConfig,
     members: Sequence[_Member],
-    X_tests: Sequence[np.ndarray | None],
+    X: np.ndarray | None,
     image_train: torch.Tensor | None,
     image_test: np.ndarray | None,
     *,
     autocast: bool,
     device: torch.device,
     use_kernels: bool | None = None,
+    train_sides: dict | None = None,
 ) -> list[np.ndarray]:
     """Stack members into batched forwards, one per planned group
     (`_plan_groups`); return per-member logits.
 
-    ``use_kernels`` (None = on a CUDA device) runs the item-major kernel path.
-    The uploads from pageable host memory block until the card has run
-    everything queued before them (spans ``mmpfn.sync.upload``)."""
+    The groups are planned from the members' fitted widths. Then each group in
+    turn, narrowest first, transforms its members' test rows ``X``, stacks and
+    uploads them and enqueues its forward, so the host transforms group k + 1
+    while the card runs group k. Every upload goes through pinned memory
+    without blocking (`_to_device`): the one host sync is the fetch.
+    ``train_sides`` keeps each group's train side (`_train_side`) on the device
+    from one call to the next for members that do not change (a fitted
+    engine's); None uploads it every call. ``use_kernels`` (None = on a CUDA
+    device) runs the item-major kernel path."""
     run_cfg, kernels = _run_config(cfg, autocast, device, use_kernels)
+    # asked once, before any work is queued: while the card runs, CUDA's
+    # free-memory query held the host for up to 47 ms (PERF.md)
+    budget = memory_budget(device)
 
-    n_test = None
-    if image_test is not None:
-        n_test = len(image_test)
-    for Xt in X_tests:
-        if Xt is not None:
-            n_test = len(Xt)
-            break
+    n_test = len(image_test) if X is None else len(X)
     pad_rows = _bucket_test_rows(n_test) - n_test
-    img_te = image_full = None
-    with span("mmpfn.preprocess.stack"):
-        X_tests = [None if Xt is None else _repeat_last_pad(Xt, pad_rows) for Xt in X_tests]
-        if image_train is not None and image_test is not None:
+    image_full = None
+    if image_train is not None and image_test is not None:
+        with span("mmpfn.preprocess.stack"):
             img_te = _repeat_last_pad(np.asarray(image_test, dtype=np.float32), pad_rows)
-    if img_te is not None:
-        with span("mmpfn.sync.upload"):
-            img_dev = torch.from_numpy(img_te).to(device)
-        image_full = torch.cat([image_train, img_dev], dim=0)[None]  # shared by members
+        # shared by the members
+        image_full = torch.cat([image_train, _to_device(img_te, device)], dim=0)[None]
 
-    groups = _width_groups(members, [-1 if Xt is None else Xt.shape[1] for Xt in X_tests])
     n_img_tokens = (
         0 if image_full is None else _mixer_token_count(cfg.mixer, image_full.shape[-2])
     )
-    plans = _plan_groups(groups, cfg, n_img_tokens, n_test + pad_rows)
+    widths = [-1 if m.X_train is None else m.X_train.shape[1] for m in members]
+    groups = _width_groups(members, widths)
+    # narrowest first: the card idles until the first forward is enqueued, and a
+    # group's host work before it (transform, stack, upload) grows with its width
+    plans = sorted(_plan_groups(groups, cfg, n_img_tokens, n_test + pad_rows), key=lambda p: p[1])
 
     pending: list[tuple[list[int], torch.Tensor]] = []
     for idxs, width, tab_valid, noise in plans:
         sep = len(members[idxs[0]].y_train)
-        with span("mmpfn.preprocess.stack"):
-            ys = torch.from_numpy(np.stack([members[i].y_train.astype(np.float32) for i in idxs]))
-            xs = None
-            if width >= 0:
-                xs = torch.from_numpy(
-                    np.stack(
-                        [
-                            _pad_width(
-                                np.concatenate(
-                                    [members[i].X_train, X_tests[i]], axis=0, dtype=np.float32
-                                ),
-                                width,
-                            )
-                            for i in idxs
-                        ]
-                    )
-                )
-        with span("mmpfn.sync.upload"):
-            ys = ys.to(device)
+        key = (tuple(idxs), width, n_img_tokens)
+        side = None if train_sides is None else train_sides.get(key)
+        if side is None:
+            with span("mmpfn.preprocess.stack"):
+                side = _train_side(members, idxs, width, noise, device)
+            if train_sides is not None:
+                train_sides[key] = side
+        ys, xs, noise = side
         if xs is not None:
-            with span("mmpfn.sync.upload"):
-                xs = xs.to(device)
+            with span("mmpfn.preprocess.transform"):
+                X_tests = [members[i].preprocessor.transform(X).X for i in idxs]
+            with span("mmpfn.preprocess.stack"):
+                a = np.stack([_pad_width(_repeat_last_pad(Xt, pad_rows), width) for Xt in X_tests])
+            xs = torch.cat([xs, _to_device(a, device)], dim=1)
         total_len = xs.shape[1] if xs is not None else image_full.shape[1]
         n_tokens = (0 if width < 0 else -(-width // cfg.features_per_group)) + n_img_tokens
         for chunk in split_batch_for_memory(
@@ -350,6 +368,7 @@ def _group_and_run(
             n_feature_tokens=n_tokens,
             device=device,
             kernels=kernels,
+            budget=budget,
         ):
             sl = slice(chunk.start, chunk.stop)
             with span("mmpfn.forward"):
@@ -362,7 +381,7 @@ def _group_and_run(
                     single_eval_pos=sep,
                     # the mask stays on the host: K6a checks it there, no sync
                     tab_valid=None if tab_valid is None else torch.from_numpy(tab_valid[sl]),
-                    feat_pos_noise=None if noise is None else _to_device(noise[sl], device),
+                    feat_pos_noise=None if noise is None else noise[sl],
                 )
             pending.append((idxs[sl], logits))
     return _fetch(pending, len(members), pad_rows)  # type: ignore[return-value]
@@ -403,26 +422,23 @@ class InferenceEngine:
         if self.image_train is None:
             return None
         if not hasattr(self, "_image_train_dev"):
-            img = torch.from_numpy(np.asarray(self.image_train, dtype=np.float32))
-            with span("mmpfn.sync.upload"):
-                self._image_train_dev = img.to(self.device)
+            self._image_train_dev = _to_device(
+                np.asarray(self.image_train, dtype=np.float32), self.device
+            )
         return self._image_train_dev
 
-    def _run(self, members, X, image_test):
-        with span("mmpfn.preprocess.transform"):
-            X_tests = [
-                None if m.X_train is None else m.preprocessor.transform(X).X for m in members
-            ]
+    def _run(self, members, X, image_test, train_sides=None):
         outs = _group_and_run(
             self.params,
             self.cfg,
             members,
-            X_tests,
+            X,
             self._image_train_device(),
             image_test,
             autocast=self.autocast,
             device=self.device,
             use_kernels=self.use_kernels,
+            train_sides=train_sides,
         )
         return [(o, m.config) for o, m in zip(outs, members)]
 
@@ -431,7 +447,11 @@ class InferenceEngine:
 class InferenceEngineCachePreprocessing(InferenceEngine):
     """Fit-time: member pipelines fitted once; predict transforms the test rows
     and runs batched forwards (reference `inference.py:204-351`, the only
-    multimodal engine there)."""
+    multimodal engine there). Its members are fixed at fit, so each planned
+    group's train side stays on the device from the first predict on
+    (``train_sides``)."""
+
+    train_sides: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def prepare(cls, X_train, y_train, image_train, *, cat_ix, params, cfg,
@@ -450,7 +470,7 @@ class InferenceEngineCachePreprocessing(InferenceEngine):
         )
 
     def iter_outputs(self, X, image_test):
-        return self._run(self.members, X, image_test)
+        return self._run(self.members, X, image_test, self.train_sides)
 
 
 @dataclass
@@ -522,20 +542,12 @@ class InferenceEngineCacheKV(InferenceEngineCachePreprocessing):
         caches = []
         for idxs, width, tab_valid, noise in plans:
             sep = len(self.members[idxs[0]].y_train)
-            ys = _to_device(np.stack([self.members[i].y_train.astype(np.float32) for i in idxs]),
-                            self.device)
-            xs = None
-            if width >= 0:
-                xs = _to_device(
-                    np.stack([_pad_width(self.members[i].X_train, width) for i in idxs]),
-                    self.device,
-                )
+            ys, xs, noise = _train_side(self.members, idxs, width, noise, self.device)
             n_tokens = (0 if width < 0 else -(-width // self.cfg.features_per_group)) + n_img_tokens
             token_valid = None
             if tab_valid is not None:
                 # on the host: K6b checks it there, no sync
                 token_valid = member_token_valid(torch.from_numpy(tab_valid), n_tokens + 1)
-            noise = None if noise is None else _to_device(noise, self.device)
             # the plain path materializes (b, t, h, sep, sep) scores
             for chunk in split_batch_for_memory(
                 len(idxs), run_cfg, seq_len=sep, n_feature_tokens=n_tokens,

@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from multimodalpfn_tpu_torch.models.config import MixerConfig, ModelConfig
-from multimodalpfn_tpu_torch.utils.profiling import span
 
 Params = dict
 
@@ -43,6 +42,16 @@ def _subspace_noise_cpu(model_seed: int, n_tokens: int, sub_dim: int) -> torch.T
     return torch.randn((n_tokens, sub_dim), generator=gen)
 
 
+@functools.lru_cache(maxsize=1024)
+def _subspace_noise_on(
+    model_seed: int, n_tokens: int, sub_dim: int, device: torch.device
+) -> torch.Tensor:
+    noise = _subspace_noise_cpu(model_seed, n_tokens, sub_dim)
+    if device.type != "cuda":
+        return noise.to(device)
+    return noise.pin_memory().to(device, non_blocking=True)
+
+
 def get_subspace_noise(
     model_seed: int, n_tokens: int, sub_dim: int, device: torch.device | str = "cpu"
 ) -> torch.Tensor:
@@ -51,17 +60,19 @@ def get_subspace_noise(
 
     The reference re-seeds a generator with ``model_seed`` on every forward and
     draws ``randn(f, emsize//4)``: a constant per (seed, shape). The draw is
-    always made with the CPU generator and moved to ``device`` afterwards: a
-    CUDA generator gives other numbers, and with them other predictions. CPU
-    draws are not prefix-stable across shapes, so the exact shape is drawn.
-    The copy to a card is from pageable memory: the host waits for the card
-    to run everything queued before it (the span ``mmpfn.sync.upload``).
+    always made with the CPU generator: a CUDA generator gives other numbers,
+    and with them other predictions. CPU draws are not prefix-stable across
+    shapes, so the exact shape is drawn. On another device the table is kept,
+    one tensor per (seed, shape, device), uploaded once through pinned memory
+    without blocking the host; callers must not write to it.
     """
-    noise = _subspace_noise_cpu(int(model_seed), int(n_tokens), int(sub_dim))
-    if torch.device(device).type == "cpu":
-        return noise
-    with span("mmpfn.sync.upload"):
-        return noise.to(device)
+    key = (int(model_seed), int(n_tokens), int(sub_dim))
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _subspace_noise_cpu(*key)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _subspace_noise_on(*key, device)
 
 
 # ---------------------------------------------------------------------------

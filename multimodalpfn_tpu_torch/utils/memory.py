@@ -56,6 +56,11 @@ def estimate_forward_bytes(
     return int(3 * state + attn_scores + mlp_hidden)
 
 
+def memory_budget(device: torch.device | str) -> int:
+    """The bytes a forward may take: 80% of the device's free memory."""
+    return int(device_memory_bytes(device) * 0.8)
+
+
 def split_batch_for_memory(
     batch: int,
     cfg,
@@ -67,9 +72,9 @@ def split_batch_for_memory(
     kv_len: int | None = None,
     budget: int | None = None,
 ) -> Iterator[range]:
-    """Yield batch ranges sized to fit the device memory budget (80% of the
-    free memory unless ``budget`` is given)."""
-    budget = budget if budget is not None else int(device_memory_bytes(device) * 0.8)
+    """Yield batch ranges sized to fit the device memory budget
+    (`memory_budget` unless ``budget`` is given)."""
+    budget = budget if budget is not None else memory_budget(device)
     per_one = max(
         estimate_forward_bytes(
             cfg,

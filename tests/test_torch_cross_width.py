@@ -161,20 +161,20 @@ def test_masked_forward_matches_jax(case_name, path):
 
 def _members(widths, sep, seed):
     """Members of the given widths over one shared source table, whose
-    preprocessors hand back their own columns of the test rows."""
+    preprocessors hand back their own columns of the test rows; and the
+    test rows."""
     rng = np.random.default_rng(seed)
     X_full = rng.normal(size=(sep + 9, max(widths) + 1)).astype(np.float32)
     y = rng.integers(0, 3, size=(sep,)).astype(np.float32)
-    members, X_tests = [], []
-    for w in widths:
-        Xw = X_full[:, :w]
-        members.append(inf._Member(
+    members = [
+        inf._Member(
             config=None,
-            preprocessor=SimpleNamespace(transform=lambda X, Xw=Xw: SimpleNamespace(X=Xw[sep:])),
-            X_train=Xw[:sep], y_train=y, cat_ix=None,
-        ))
-        X_tests.append(Xw[sep:])
-    return members, X_tests
+            preprocessor=SimpleNamespace(transform=lambda X, w=w: SimpleNamespace(X=X[:, :w])),
+            X_train=X_full[:sep, :w], y_train=y, cat_ix=None,
+        )
+        for w in widths
+    ]
+    return members, X_full[sep:]
 
 
 def _case_image(case_name, sep, seed):
@@ -190,14 +190,14 @@ def test_merged_group_matches_split_groups_full_forward(case_name, path, monkeyp
     case = GoldenCase(case_name)
     params = tparams.params_from_jax(jax.device_get(case.params()))
     cfg = to_port_config(case.cfg)
-    members, X_tests = _members([5, 3, 4], sep=24, seed=0)
+    members, X_test = _members([5, 3, 4], sep=24, seed=0)
     img_tr, img_te = _case_image(case_name, 24, seed=3)
     use_kernels = path == "kernels"
 
     def run(force):
         monkeypatch.setattr(inf, "_FORCE_MERGE", force)
         return inf._group_and_run(
-            params, cfg, members, X_tests, None if img_tr is None else torch.from_numpy(img_tr),
+            params, cfg, members, X_test, None if img_tr is None else torch.from_numpy(img_tr),
             img_te, autocast=False, device=torch.device("cpu"), use_kernels=use_kernels)
 
     for m, s in zip(run(True), run(False)):
@@ -210,7 +210,7 @@ def test_merged_group_matches_split_groups_cachekv(case_name, path, monkeypatch)
     case = GoldenCase(case_name)
     params = tparams.params_from_jax(jax.device_get(case.params()))
     cfg = to_port_config(case.cfg)
-    members, _ = _members([5, 3, 4], sep=24, seed=1)
+    members, X_test = _members([5, 3, 4], sep=24, seed=1)
     img_tr, img_te = _case_image(case_name, 24, seed=4)
 
     def run(force):
@@ -220,7 +220,7 @@ def test_merged_group_matches_split_groups_cachekv(case_name, path, monkeypatch)
             device=torch.device("cpu"), use_kernels=path == "kernels")
         eng._prime()
         assert len(eng.caches) == (1 if force else 3)
-        return [o for o, _ in eng.iter_outputs(None, img_te)]
+        return [o for o, _ in eng.iter_outputs(X_test, img_te)]
 
     for m, s in zip(run(True), run(False)):
         np.testing.assert_allclose(m, s, **MERGE_TOL)

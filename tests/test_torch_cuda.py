@@ -1172,7 +1172,9 @@ def _small_classifier_base(tmp_path):
 def test_every_sync_of_a_warm_request_is_a_sync_span(cuda, tmp_path, fit_mode):
     """PyTorch's sync debug mode, over two warm pipelined requests: every
     sync it reports lies in a ``mmpfn.sync.*`` span, and every such span
-    holds exactly one (`tools/torch_sync_audit.py`)."""
+    holds exactly one (`tools/torch_sync_audit.py`). A fitted
+    ``fit_preprocessors`` request waits for the card once, at its fetch,
+    and opens no upload span."""
     from multimodalpfn_tpu_torch import MMPFNClassifier
     from tools.torch_sync_audit import audit
 
@@ -1184,10 +1186,26 @@ def test_every_sync_of_a_warm_request_is_a_sync_span(cuda, tmp_path, fit_mode):
         clf.predict_proba_many([X[90:]] * 2, [img[90:]] * 2)
     result = audit(lambda: clf.predict_proba_many([X[90:]] * 2, [img[90:]] * 2))
     assert result.main_syncs() and result.unmatched() == [], result.report()
+    if fit_mode == "fit_preprocessors":
+        assert [s.span.name for s in result.main_syncs()] == ["mmpfn.sync.fetch"] * 2, result.report()
+        assert not [s for s in result.spans if s.name == "mmpfn.sync.upload"], result.report()
+
+
+def test_subspace_noise_is_kept_on_the_card(cuda):
+    """The table on the card holds the CPU draw's bits, one tensor for a
+    (seed, tokens, width, card) however the card is named."""
+    from multimodalpfn_tpu_torch.models.params import get_subspace_noise
+
+    got = get_subspace_noise(7, 31, 48, device="cuda")
+    assert got.device == torch.device("cuda", torch.cuda.current_device())
+    assert torch.equal(got.cpu(), get_subspace_noise(7, 31, 48))
+    assert get_subspace_noise(7, 31, 48, device=torch.device("cuda", torch.cuda.current_device())) is got
+    assert get_subspace_noise(7, 30, 48, device="cuda") is not got
 
 
 def test_every_sync_of_a_warm_iteration_is_a_sync_span(cuda, tmp_path):
-    """The same over the warm iterations of a ``fine_tune_mmpfn`` call."""
+    """The same over the warm iterations of a ``fine_tune_mmpfn`` call, none
+    of whose syncs is the upload of a noise table (kept on the card)."""
     from tools.torch_sync_audit import audit_finetune
 
     base, X, img, y = _small_classifier_base(tmp_path)
@@ -1199,3 +1217,4 @@ def test_every_sync_of_a_warm_iteration_is_a_sync_span(cuda, tmp_path):
     assert len(iterations) == 2
     for it in iterations:
         assert it.main_syncs() and it.unmatched() == [], it.report()
+        assert not [s for s in it.main_syncs() if "get_subspace_noise" in s.site], it.report()

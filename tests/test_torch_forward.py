@@ -210,3 +210,20 @@ def test_subspace_noise_matches_jax_package(seed):
     want = jparams.get_subspace_noise(seed, 9, 8)
     got = tparams.get_subspace_noise(seed, 9, 8)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_subspace_noise_is_one_tensor_per_device(seed, device):
+    """The CPU draw's values (seed 0 from the unseeded generator), one kept
+    tensor for each (seed, tokens, width, device)."""
+    gen = torch.Generator()
+    if seed:
+        gen.manual_seed(seed)
+    draw = torch.randn((9, 8), generator=gen)
+    got = tparams.get_subspace_noise(seed, 9, 8, device=device)
+    assert got.device.type == device and got.shape == draw.shape
+    if device == "cpu":
+        assert torch.equal(got, draw)
+    assert tparams.get_subspace_noise(seed, 9, 8, device=torch.device(device)) is got
+    assert tparams.get_subspace_noise(seed, 10, 8, device=device) is not got

@@ -78,17 +78,16 @@ def main() -> int:
     def members(widths, sep, n_test):
         X = rng.normal(size=(sep + n_test, max(widths))).astype(np.float32)
         y = rng.integers(0, 10, size=sep).astype(np.float32)
-        ms, X_tests = [], []
-        for w in widths:
-            ms.append(inf._Member(config=None, preprocessor=None, X_train=X[:sep, :w], y_train=y,
-                                  cat_ix=None))
-            X_tests.append(X[sep:, :w])
+        ms = [inf._Member(config=None, X_train=X[:sep, :w], y_train=y, cat_ix=None,
+                          preprocessor=SimpleNamespace(
+                              transform=lambda X, w=w: SimpleNamespace(X=X[:, :w])))
+              for w in widths]
         img = rng.normal(size=(sep + n_test, 1, 768)).astype(np.float32)
-        return ms, X_tests, torch.from_numpy(img[:sep]).to(device), img[sep:]
+        return ms, X[sep:], torch.from_numpy(img[:sep]).to(device), img[sep:]
 
-    def timed(ms, X_tests, img_tr, img_te, force) -> float:
+    def timed(ms, X_test, img_tr, img_te, force) -> float:
         inf._FORCE_MERGE = force
-        run = lambda: inf._group_and_run(params, cfg, ms, X_tests, img_tr, img_te,  # noqa: E731
+        run = lambda: inf._group_and_run(params, cfg, ms, X_test, img_tr, img_te,  # noqa: E731
                                          autocast=True, device=device)
         run(), run()  # warm: every shape seen
         out = []
