@@ -51,6 +51,7 @@ from multimodalpfn_tpu_torch.ops.fused import (
     fused_mlp_ln,
     ln_rows,
 )
+from multimodalpfn_tpu_torch.utils.profiling import span
 
 
 class EncoderStats(NamedTuple):
@@ -198,7 +199,8 @@ def _embed(params, cfg, stats, x, image, b, n_feature_tokens=None, feat_pos_nois
         xg = _group_features(x.float(), cfg.features_per_group)
         embedded_x = apply_encoder(params["encoder"], cfg, stats, xg)
     if image is not None:
-        tokens = apply_mixer(params["mixer"], cfg.mixer, image.float())
+        with span("mmpfn.forward.mixer"):
+            tokens = apply_mixer(params["mixer"], cfg.mixer, image.float())
         if tokens.shape[0] == 1 and b > 1:
             # members share the image: the mixer runs once and its tokens broadcast
             tokens = tokens.expand(b, *tokens.shape[1:])

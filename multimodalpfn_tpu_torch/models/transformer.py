@@ -42,6 +42,7 @@ from multimodalpfn_tpu_torch.ops.fused import (
 from multimodalpfn_tpu_torch.ops.item_fused import fused_item_sublayer
 from multimodalpfn_tpu_torch.ops.kernels import needs_grad
 from multimodalpfn_tpu_torch.parallel.mesh import gather_leaf, shard_axis
+from multimodalpfn_tpu_torch.utils.profiling import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -338,8 +339,9 @@ def _forward_impl(
     # multimodal mixer tokens appended on the feature axis (transformer.py:755-768)
     n_img_tokens, active_img = 0, None
     if image is not None:
-        tokens = apply_mixer(params["mixer"], cfg.mixer, image.float(), train=train,
-                             generator=generator, mgm_active=mgm_active)
+        with span("mmpfn.forward.mixer"):
+            tokens = apply_mixer(params["mixer"], cfg.mixer, image.float(), train=train,
+                                 generator=generator, mgm_active=mgm_active)
         n_img_tokens = tokens.shape[-2]
         # MGM+CAP emits cap_heads tokens whatever the padding: no mask there
         if mgm_active is not None and cfg.mixer.mixer_type == "MGM":

@@ -8,7 +8,8 @@ counted by `torch.utils.flop_counter`, and the bytes each CUDA device holds.
 
 The spans are named ``mmpfn.<layer>.<what>``: ``mmpfn.fit``,
 ``mmpfn.predict.dispatch`` / ``.finalize``, ``mmpfn.preprocess.*``,
-``mmpfn.fit.preprocess``, ``mmpfn.forward``, ``mmpfn.cache.prime``,
+``mmpfn.fit.preprocess``, ``mmpfn.forward`` (the mixer in it:
+``mmpfn.forward.mixer``), ``mmpfn.cache.prime``,
 ``mmpfn.kernels.build``, ``mmpfn.train.*``, and ``mmpfn.sync.<site>`` around
 each point where the host waits for the card.
 """

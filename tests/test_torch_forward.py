@@ -60,18 +60,25 @@ MIXERS = {
     "mgm_cap": JMixerConfig(mixer_type="MGM+CAP", mgm_heads=2, cap_heads=4, in_dim=64),
     "mgm_only": JMixerConfig(mixer_type="MGM", mgm_heads=2, cap_heads=4, in_dim=64),
     "tabular": JMixerConfig(),
+    # PetFinder's image+text shape (portbench's mmpfn-clf-petfinder-mgmcap32x24)
+    # at its published widths: MGM 32 / CAP 24 over two embedding tokens a
+    # row, 19 features two a group (the last group half filled)
+    "petfinder": JMixerConfig(mixer_type="MGM+CAP", mgm_heads=32, cap_heads=24, in_dim=64),
 }
+# a mixer case's model and input options over the defaults of `test_forward_matches_jax`
+SHAPES = {"petfinder": (dict(emsize=192, nhead=6, features_per_group=2), dict(F=19, n_img=2))}
 
 
 @pytest.mark.parametrize("path", sorted(PATHS))
 @pytest.mark.parametrize("mixer", sorted(MIXERS))
 def test_forward_matches_jax(mixer, path):
+    cfg_kw, input_kw = SHAPES.get(mixer, ({}, {}))
     jcfg = JModelConfig(
-        emsize=32, nhead=4, nhid_factor=2, nlayers=2, n_out=5,
+        **(dict(emsize=32, nhead=4) | cfg_kw), nhid_factor=2, nlayers=2, n_out=5,
         mixer=MIXERS[mixer], compute_dtype="float32", model_seed=3,
     )
     tree = jax_param_tree(jcfg, seed=1)
-    x, y, img = _inputs(2, image=mixer != "tabular")
+    x, y, img = _inputs(2, image=mixer != "tabular", **input_kw)
     want = np.asarray(jforward(tree, jcfg, x, y, img, single_eval_pos=y.shape[1]))
     got = forward(
         tparams.params_from_jax(tree),

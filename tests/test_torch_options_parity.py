@@ -13,6 +13,9 @@ which other tests leave at their defaults.
   estimator's own params (``save_npz``). The classifier also with MGM, on
   the image alone, ``categorical_features_indices=[0, 2]``, 1 and 9
   members, ``fit_with_cache`` with 3 members and ``random_state=7``.
+* ``MMPFNClassifier`` with PetFinder's serving options: preprocessing off,
+  ``ignore_pretraining_limits`` past a lowered row limit, features two a
+  group and two embedding tokens a row, in both fit modes.
 * ``fine_tune_batched_cells`` with binary ``log_loss`` and ``roc_auc``,
   multiclass ``f1``, and regression ``rmse`` and ``mae``, 2 seeds × 3
   steps: losses and validation errors within 1e-5 relative, with the JAX
@@ -39,13 +42,14 @@ LOSS_REL = 1e-5
 BORDERS = np.linspace(-12, 12, 5001).astype(np.float32)
 
 
-def _write_ckpt(path, regression: bool, mixer_type: str = "MGM+CAP") -> str:
+def _write_ckpt(path, regression: bool, mixer_type: str = "MGM+CAP", features_per_group: int = 1) -> str:
     """A 2-layer width-32 model with its ``mixer_type`` mixer (2 MGM heads or
-    experts, 4 CAP heads) over 64-wide embeddings, in the reference format,
-    written by the JAX package."""
+    experts, 4 CAP heads) over 64-wide embeddings, its features
+    ``features_per_group`` a group, in the reference format, written by the
+    JAX package."""
     from multimodalpfn_tpu.models.loading import save_model
 
-    cfg = JModelConfig(emsize=32, nhead=4, nhid_factor=2, nlayers=2,
+    cfg = JModelConfig(emsize=32, nhead=4, nhid_factor=2, nlayers=2, features_per_group=features_per_group,
                        n_out=5000 if regression else 10, max_num_classes=0 if regression else 10,
                        **({"num_buckets": 5000} if regression else {}),
                        mixer=JMixerConfig(mixer_type, mgm_heads=2, cap_heads=4, in_dim=64))
@@ -60,8 +64,10 @@ def _write_ckpt(path, regression: bool, mixer_type: str = "MGM+CAP") -> str:
 @pytest.fixture(scope="module")
 def ckpts(tmp_path_factory):
     d = tmp_path_factory.mktemp("ckpts")
-    return {(kind, mixer): _write_ckpt(d / f"{kind}_{mixer}.ckpt", kind == "regressor", mixer)
-            for kind in ("classifier", "regressor") for mixer in ("MGM+CAP", "MoE")}
+    out = {(kind, mixer): _write_ckpt(d / f"{kind}_{mixer}.ckpt", kind == "regressor", mixer)
+           for kind in ("classifier", "regressor") for mixer in ("MGM+CAP", "MoE")}
+    out["classifier_fpg2", "MGM+CAP"] = _write_ckpt(d / "classifier_fpg2.ckpt", False, "MGM+CAP", 2)
+    return out
 
 
 def _data(task: str, n: int = 100):
@@ -159,6 +165,47 @@ def test_more_classifier_options_match_jax(case, ckpts, tmp_path):
     save_npz(npz, jax.device_get(jclf.params_), jclf.config_)
     got = MMPFNClassifier(model_path=str(npz), device="cpu", **kw).fit(*train, y[:75]).predict_proba(*test)
     assert got.shape == want.shape == (25, 3)
+    np.testing.assert_allclose(got, want, atol=PROBA_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("fit_mode", MODES)
+def test_petfinder_shaped_classifier_matches_jax(fit_mode, ckpts, tmp_path):
+    """PetFinder's serving options (portbench's mmpfn-clf-petfinder-mgmcap32x24,
+    `hpo/experiment._accuracy`): preprocessing off with no fingerprint,
+    ``ignore_pretraining_limits`` past a lowered row limit, five features two
+    a group (the last half filled), and two embedding tokens a row (image and
+    text), on an fpg-2 MGM+CAP checkpoint."""
+    from multimodalpfn_tpu import MMPFNClassifier as JMMPFNClassifier
+    from multimodalpfn_tpu.preprocess.ensemble import PreprocessorConfig as JPreprocessorConfig
+    from multimodalpfn_tpu_torch import MMPFNClassifier
+    from multimodalpfn_tpu_torch.preprocess.ensemble import PreprocessorConfig
+
+    X, img, y = _data("multiclass")
+    X = X[:, :5]
+    img = np.concatenate([img, img[::-1] + np.random.default_rng(1).normal(size=img.shape)], axis=1)
+    img = img.astype(np.float32)
+    assert img.shape == (100, 2, 64)
+
+    def options(preprocessor) -> dict:
+        return dict(mgm_heads=2, cap_heads=4, n_estimators=4, random_state=0, features_per_group=2,
+                    categorical_features_indices=[2, 4], fit_mode=fit_mode, mixer_type="MGM+CAP",
+                    ignore_pretraining_limits=True,
+                    inference_config={"FINGERPRINT_FEATURE": False, "MAX_NUMBER_OF_SAMPLES": 50,
+                                      "PREPROCESS_TRANSFORMS": [preprocessor(name="none")]})
+
+    path = ckpts["classifier_fpg2", "MGM+CAP"]
+    with pytest.warns(UserWarning, match="exceeds the maximum"):
+        jclf = JMMPFNClassifier(model_path=path, **options(JPreprocessorConfig)).fit(X[:75], img[:75], y[:75])
+    want = jclf.predict_proba(X[75:], img[75:])
+    npz = tmp_path / "from_jax.npz"
+    save_npz(npz, jax.device_get(jclf.params_), jclf.config_)
+    clf = MMPFNClassifier(model_path=str(npz), device="cpu", **options(PreprocessorConfig))
+    with pytest.warns(UserWarning, match="exceeds the maximum"):
+        clf.fit(X[:75], img[:75], y[:75])
+    assert clf.config_.features_per_group == 2
+    got = clf.predict_proba(X[75:], img[75:])
+    assert got.shape == want.shape == (25, 3)
+    assert float(np.ptp(want[:, 0])) > 1e-3  # the answers depend on the rows
     np.testing.assert_allclose(got, want, atol=PROBA_ATOL, rtol=0)
 
 

@@ -81,6 +81,27 @@ def test_predict_spans_nest_in_the_request(small_ckpt, fit_mode):
     assert _inside(fetch, dispatch if fit_mode == "fit_preprocessors" else finalize)
 
 
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("fit_mode", ENGINES)
+def test_the_mixer_is_one_span_in_each_forward(small_ckpt, monkeypatch, fit_mode, split):
+    """Each ``mmpfn.forward`` holds exactly one ``mmpfn.forward.mixer``, in
+    both forwards; with ``split`` the memory budget holds one member, so a
+    request's members run as several forwards, each a span of its own."""
+    from multimodalpfn_tpu_torch.estimator import inference
+    from multimodalpfn_tpu_torch.utils import memory
+
+    clf, X_te, img_te = _fitted(small_ckpt, fit_mode)
+    if split:
+        for mod in (inference, memory):
+            monkeypatch.setattr(mod, "memory_budget", lambda device: 1)
+    spans = _spans(lambda: clf.predict_proba(X_te, img_te))
+    forwards, mixers = _named(spans, "mmpfn.forward"), _named(spans, "mmpfn.forward.mixer")
+    assert forwards and (not split or len(forwards) == clf.n_estimators)
+    for f in forwards:
+        assert len([m for m in mixers if _inside(m, f)]) == 1
+    assert len(mixers) == len(forwards)
+
+
 def test_predict_many_pipelines_its_requests(small_ckpt):
     clf, X_te, img_te = _fitted(small_ckpt, "fit_with_cache")
     n = 4
